@@ -4,16 +4,19 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version on the card, and drives the
-port's main path — guarded packed block-ELL GCN serving — at the published
-widths of Cora's 2-layer GCN (1433 -> 16 -> 7), through the entry points a
-user would call.  Any phase that fails raises and the run exits non-zero;
-without a CUDA device it exits non-zero before printing anything.
+holds each against its plain PyTorch version on the card (and the
+whole-network kernel bit for bit against a chain of single-layer launches),
+and drives the port's main paths — guarded packed block-ELL GCN serving
+(two-pass, fused-layer and whole-network), the stripe/slot repair tiers and
+the streaming server — at the published widths of Cora's 2-layer GCN
+(1433 -> 16 -> 7), through the entry points a user would call.  Any phase
+that fails raises and the run exits non-zero; without a CUDA device it exits
+non-zero before printing anything.
 
 One JSON object per phase is printed (``env``, ``build``, ``kernel_checks``,
-``serve``, ``fault``, ``full_graph``), then the ``kernels`` summary line, the
-card's name and power limit as ``nvidia-smi`` gives them, and a last line
-``{"ok": true, "device": {...}}``.
+``serve``, ``fault``, ``stream``, ``full_graph``), then the ``kernels``
+summary line, the card's name and power limit as ``nvidia-smi`` gives them,
+and a last line ``{"ok": true, "device": {...}}``.
 
 Bounds use the published peaks of an H100 SXM: 3.35 TB/s of device memory
 and 67 TFLOP/s in float32 outside the tensor cores.
@@ -36,6 +39,9 @@ PEAK_F32_FLOPS = 67e12
 DIMS = (1433, 16, 7)
 SERVE = dict(n_graphs=16, n_lo=1500, n_hi=2708, avg_deg=4, batch=8,
              block=128, stripe_multiple=4, width_multiple=4, seed=0)
+# the streaming server: the same generator, rungs planned from the first
+# `profile` requests (the closed-batch phases' stream)
+STREAM = dict(n_requests=32, profile=16, n_slots=4)
 OUT_ATOL = OUT_RTOL = 1e-4       # kernel vs plain version, every output
 CORNER_RTOL = 1e-4               # clean |pred - actual| / max(1, |actual|)
 LOGIT_ATOL = 1e-4                # vs the float64 dense forward
@@ -203,17 +209,150 @@ def check_fused(torch, cols, vals, h, w, wr, tag):
     return worst
 
 
+def b2_chain(torch, cols, vals, h0, wps, wrps, dims, inject=None,
+             with_check=True):
+    """The port's single-layer chain: one gcn_fused launch per layer with
+    its slot telescopes, ReLU between layers — what the whole-network kernel
+    must equal bit for bit.  Returns the network kernel's outputs."""
+    from repro_torch.kernels.gcn_fused.kernel import gcn_fused_kernel
+    h, tas, tps, acts = h0, [], [], []
+    for ell, (w, wr) in enumerate(zip(wps, wrps)):
+        hook = tuple(inject[1:]) if inject is not None \
+            and inject[0] == ell else None
+        o, _s, _e, sa, sp = gcn_fused_kernel(cols, vals, h, w, wr,
+                                             inject=hook,
+                                             with_check=with_check,
+                                             with_slots=True)
+        tas.append(sa)
+        tps.append(sp)
+        if ell < len(wps) - 1:
+            h = torch.relu(o[:, :dims[ell + 1]]).contiguous()
+            acts.append(h)
+    return o, torch.stack(tas), torch.stack(tps), tuple(acts)
+
+
+def check_network(torch, cols, vals, h0, wps, wrps, tag):
+    """gcn_network kernel vs plain (clean, injected at the first and the
+    last layer, unchecked, stashing), and bit for bit vs the B2 chain on
+    the same operands; returns the max abs error against the plain
+    version."""
+    from repro_torch.kernels.gcn_fused.kernel import (_check_network_shapes,
+                                                      gcn_network_kernel,
+                                                      gcn_network_plain)
+    dims = _check_network_shapes(cols, vals, h0, wps, wrps)
+    nbm, width = cols.shape
+    last = len(wps) - 1
+    names = ("out", "tele_acts", "tele_preds")
+    worst = 0.0
+    cases = [dict(), dict(inject=(0, nbm // 2, width // 2, 3.0)),
+             dict(inject=(last, 1, 0, -2.0), stash_acts=True),
+             dict(with_check=False), dict(stash_acts=True)]
+    for kw in cases:
+        got = gcn_network_kernel(cols, vals, h0, wps, wrps, **kw)
+        torch.cuda.synchronize()
+        want = gcn_network_plain(cols, vals, h0, wps, wrps, **kw)
+        for name, g_, w_ in zip(names, got[:3], want[:3]):
+            worst = max(worst, assert_close(
+                f"gcn_network[{tag}] {name} {kw}", g_, w_))
+        if kw.get("stash_acts"):
+            if got[3] is None or len(got[3]) != last:
+                raise AssertionError(f"gcn_network[{tag}] {kw}: stash "
+                                     f"{got[3]!r}")
+            for ell, (g_, w_) in enumerate(zip(got[3], want[3])):
+                worst = max(worst, assert_close(
+                    f"gcn_network[{tag}] acts[{ell}] {kw}", g_, w_))
+        elif got[3] is not None:
+            raise AssertionError(f"gcn_network[{tag}]: stashed unasked")
+        if kw.get("with_check") is False and float(got[2].abs().max()) != 0:
+            raise AssertionError(f"gcn_network[{tag}]: with_check=False "
+                                 f"left the pred telescopes non-zero")
+        chain = b2_chain(torch, cols, vals, h0, wps, wrps, dims,
+                         inject=kw.get("inject"),
+                         with_check=kw.get("with_check", True))
+        pairs = list(zip(names, got[:3], chain[:3]))
+        if got[3] is not None:
+            pairs += [(f"acts[{ell}]", g_, c_)
+                      for ell, (g_, c_) in enumerate(zip(got[3], chain[3]))]
+        for name, g_, c_ in pairs:
+            if not torch.equal(g_, c_):
+                raise AssertionError(
+                    f"gcn_network[{tag}] {name} {kw}: not bit for bit the "
+                    f"B2 chain (max abs diff {max_err(g_, c_):.3e})")
+    return worst
+
+
+def schedule_entry(n_bytes: int) -> dict:
+    """The traffic a kernel's own tile schedule asks for (the
+    ``schedule_bytes_*`` models of ``kernels/gcn_fused/ops.py``) and its
+    time at the card's memory rate — beside ``bound_ms``, which counts
+    every input once."""
+    return dict(schedule_bytes=n_bytes,
+                schedule_ms=n_bytes / PEAK_BYTES_PER_S * 1e3)
+
+
+def network_entry(torch, cols, vals, h0, wps, wrps, segments, n_slots,
+                  bell, err):
+    """Time gcn_network at the main path's packed shape beside the B2 chain
+    and the plain version, with its bound; returns the kernels-line entry."""
+    from repro_torch.kernels.gcn_fused.kernel import (_check_network_shapes,
+                                                      gcn_network_kernel,
+                                                      gcn_network_plain)
+    from repro_torch.kernels.gcn_fused.ops import (_network_checks,
+                                                   schedule_bytes_network)
+    dims = _check_network_shapes(cols, vals, h0, wps, wrps)
+    nbm, width, bm, bk = vals.shape
+    tiles = nbm * width
+    rows = h0.shape[0]
+    out, ta, tp, _ = gcn_network_kernel(cols, vals, h0, wps, wrps)
+    rel = max(corner_rel(c.predicted, c.actual) for c in _network_checks(
+        ta, tp, "graph", segments, n_slots))
+    if not rel <= CORNER_RTOL:
+        raise AssertionError(f"gcn_network: clean corner divergence "
+                             f"{rel:.3e} over {CORNER_RTOL}")
+    ms = time_ms(lambda: gcn_network_kernel(cols, vals, h0, wps, wrps),
+                 reps=5)
+    chain_ms = time_ms(lambda: b2_chain(torch, cols, vals, h0, wps, wrps,
+                                        dims), reps=5)
+    plain_ms = time_ms(lambda: gcn_network_plain(cols, vals, h0, wps, wrps),
+                       warm=1, reps=2)
+    # each input read once, each output (logits, telescopes) written once
+    n_bytes = nbytes(cols, vals, h0, *wps, *wrps) + nbytes(out, ta, tp)
+    # least work: per layer the combination once over the rows, then the
+    # aggregation per stored tile, each with its check column
+    n_ops = sum(2 * rows * w.shape[0] * (w.shape[1] + 1)
+                + 2 * tiles * bm * bk * (w.shape[1] + 1) for w in wps)
+    t_b = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_o = n_ops / PEAK_F32_FLOPS * 1e3
+    return dict(
+        name="gcn_network", route="cuda",
+        source="src/repro_torch/kernels/csrc/gcn_network.cu",
+        replaces="src/repro/kernels/gcn_fused/kernel.py:256",
+        max_abs_err=err, max_rel_corner=rel, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o
+        else "operations", library_ms=None,
+        library_note="no single PyTorch call computes an L-layer GCN with "
+                     "per-layer carried columns and slot telescopes",
+        b2_chain_ms=chain_ms,
+        **schedule_entry(schedule_bytes_network(bell, dims)),
+        grid=gcn_network_kernel.last_grid, dims=dims,
+        shape=dict(nbm=nbm, width=width, bm=bm, bk=bk, stored_tiles=tiles),
+        bytes=n_bytes, flops=n_ops)
+
+
 def phase_kernels(torch, batches, params):
-    """Hold both kernels against their plain versions at the main path's
-    shapes (both layers of the Cora-width packed batch), and at block 32;
-    time them at the layer-0 shapes."""
+    """Hold every kernel against its plain version at the main path's
+    shapes (both layers of the Cora-width packed batch; the whole network),
+    and at block 32; time them at the layer-0 shapes (the network whole)."""
     from repro_torch.analysis.vmem import _lanes
     from repro_torch.core.abft import ABFTConfig
     from repro_torch.engine import fold_w_r
     from repro_torch.engine.streaming import packed_step_args
     from repro_torch.kernels.gcn_fused.kernel import (gcn_fused_kernel,
                                                       gcn_fused_plain)
-    from repro_torch.kernels.gcn_fused.ops import _pad_weights
+    from repro_torch.kernels.gcn_fused.ops import (_network_weights,
+                                                   _pad_weights,
+                                                   schedule_bytes_fused,
+                                                   schedule_bytes_twopass)
     from repro_torch.kernels.spmm_abft.kernel import (spmm_abft_kernel,
                                                       spmm_abft_plain)
     from repro_torch.kernels.spmm_abft.ops import pad_features
@@ -261,6 +400,7 @@ def phase_kernels(torch, batches, params):
     # ---- timing at the layer-0 shapes (the dominant launch of each path)
     h_, x, xr, wp, wrp = per_layer[0]
     f, gp = wp.shape
+    f_model, g_model = layers[0]["w"].shape
     ms = time_ms(lambda: spmm_abft_kernel(cols, vals, x, xr))
     plain_ms = time_ms(lambda: spmm_abft_plain(cols, vals, x, xr),
                        warm=1, reps=3)
@@ -278,6 +418,9 @@ def phase_kernels(torch, batches, params):
         plain_ms=plain_ms, bound_ms=max(t_b, t_o),
         bound_by="bytes" if t_b >= t_o else "operations",
         library_ms=lib_ms, library_note=lib_note,
+        # the schedule model prices the whole two-pass layer: the
+        # combination and eq.-5 products before this launch, and the launch
+        **schedule_entry(schedule_bytes_twopass(pb.bell, f_model, g_model)),
         shape=dict(nbm=nbm, width=width, bm=bm, bk=bk, g=gp,
                    stored_tiles=tiles, nonzero_tiles=nnz_tiles),
         bytes=b_bytes, flops=b_ops)
@@ -301,6 +444,7 @@ def phase_kernels(torch, batches, params):
         library_ms=None,
         library_note="no single PyTorch call computes S (H W) with the "
                      "carried column and the per-stripe sums",
+        **schedule_entry(schedule_bytes_fused(pb.bell, f_model, g_model)),
         shape=dict(nbm=nbm, width=width, bm=bm, bk=bk, f=f, g=gp,
                    stored_tiles=tiles, nonzero_tiles=nnz_tiles),
         bytes=f_bytes, flops=f_ops,
@@ -313,6 +457,14 @@ def phase_kernels(torch, batches, params):
     entries["gcn_fused"]["layer1_ms"] = time_ms(
         lambda: gcn_fused_kernel(cols, vals, h1, wp1, wrp1))
 
+    # ---- B3: the whole network in one launch, at the same packed shape
+    wps, wrps = _network_weights([layer["w"] for layer in layers],
+                                 [layer["w_r"] for layer in layers], 128)
+    net_err = check_network(torch, cols, vals, h0, wps, wrps, "cora")
+    entries["gcn_network"] = network_entry(torch, cols, vals, h0, wps, wrps,
+                                           segments, pb.n_slots, pb.bell,
+                                           net_err)
+
     # ---- the other tile shape: block 32 at the serving CLI's default widths
     from repro_torch.engine import make_packed_batches, synth_graph_stream
     small = make_packed_batches(synth_graph_stream(16, seed=1), 8, block=32,
@@ -324,6 +476,9 @@ def phase_kernels(torch, batches, params):
     sxr = (sh @ sp["w_r"])[:, None].contiguous()
     e32 = (check_spmm(torch, sc, sv, sx, sxr, "block32"),
            check_fused(torch, sc, sv, sh, swp, swrp, "block32"))
+    sl = fold_w_r(make_params(torch, (16, 16, 7), seed=1), cfg)["layers"]
+    e32 += (check_network(torch, sc, sv, sh, *_network_weights(
+        [la["w"] for la in sl], [la["w_r"] for la in sl], 128), "block32"),)
     # shapes that take the kernels' other mappings: more register tiles than
     # threads (two passes), and a reduction axis split three and eight ways
     r = torch.Generator().manual_seed(2)
@@ -343,9 +498,16 @@ def phase_kernels(torch, batches, params):
     w64, wr64 = rand(DIMS[0], 64) * 0.05, rand(DIMS[0], 1) * 0.05
     odd["gcn_fused block128 G=64"] = check_fused(torch, cols, vals, h_, w64,
                                                  wr64, "block128-G64")
+    # three layers (two grid barriers), a hidden width of 24 and one of 64
+    deep = [(16, 24), (24, 64), (64, 8)]
+    odd["gcn_network block32 16-24-64-7"] = check_network(
+        torch, sc, sv, sh, [rand(f, g) * 0.2 for f, g in deep],
+        [rand(f, 1) * 0.2 for f, _ in deep], "block32-3layer")
     emit("kernel_checks", tolerance=dict(atol=OUT_ATOL, rtol=OUT_RTOL,
-                                         corner_rtol=CORNER_RTOL),
-         block32_max_abs_err=dict(spmm_abft=e32[0], gcn_fused=e32[1]),
+                                         corner_rtol=CORNER_RTOL,
+                                         network_vs_b2_chain="bitwise"),
+         block32_max_abs_err=dict(spmm_abft=e32[0], gcn_fused=e32[1],
+                                  gcn_network=e32[2]),
          other_shapes_max_abs_err=odd,
          kernels=list(entries.values()))
     return entries
@@ -373,8 +535,8 @@ def per_graph_rows(pb, logits):
 
 
 def phase_serve(torch, batches, params):
-    """The main path: the closed-batch guarded server, two-pass then
-    fused-layer, with the launch counts read around each run."""
+    """The main path: the closed-batch guarded server, two-pass, fused-layer
+    and whole-network, with the launch counts read around each run."""
     from repro_torch.core.abft import ABFTConfig
     from repro_torch.engine import fold_w_r
     from repro_torch.engine.streaming import PackedRunner
@@ -385,15 +547,18 @@ def phase_serve(torch, batches, params):
     cfg = ABFTConfig(mode="fused", threshold=1e-3, relative=True)
     n_layers = len(params["layers"])
     shapes = {(b.bell.values.shape, b.h0.shape, b.n_slots) for b in batches}
+    # path -> (serve options, its kernel, launches per step)
+    paths = {"two_pass": ({}, "spmm_abft", n_layers),
+             "fused_layer": ({"fused_layer": True}, "gcn_fused", n_layers),
+             "fused_network": ({"fused_network": True}, "gcn_network", 1)}
 
-    # logits of both paths against the float64 dense forward, and each other
+    # logits of every path against the float64 dense forward, and each other
     folded = fold_w_r(params, cfg)
     logit_err = {}
     path_logits = {}
-    split_ms = {"two_pass": [], "fused_layer": []}
-    for name, fused in (("two_pass", False), ("fused_layer", True)):
-        runner = PackedRunner(folded, cfg, 128, fused_layer=fused,
-                              device="cuda")
+    split_ms = {name: [] for name in paths}
+    for name, (opts, _kernel, _per) in paths.items():
+        runner = PackedRunner(folded, cfg, 128, device="cuda", **opts)
         worst = 0.0
         path_logits[name] = []
         for pb in batches:
@@ -422,33 +587,41 @@ def phase_serve(torch, batches, params):
                              atol=LOGIT_ATOL, rtol=0.0)
                 for a, b in zip(path_logits["two_pass"],
                                 path_logits["fused_layer"]))
+    # the network runs each layer's stripes through the fused layer's code
+    for a, b in zip(path_logits["fused_network"], path_logits["fused_layer"]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"fused-network vs fused-layer logits: max "
+                                 f"abs diff {max_err(a, b):.3e}, not bitwise")
 
     result = {"logits_max_abs_err_vs_f64": logit_err,
-              "two_pass_vs_fused_max_abs": cross, "dims": list(DIMS),
+              "two_pass_vs_fused_max_abs": cross,
+              "network_vs_fused_layer": "bitwise", "dims": list(DIMS),
               "batches": len(batches), "shapes": len(shapes),
               "per_batch_host_clock": split_ms}
     launches = {}
-    for name, fused, kernel, other in (
-            ("two_pass", False, "spmm_abft", "gcn_fused"),
-            ("fused_layer", True, "gcn_fused", "spmm_abft")):
+    for name, (opts, kernel, per_step) in paths.items():
         guard = ABFTGuard()
         runtime.reset_counts()
         stats = serve_gcn.serve(batches, params, cfg, guard=guard,
-                                fused_layer=fused, device="cuda")
+                                device="cuda", **opts)
         counts, plain = runtime.launch_counts(), runtime.plain_counts()
-        timed = counts[kernel] - len(shapes) * n_layers
-        if timed != len(batches) * n_layers or counts[other] != 0:
+        timed = counts[kernel] - len(shapes) * per_step
+        others = {k: v for k, v in counts.items() if k != kernel}
+        if timed != len(batches) * per_step or any(others.values()):
             raise AssertionError(
                 f"{name}: launches {counts} — expected {kernel} = (shapes "
-                f"{len(shapes)} + batches {len(batches)}) x layers "
-                f"{n_layers} and {other} = 0")
+                f"{len(shapes)} + batches {len(batches)}) x {per_step} and "
+                f"no other kernel")
         if any(plain.values()):
             raise AssertionError(f"{name}: plain versions called {plain}")
         if stats["flags"] or stats["graph_flags"].any():
             raise AssertionError(f"{name}: clean stream flagged "
                                  f"{stats['graph_flags']}")
-        if fused and stats["fused_hits"] != len(batches) * n_layers:
-            raise AssertionError(f"fusion counts {stats}")
+        want_hits = {"fused_layer": ("fused_hits", len(batches) * n_layers),
+                     "fused_network": ("network_hits", len(batches))}
+        if name in want_hits and stats[want_hits[name][0]] != \
+                want_hits[name][1]:
+            raise AssertionError(f"{name}: fusion counts {stats}")
         launches[kernel] = counts[kernel]
         result[name] = dict(
             graphs=stats["graphs"], seconds=stats["seconds"],
@@ -456,12 +629,14 @@ def phase_serve(torch, batches, params):
             launches_timed_phase=timed, plain_calls=plain,
             flags=int(stats["flags"]),
             max_rel=float(stats["graph_max_rel"].max()),
-            fused_hits=stats["fused_hits"],
-            fused_fallbacks=stats["fused_fallbacks"])
+            **{k: stats[k] for k in ("fused_hits", "fused_fallbacks",
+                                     "network_hits", "network_fallbacks")})
 
     # the other tile shape: block 32 at the CLI's default widths
     for name, extra in (("block32_two_pass", []),
-                        ("block32_fused_layer", ["--fused-layer"])):
+                        ("block32_fused_layer", ["--fused-layer"]),
+                        ("block32_fused_network_slot",
+                         ["--fused-network", "--check-granularity", "slot"])):
         runtime.reset_counts()
         stats = serve_gcn.main(["--backend", "block_ell", "--graphs", "32",
                                 "--block", "32"] + extra)
@@ -474,13 +649,25 @@ def phase_serve(torch, batches, params):
     return launches
 
 
+def host(t):
+    return t.cpu().numpy() if hasattr(t, "cpu") else t
+
+
 def phase_fault(torch, batches, params):
-    """Accumulator upsets at layer 0 and layer 1, on both paths: exactly the
-    graph that owns the stripe flags, the per-graph retry clears it, and the
-    repaired logits equal the clean run's."""
+    """Accumulator upsets at layer 0 and layer 1.  Two-pass and fused-layer
+    at graph granularity: exactly the graph that owns the stripe flags, the
+    per-graph retry clears it, and the repaired logits equal the clean
+    run's.  The whole-network path at graph, stripe and slot granularity:
+    exactly the owner flags (and, finer, exactly the hit stripe / slot),
+    the matching tier repairs it and re-verifies clean, and the stripe and
+    slot tiers' logits are bit for bit the clean run's, from fewer rows
+    than the per-graph retry re-runs."""
+    import numpy as np
+
     from repro_torch.core.abft import ABFTConfig
     from repro_torch.engine import fold_w_r
     from repro_torch.engine.streaming import PackedRunner
+    from repro_torch.kernels import runtime
     from repro_torch.runtime import ABFTGuard
 
     cfg = ABFTConfig(mode="fused", threshold=1e-3, relative=True)
@@ -501,7 +688,7 @@ def phase_fault(torch, batches, params):
                                   device="cuda")
             step, args = runner.step_for(pb), runner.args_for(pb)
             _, raw = step(*args)
-            first = raw["abft_graph_flags"].cpu().numpy()
+            first = host(raw["abft_graph_flags"])
             want = [g == owner for g in range(pb.n_slots)]
             if first.tolist() != want:
                 raise AssertionError(f"fault fused={fused} layer={layer}: "
@@ -510,8 +697,7 @@ def phase_fault(torch, batches, params):
             out, metrics = guard.run_step_graphs(step, runner.retry_fn(pb),
                                                  *args)
             torch.cuda.synchronize()
-            final = metrics["abft_graph_flags"]
-            final = final.cpu().numpy() if hasattr(final, "cpu") else final
+            final = host(metrics["abft_graph_flags"])
             if final.any() or guard.graph_retries != 1 or guard.flags != 1:
                 raise AssertionError(
                     f"fault fused={fused} layer={layer}: final flags "
@@ -523,12 +709,195 @@ def phase_fault(torch, batches, params):
                               graph_retries=guard.graph_retries,
                               final_flags=final.tolist(),
                               repaired_max_abs_err=err))
+
+    n_layers = len(params["layers"])
+    per_graph_rows = int(pb.n_nodes[owner]) * n_layers
+    clean_runner = PackedRunner(folded, cfg, 128, fused_network=True,
+                                device="cuda")
+    clean, _ = clean_runner.step_for(pb)(*clean_runner.args_for(pb))
+    slot = 1
+    for gran in ("graph", "stripe", "slot"):
+        for layer in (0, 1):
+            runner = PackedRunner(folded, cfg, 128, fused_network=True,
+                                  granularity=gran,
+                                  inject=(layer, stripe, slot, 50.0),
+                                  device="cuda")
+            step, args = runner.step_for(pb), runner.args_for(pb)
+            _, raw = step(*args)
+            tag = f"fault network {gran} layer={layer}"
+            first = host(raw["abft_graph_flags"])
+            if first.tolist() != [g == owner for g in range(pb.n_slots)]:
+                raise AssertionError(f"{tag}: flags {first.tolist()}, "
+                                     f"owner {owner}")
+            hits = {"stripe": [(layer, stripe)],
+                    "slot": [(layer, stripe, slot)]}
+            for key, want in (("abft_stripe_flags", hits["stripe"]),
+                              ("abft_slot_flags", hits["slot"])):
+                if key in raw:
+                    got = [tuple(int(v) for v in ix)
+                           for ix in np.argwhere(host(raw[key]))]
+                    if got != want:
+                        raise AssertionError(f"{tag}: {key} at {got}, "
+                                             f"want {want}")
+            guard = ABFTGuard()
+            runtime.reset_counts()
+            out, metrics = guard.run_step_graphs(
+                step, runner.retry_fn(pb), *args,
+                stripe_retry_fn=(runner.stripe_retry_fn(pb)
+                                 if gran != "graph" else None),
+                slot_retry_fn=(runner.slot_retry_fn(pb)
+                               if gran == "slot" else None))
+            torch.cuda.synchronize()
+            repair_launches = runtime.launch_counts()
+            final = host(metrics["abft_graph_flags"])
+            tiers = guard.repair_tiers()
+            others = [t for t in ("slot", "stripe", "graph", "restore")
+                      if t != gran and tiers[t]]
+            # each tier counts what it re-ran (graphs, stripes)
+            if final.any() or tiers[gran] < 1 or others or guard.flags != 1:
+                raise AssertionError(f"{tag}: final flags {final.tolist()}, "
+                                     f"tiers {tiers}")
+            bitwise = bool(torch.equal(out, clean))
+            if gran == "graph":
+                err = assert_close(f"{tag} repaired vs clean", out, clean,
+                                   atol=REPAIR_ATOL, rtol=0.0)
+            elif not bitwise:
+                raise AssertionError(f"{tag}: repaired logits differ from "
+                                     f"the clean run by {max_err(out, clean)}")
+            else:
+                err = 0.0
+            if gran != "graph" and guard.recomputed_rows >= per_graph_rows:
+                raise AssertionError(f"{tag}: {guard.recomputed_rows} rows "
+                                     f"recomputed, per-graph retry "
+                                     f"{per_graph_rows}")
+            cases.append(dict(fused_network=True, granularity=gran,
+                              layer=layer, stripe=stripe, slot=slot,
+                              owner_graph=owner, flagged=first.tolist(),
+                              repair_tiers={t: tiers[t] for t in
+                                            ("slot", "stripe", "graph")},
+                              recomputed_rows=guard.recomputed_rows,
+                              per_graph_retry_rows=per_graph_rows,
+                              repair_launches=repair_launches,
+                              final_flags=final.tolist(),
+                              repaired_bitwise=bitwise,
+                              repaired_max_abs_err=err))
     emit("fault", cases=cases)
+
+
+def phase_stream(torch, params, smi):
+    """The streaming server (``StreamingEngine``, whole-network path, slot
+    corners) over a Cora-width stream, rungs planned from its first
+    requests: every request served clean with logits against the float64
+    dense forward, step shapes within the rung table, every batch through
+    the network kernel, p50/p99 enqueue->verdict latency; then one upset
+    in a single-batch stream, repaired by the slot tier bit for bit."""
+    import numpy as np
+
+    from repro_torch.core.abft import ABFTConfig
+    from repro_torch.engine import (StreamingEngine, plan_rungs,
+                                    synth_graph_stream)
+    from repro_torch.engine.batching import graph_pack_stats, pack_graphs
+    from repro_torch.kernels import runtime
+
+    cfg = ABFTConfig(mode="fused", threshold=1e-3, relative=True)
+    stream = synth_graph_stream(STREAM["n_requests"], n_lo=SERVE["n_lo"],
+                                n_hi=SERVE["n_hi"], feat=DIMS[0],
+                                avg_deg=SERVE["avg_deg"], seed=SERVE["seed"])
+    rungs = plan_rungs(stream[:STREAM["profile"]],
+                       n_slots=STREAM["n_slots"], block=SERVE["block"],
+                       stripe_multiple=SERVE["stripe_multiple"],
+                       width_multiple=SERVE["width_multiple"])
+
+    # the host work one full bin costs before its step (host clock): the
+    # rung fit of each request, then packing the bin
+    first = stream[:STREAM["n_slots"]]
+    t0 = time.perf_counter()
+    for s, _ in first:
+        graph_pack_stats(s, SERVE["block"])
+    t1 = time.perf_counter()
+    pack_graphs(first, block=rungs.block, n_slots=STREAM["n_slots"],
+                stripe_multiple=rungs.stripe_multiple,
+                width_multiple=rungs.width_multiple,
+                stripe_cap=rungs.rungs[0].stripe_cap,
+                width_cap=rungs.rungs[0].width_cap)
+    host_ms = dict(fit_per_request=(t1 - t0) * 1e3 / len(first),
+                   pack_per_bin=(time.perf_counter() - t1) * 1e3)
+
+    def engine(**kw):
+        return StreamingEngine(params, cfg, rungs, fused_network=True,
+                               granularity="slot", device="cuda", **kw)
+
+    def drive(eng, reqs):
+        results = []
+        for s, h0 in reqs:
+            eng.submit(s, h0)
+            results.extend(eng.take_results())
+        return results + eng.drain()
+
+    eng = engine()
+    eng.warmup()
+    runtime.reset_counts()
+    results = drive(eng, stream)
+    counts, plain = runtime.launch_counts(), runtime.plain_counts()
+    stats = eng.stats(results)
+    others = {k: v for k, v in counts.items() if k != "gcn_network"}
+    if stats["served"] != len(stream) or stats["flagged"] \
+            or stats["compiles"] > stats["rung_table_size"] \
+            or stats["network_hits"] != stats["batches"] \
+            or counts["gcn_network"] != stats["batches"] \
+            or any(others.values()) or any(plain.values()):
+        raise AssertionError(f"stream: {stats}, launches {counts}, plain "
+                             f"{plain}")
+    worst = 0.0
+    ws = [layer["w"].double() for layer in params["layers"]]
+    for r in results:
+        s, h0 = stream[r.rid]
+        h = torch.from_numpy(h0).to("cuda").double()
+        s64 = torch.from_numpy(s).to("cuda").double()
+        for i, w in enumerate(ws):
+            h = s64 @ (h @ w)
+            h = torch.relu(h) if i < len(ws) - 1 else h
+        worst = max(worst, assert_close(
+            f"stream rid {r.rid} logits vs f64 dense",
+            torch.from_numpy(r.logits).to("cuda").double(), h,
+            atol=LOGIT_ATOL, rtol=0.0))
+
+    # one upset in a single-batch stream: a full bin of the first requests
+    stripe = sum(graph_pack_stats(s, SERVE["block"])[0] for s, _ in first[:-1])
+    faulty = engine(inject=(0, stripe, 1, 50.0))
+    fres = drive(faulty, first)
+    fstats = faulty.stats(fres)
+    tiers = fstats["repair_tiers"]
+    if fstats["served"] != len(first) or fstats["flagged"] \
+            or fstats["guard_flags"] != 1 or tiers["slot"] < 1 \
+            or tiers["stripe"] or tiers["graph"] or tiers["restore"] \
+            or fstats["degrades"]:
+        raise AssertionError(f"stream fault: {fstats}")
+    clean = {r.rid: r.logits for r in results}
+    for a in fres:
+        if not np.array_equal(a.logits, clean[a.rid]):
+            raise AssertionError(f"stream fault: rid {a.rid} repaired "
+                                 f"logits differ from the clean stream's")
+    emit("stream", nvidia_smi=smi, requests=stats["submitted"],
+         served=stats["served"], batches=stats["batches"],
+         rungs=[vars(r) for r in rungs.rungs],
+         compiles=stats["compiles"], rung_table_size=stats["rung_table_size"],
+         latency_p50_ms=stats["latency_p50_ms"],
+         latency_p99_ms=stats["latency_p99_ms"],
+         latency_max_ms=stats["latency_max_ms"],
+         graphs_per_sec=stats["graphs_per_sec"], host_clock_ms=host_ms,
+         network_hits=stats["network_hits"], launches=counts,
+         logits_max_abs_err_vs_f64=worst,
+         fault=dict(inject=[0, stripe, 1, 50.0], served=fstats["served"],
+                    guard_flags=fstats["guard_flags"],
+                    repair_tiers={t: tiers[t] for t in
+                                  ("slot", "stripe", "graph", "restore")},
+                    repaired_bitwise=True))
 
 
 def phase_full_graph(torch, params):
     """One whole Cora-sized graph through gcn_apply on the block-ELL
-    backend, both paths, against the dense backend."""
+    backend, every path, against the dense backend."""
     from repro_torch.core.abft import ABFTConfig
     from repro_torch.core.datasets import make_dataset
     from repro_torch.engine import Graph, fold_w_r, gcn_apply
@@ -543,11 +912,11 @@ def phase_full_graph(torch, params):
                                  backend="dense", device="cuda")
     result = dict(nodes=int(h0.shape[0]), stripes=bell.n_block_rows,
                   width=bell.width)
-    for name, fused in (("two_pass", False), ("fused_layer", True)):
+    for name, opts in (("two_pass", {}), ("fused_layer", {"fused_layer": True}),
+                       ("fused_network", {"fused_network": True})):
         runtime.reset_counts()
         logits, rep = gcn_apply(folded, Graph(bell, h0), cfg,
-                                backend="block_ell", fused_layer=fused,
-                                device="cuda")
+                                backend="block_ell", device="cuda", **opts)
         torch.cuda.synchronize()
         if logits.shape != (h0.shape[0], DIMS[-1]) or bool(rep.flag) \
                 or bool(dense_rep.flag):
@@ -591,6 +960,7 @@ def main() -> int:
         return 0
     launches = phase_serve(torch, batches, params)
     phase_fault(torch, batches, params)
+    phase_stream(torch, params, smi)
     phase_full_graph(torch, params)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -12,13 +12,14 @@ The function names keep the reference's spelling (``fused_vmem_bytes``,
 ``fused_layer_fits``, ...) so callers and command lines carry over; on this
 card "vmem" reads "shared memory of one block".
 
-The predicates are **one object** shared by ``BlockEllBackend.layer`` (the
-runtime fallback decision), ``PackedRunner.fusion_counts`` (the serving
-statistics) and the kernel wrapper (the launch), so the three cannot drift.
+The predicates are **one object** shared by ``BlockEllBackend.layer`` /
+``BlockEllBackend.network`` (the runtime fallback decisions),
+``PackedRunner.fusion_counts`` / ``_warn_fallbacks`` (the serving
+statistics) and the kernel wrappers (the launches), so they cannot drift.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 # Dynamic shared memory one block can use on sm_90: 227 KB of the SM's
 # 256 KB (the rest stays with L1 and the CUDA runtime).  ``--vmem-budget`` /
@@ -36,6 +37,10 @@ BLOCK_THREADS = 512
 F_CHUNK = 32
 # floats reserved for the block-wide reduction scratch
 _REDUCE_SCRATCH = 32
+# Most layers the whole-network kernel's launcher takes (its per-layer
+# parameter struct has this many entries; a deeper model takes the
+# per-layer ladder).
+MAX_NETWORK_LAYERS = 8
 
 
 def _lanes(n: int, block_g: int = 128) -> int:
@@ -92,21 +97,40 @@ def fused_layer_fits(f: int, g: int, bm: int, bk: int, *,
 
 def network_vmem_bytes(dims: Sequence[int], bm: int, rows: int, *,
                        block_g: int = 128, itemsize: int = 4) -> int:
-    """Shared memory a whole-network sweep would need if ONE block kept the
-    activation matrix on chip across layer boundaries: two ping-pong
-    buffers [rows, P] at the shared padded width P, on top of the widest
-    fused layer's working set.  The whole-network kernel is not ported yet;
-    this is the model its fallback ladder will consult, kept so the serving
-    statistics have one place to ask."""
-    p = _lanes(max(dims), block_g)
-    n_layers = len(dims) - 1
-    act = 2 * rows * p if n_layers > 1 else 0
-    return itemsize * act + fused_vmem_bytes(p, p, bm, bm, block_g=block_g,
-                                             itemsize=itemsize)
+    """Dynamic shared memory of one ``gcn_network`` block: the largest
+    per-layer fused working set, ``fused_vmem_bytes(f_l, g_l, bm, bm)``
+    over the layers ``dims = [f_0, g_0 = f_1, ..., g_{L-1}]``.
+
+    The port's design, not the TPU's: the TPU kernel kept two ping-pong
+    activation buffers [rows, P] in one core's VMEM, which no Hopper block
+    can hold at a real size.  Here every layer's activations live in device
+    memory (one [rows, g_l] buffer per layer, read back through L2), so
+    ``rows`` does not enter the figure; it is kept for the reference's
+    call."""
+    del rows
+    return max(fused_vmem_bytes(f, g, bm, bm, block_g=block_g,
+                                itemsize=itemsize)
+               for f, g in zip(dims[:-1], dims[1:]))
 
 
 def fused_network_fits(dims: Sequence[int], bm: int, rows: int, *,
-                       block_g: int = 128,
+                       bk: Optional[int] = None, block_g: int = 128,
                        budget: int = FUSED_SMEM_BUDGET) -> bool:
-    """True when :func:`network_vmem_bytes` fits the budget."""
-    return network_vmem_bytes(dims, bm, rows, block_g=block_g) <= budget
+    """True when the whole-network kernel takes this model and block shape:
+    square blocks (``bk`` defaults to ``bm``; the activations are indexed
+    by the same table on both axes), at most :data:`MAX_NETWORK_LAYERS`
+    layers (the launcher's parameter struct), every layer's output tile
+    within the register-tile condition (:func:`fused_tile_supported`), and
+    :func:`network_vmem_bytes` within the budget.  The engine runs the
+    per-layer ladder (fused layer, then two-pass) otherwise.
+
+    This is the port's own predicate: at Cora's widths [1433, 16, 7] and
+    block 128 it holds, where the JAX package's (two [rows, P] activation
+    buffers in one TPU core's VMEM) declines, so the serving statistics'
+    ``network_hits`` follow this predicate, not the reference's."""
+    bk = bm if bk is None else bk
+    n_layers = len(dims) - 1
+    return bm == bk and 1 <= n_layers <= MAX_NETWORK_LAYERS and \
+        all(fused_tile_supported(g, bm, bk, block_g=block_g)
+            for g in dims[1:]) and \
+        network_vmem_bytes(dims, bm, bm, block_g=block_g) <= budget

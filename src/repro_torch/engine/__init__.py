@@ -5,8 +5,11 @@ Public surface:
   backends  — AggregationBackend (a CheckedOp) + dense/block_ell registry
   batching  — bucketed padding and block-diagonal packing of variable-size
               graphs for batched serving
-  streaming — the serving steps and the per-shape runner with its retry
-              ladder (the closed-batch server's machinery)
+  localize  — the stripe- and slot-surgical repair tiers
+  streaming — continuous-traffic serving: canonical rungs, online packing,
+              double-buffered guarded dispatch, latency SLOs, backpressure;
+              and the serving steps and per-shape runner with its retry
+              ladder that the closed-batch server shares
 """
 from .api import (  # noqa: F401
     Graph,
@@ -35,4 +38,16 @@ from .batching import (  # noqa: F401
     schedule_packs,
     synth_graph_stream,
 )
-from .streaming import PackedRunner  # noqa: F401
+from .localize import (  # noqa: F401
+    gather_stripe_system,
+    surgical_slot_retry,
+    surgical_stripe_retry,
+)
+from .streaming import (  # noqa: F401
+    PackedRunner,
+    RequestResult,
+    Rung,
+    RungTable,
+    StreamingEngine,
+    plan_rungs,
+)

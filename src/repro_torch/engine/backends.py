@@ -22,9 +22,9 @@ Two built-in backends, selected by name or inferred from the operand:
                     layout; the check rides the kernel's fused epilogue.
 
 Counterpart of the JAX package's ``repro/engine/backends.py``.  The sparse
-COO backend, stripe sharding across devices (``partition=``) and the
-whole-network kernel (``fused_network=True``) are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+COO backend and stripe sharding across devices (``partition=``) are not
+ported yet; ``partition=`` raises ``NotImplementedError`` naming its
+ROADMAP item.
 
 New backends register with :func:`register_backend`; the registry is the
 single dispatch point for ``gcn_apply(..., backend=...)``.
@@ -156,8 +156,15 @@ class AggregationBackend(CheckedOp):
         """Whole-network hook: execute EVERY layer in one backend-fused
         sweep, returning ``(logits, [Check | None] per layer, h_layers |
         None)``, or ``NotImplemented`` to make the engine run its per-layer
-        loop (which still consults :meth:`layer` for each).  No backend of
-        the port implements it yet."""
+        loop (which still consults :meth:`layer` for each).
+
+        ``ws``/``wrs`` are the per-layer weights and folded eq.-5 columns
+        (``wrs`` all ``None`` when checking is off — the checks stay
+        per-layer and pre-activation either way).  ``stash=True`` asks for
+        the per-layer input activations ``h_layers`` (the surgical-repair
+        tiers replay from them).  Like :meth:`layer`, only consulted for
+        the fused/none modes: the split baseline checks the combination
+        product X itself, which whole-network fusion never materializes."""
         return NotImplemented
 
     def combination_check(self, h: Tensor, w: Tensor, x: Tensor,
@@ -224,9 +231,20 @@ class BlockEllBackend(AggregationBackend):
     in one sweep — falling back to the two-pass path above when one block's
     shared-memory working set exceeds ``vmem_budget``.
 
-    ``fused_network=True`` (the whole-network kernel) and ``partition=``
-    (stripes sharded across devices) are not ported yet and raise
-    ``NotImplementedError``.
+    ``fused_network=True`` activates the whole-network hook
+    (:meth:`network`): an entire fused/none-mode forward runs through ONE
+    ``gcn_network`` launch — every layer's combination, aggregation, check
+    and ReLU, the activations in device memory between layers — falling
+    back to the per-layer ladder (fused layer, then two-pass) when the
+    port's predicate ``analysis.vmem.fused_network_fits`` declines (non-
+    square blocks, too many layers, a layer width outside the register
+    tile, or one block's shared memory over ``vmem_budget``).
+    ``network_hits``/``network_fallbacks`` count those decisions; they
+    follow the port's predicate, which takes Cora's widths at block 128
+    where the JAX package's TPU predicate does not.
+
+    ``partition=`` (stripes sharded across devices) is not ported yet and
+    raises ``NotImplementedError``.
 
     ``granularity="stripe"`` declines every collapse: the kernels' per-
     row-stripe checksum partials stay individual corners ([n_block_rows]
@@ -239,9 +257,9 @@ class BlockEllBackend(AggregationBackend):
 
     ``inject=(layer, stripe, slot, delta)`` is the CI fault-injection
     hook: the given layer's aggregation sweep perturbs one accumulator
-    element mid-flight, in whichever kernel runs that layer (fused
-    single-layer or the two-pass spmm — both carry the hook, so the
-    fallback path is injectable too).
+    element mid-flight, in whichever kernel runs that layer (whole-network,
+    fused single-layer or the two-pass spmm — all three carry the hook, so
+    the fallback paths are injectable too).
     """
 
     def __init__(self, s: Any, cfg: ABFTConfig, *,
@@ -279,16 +297,11 @@ class BlockEllBackend(AggregationBackend):
             raise NotImplementedError(
                 "partition= (row-stripes sharded across devices) is not "
                 "ported yet — ROADMAP A11")
-        if fused_network:
-            raise NotImplementedError(
-                "fused_network=True needs the whole-network kernel, which "
-                "is not ported yet — ROADMAP B3 (slice 2); use "
-                "fused_layer=True")
         self.cfg = cfg
         self.block_g = block_g
         self.partition = None
         self.fused_layer = fused_layer
-        self.fused_network = False
+        self.fused_network = fused_network
         self.vmem_budget = vmem_budget
         self.fused_hits = 0
         self.fused_fallbacks = 0
@@ -386,6 +399,48 @@ class BlockEllBackend(AggregationBackend):
         return gcn_fused_layer(self.bell, h, w, w_r, block_g=self.block_g,
                                granularity=self.granularity, inject=inject,
                                _staged=(self.cols, self.vals))
+
+    def network(self, h0, ws, wrs, cfg, *, stash=False):
+        """Whole-network fusion (``kernels/gcn_fused``'s network kernel):
+        every layer's combination + aggregation + ReLU runs in one launch
+        with the activations in device memory between layers and the eq.-5
+        column carried across each layer boundary, so the checks stay
+        per-layer and pre-activation.
+
+        Falls back to the per-layer ladder (returns ``NotImplemented``)
+        when the option is off or ``fused_network_fits`` declines the
+        model at this block shape and shared-memory budget.
+        """
+        if not self.fused_network:
+            return NotImplemented
+        from repro_torch.kernels.gcn_fused.ops import (
+            FUSED_SMEM_BUDGET,
+            fused_network_fits,
+            gcn_network_layer,
+            gcn_network_packed,
+        )
+        nbm, _width, bm, bk_ = self.vals.shape
+        dims = [int(ws[0].shape[0])] + [int(w.shape[1]) for w in ws]
+        budget = FUSED_SMEM_BUDGET if self.vmem_budget is None \
+            else self.vmem_budget
+        if not fused_network_fits(dims, bm, nbm * bm, bk=bk_,
+                                  block_g=self.block_g, budget=budget):
+            self.network_fallbacks += 1
+            return NotImplemented
+        self.network_hits += 1
+        self._layer_calls += len(ws)     # the sweep consumed every layer
+        if self.segments is not None:
+            return gcn_network_packed(self.cols, self.vals, h0, ws, wrs,
+                                      self.segments,
+                                      num_segments=self.n_slots,
+                                      block_g=self.block_g,
+                                      granularity=self.granularity,
+                                      inject=self.inject, stash_acts=stash)
+        return gcn_network_layer(self.bell, h0, ws, wrs,
+                                 block_g=self.block_g,
+                                 granularity=self.granularity,
+                                 inject=self.inject, stash_acts=stash,
+                                 _staged=(self.cols, self.vals))
 
     def combination_check(self, h, w, x, cfg, *, w_r=None):
         nbm, bm = self.vals.shape[0], self.vals.shape[2]

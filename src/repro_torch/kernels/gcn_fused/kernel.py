@@ -1,10 +1,12 @@
-"""ONE GCN-ABFT layer in a single sweep: the wrapper that launches the CUDA
-kernel, and its plain PyTorch version.
+"""ONE GCN-ABFT layer in a single sweep, and a WHOLE network in one launch:
+the wrappers that launch the CUDA kernels, and their plain PyTorch versions.
 
-Replaces the TPU kernel ``gcn_fused_kernel`` of the JAX package
-(``src/repro/kernels/gcn_fused/kernel.py``); the CUDA source is
-``kernels/csrc/gcn_fused.cu``, which also says what bounds the kernel on a
-Hopper card and what its design does about it.
+Replace the TPU kernels ``gcn_fused_kernel`` and ``gcn_network_kernel`` of
+the JAX package (``src/repro/kernels/gcn_fused/kernel.py``); the CUDA
+sources are ``kernels/csrc/gcn_fused.cu`` and ``kernels/csrc/
+gcn_network.cu`` (per-tile code shared in ``fused_tile.cuh``), which also
+say what bounds each kernel on a Hopper card and what its design does
+about it.
 
 ``spmm_abft`` executes the aggregation half of a layer: X = H @ W is written
 to device memory first and the kernel reads X tiles back.  GCN output widths
@@ -27,7 +29,8 @@ corner must flag it.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,8 +39,12 @@ from repro_torch.analysis.vmem import (
     F_CHUNK,
     FUSED_SMEM_BUDGET,
     G_QUANTUM,
+    MAX_NETWORK_LAYERS,
+    _lanes,
+    fused_network_fits,
     fused_tile_supported,
     fused_vmem_bytes,
+    network_vmem_bytes,
 )
 
 Tensor = torch.Tensor
@@ -59,20 +66,21 @@ def _check_shapes(block_cols: Tensor, values: Tensor, h: Tensor, w: Tensor,
     return nbm, width, bm, bk, k, f, g
 
 
-def gcn_fused_plain(block_cols: Tensor, values: Tensor, h: Tensor, w: Tensor,
-                    wr: Tensor, *, inject: Inject = None,
-                    with_check: bool = True, with_slots: bool = False):
-    """Plain PyTorch version of :func:`gcn_fused_kernel`: per ell-slot, in
-    order, gather each stripe's H tile, form x and x_r from two separate
-    products, apply the S tiles, and carry the accumulators along; the
-    inject hook and the telescoped running sums sit where the kernel has
-    them (recording after the hook).  The CPU tests run this; on a GPU it is
-    the yardstick the kernel is held against, never the serving path."""
-    gcn_fused_plain.calls += 1
-    nbm, width, bm, bk, k, f, g = _check_shapes(block_cols, values, h, w, wr)
+def _fused_sweep(cols: Tensor, values: Tensor, h: Tensor, w: Tensor,
+                 wr: Tensor, inject: Inject, with_check: bool,
+                 with_slots: bool):
+    """One layer's sweep, slot by slot in order: gather each stripe's H
+    tile, form x and x_r from two separate products, apply the S tiles and
+    carry the accumulators; the inject hook and the telescoped running sums
+    sit where the kernels have them (recording after the hook).  Returns
+    (acc [nbm, bm, g], ex [nbm, bm, 1], slot_acts, slot_preds) — the last
+    two [nbm, width], or None without ``with_slots``."""
+    nbm, width, bm, bk = values.shape
+    k, f = h.shape
+    g = w.shape[1]
     ht = h.reshape(k // bk, bk, f).to(torch.float32)
     w32, wr32 = w.to(torch.float32), wr.to(torch.float32)
-    cols = block_cols.long()
+    cols = cols.long()
     dev = h.device
     acc = torch.zeros((nbm, bm, g), dtype=torch.float32, device=dev)
     ex = torch.zeros((nbm, bm, 1), dtype=torch.float32, device=dev)
@@ -88,10 +96,29 @@ def gcn_fused_plain(block_cols: Tensor, values: Tensor, h: Tensor, w: Tensor,
         if with_slots:
             slot_acts.append(acc.sum(dim=(1, 2)))
             slot_preds.append(ex.sum(dim=(1, 2)))
+    if not with_slots:
+        return acc, ex, None, None
+    return acc, ex, torch.stack(slot_acts, dim=1), \
+        torch.stack(slot_preds, dim=1)
+
+
+def gcn_fused_plain(block_cols: Tensor, values: Tensor, h: Tensor, w: Tensor,
+                    wr: Tensor, *, inject: Inject = None,
+                    with_check: bool = True, with_slots: bool = False):
+    """Plain PyTorch version of :func:`gcn_fused_kernel`: per ell-slot, in
+    order, gather each stripe's H tile, form x and x_r from two separate
+    products, apply the S tiles, and carry the accumulators along; the
+    inject hook and the telescoped running sums sit where the kernel has
+    them (recording after the hook).  The CPU tests run this; on a GPU it is
+    the yardstick the kernel is held against, never the serving path."""
+    gcn_fused_plain.calls += 1
+    nbm, width, bm, bk, k, f, g = _check_shapes(block_cols, values, h, w, wr)
+    acc, ex, slot_acts, slot_preds = _fused_sweep(
+        block_cols, values, h, w, wr, inject, with_check, with_slots)
     res = (acc.reshape(nbm * bm, g).to(h.dtype),
            acc.sum(dim=(1, 2)).reshape(nbm, 1), ex.reshape(nbm * bm, 1))
     if with_slots:
-        res += (torch.stack(slot_acts, dim=1), torch.stack(slot_preds, dim=1))
+        res += (slot_acts, slot_preds)
     return res
 
 
@@ -169,3 +196,166 @@ def gcn_fused_kernel(block_cols: Tensor, values: Tensor, h: Tensor,
 
 
 gcn_fused_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Whole-network kernel: an L-layer GCN in ONE launch.
+# ---------------------------------------------------------------------------
+
+NetInject = Optional[Tuple[int, int, int, float]]
+
+
+def _check_network_shapes(block_cols: Tensor, values: Tensor, h0: Tensor,
+                          ws: Sequence[Tensor], wrs: Sequence[Tensor]
+                          ) -> List[int]:
+    """The network kernels' operand contract; returns the layer widths as
+    the launcher reads them: ``[F_0, F_1, ..., F_{L-1}, G_{L-1}]`` — each
+    hidden width unpadded (it is the next layer's F), the last padded."""
+    nbm, width, bm, bk = values.shape
+    if bm != bk:
+        raise ValueError(f"the network kernel needs square blocks; got "
+                         f"block ({bm}, {bk})")
+    if tuple(block_cols.shape) != (nbm, width):
+        raise ValueError(f"block_cols {tuple(block_cols.shape)} does not "
+                         f"match values' [nbm, width] = {(nbm, width)}")
+    if h0.ndim != 2 or h0.shape[0] != nbm * bm:
+        raise ValueError(f"h0 is {tuple(h0.shape)}; need [nbm * bm = "
+                         f"{nbm * bm}, F] (every referenced column block is "
+                         f"also an output stripe)")
+    if not ws or len(ws) != len(wrs):
+        raise ValueError(f"{len(ws)} weights and {len(wrs)} checksum "
+                         f"columns; need one of each per layer")
+    dims = [int(h0.shape[1])]
+    for ell, (w, wr) in enumerate(zip(ws, wrs)):
+        f, gp = w.shape
+        nxt = int(ws[ell + 1].shape[0]) if ell + 1 < len(ws) else gp
+        if f != dims[-1] or tuple(wr.shape) != (f, 1) or \
+                gp != _lanes(nxt) or nxt > gp:
+            raise ValueError(
+                f"layer {ell}: w {tuple(w.shape)}, wr {tuple(wr.shape)}; "
+                f"need w [F_{ell} = {dims[-1]}, G] with G the next layer's "
+                f"F padded to a multiple of {G_QUANTUM} (ops.py pads) and "
+                f"wr [F_{ell}, 1]")
+        dims.append(nxt)
+    return dims
+
+
+def gcn_network_plain(block_cols: Tensor, values: Tensor, h0: Tensor,
+                      ws: Sequence[Tensor], wrs: Sequence[Tensor], *,
+                      inject: NetInject = None, with_check: bool = True,
+                      stash_acts: bool = False):
+    """Plain PyTorch version of :func:`gcn_network_kernel`: layer by layer,
+    each one the single-layer sweep (slot by slot, in order), with the
+    inject hook in its layer and the telescopes recorded after it, and
+    ReLU between layers.  The CPU tests run this; on a GPU it is the
+    yardstick the kernel is held against, never the serving path."""
+    gcn_network_plain.calls += 1
+    dims = _check_network_shapes(block_cols, values, h0, ws, wrs)
+    nbm, _width, bm, _bk = values.shape
+    h = h0
+    tele_acts, tele_preds, acts = [], [], []
+    for ell, (w, wr) in enumerate(zip(ws, wrs)):
+        hook = tuple(inject[1:]) if inject is not None \
+            and inject[0] == ell else None
+        acc, _ex, sa, sp = _fused_sweep(block_cols, values, h, w, wr, hook,
+                                        with_check, True)
+        tele_acts.append(sa)
+        tele_preds.append(sp)
+        if ell < len(ws) - 1:
+            g = dims[ell + 1]
+            h = torch.relu(acc[:, :, :g]).reshape(nbm * bm, g)
+            acts.append(h)
+    out = acc.reshape(nbm * bm, dims[-1])
+    return (out, torch.stack(tele_acts), torch.stack(tele_preds),
+            tuple(acts) if stash_acts else None)
+
+
+gcn_network_plain.calls = 0
+
+
+def gcn_network_kernel(block_cols: Tensor, values: Tensor, h0: Tensor,
+                       ws: Sequence[Tensor], wrs: Sequence[Tensor], *,
+                       inject: NetInject = None, with_check: bool = True,
+                       stash_acts: bool = False):
+    """An L-layer GCN ``H_{l+1} = relu(S (H_l W_l))`` in one launch.
+
+    block_cols: [nbm, width] i32; values: [nbm, width, bm, bm] (square
+    blocks — activations are indexed by the same table on both axes);
+    h0: [nbm * bm, F_0]; ``ws[l]``: [F_l, G_l] and ``wrs[l]``: [F_l, 1] per
+    layer, G_l the next layer's F (the last layer's output width) padded
+    to a multiple of 8 (``ops.py`` pads).  Per-layer widths, not one shared
+    padded P.  ``inject=(layer, stripe, slot, delta)`` is the accumulator
+    fault hook; ``with_check=False`` elides the eq.-5 products.
+
+    Returns (out [nbm * bm, G_{L-1}], tele_acts [L, nbm, width],
+    tele_preds [L, nbm, width], acts): ``acts`` is the tuple of the L - 1
+    post-ReLU activations [nbm * bm, F_{l+1}] with ``stash_acts=True`` (the
+    kernel keeps one device-memory buffer per layer, so the stash costs
+    nothing extra), else ``None``.
+
+    Operands on a CUDA device launch the CUDA kernel (one launch, counted
+    in ``gcn_network_kernel.launches``) or raise; only operands that lie on
+    the CPU take :func:`gcn_network_plain`."""
+    if values.device.type == "cpu":
+        return gcn_network_plain(block_cols, values, h0, ws, wrs,
+                                 inject=inject, with_check=with_check,
+                                 stash_acts=stash_acts)
+    from repro_torch.kernels import runtime
+
+    what = "gcn_network_kernel"
+    dims = _check_network_shapes(block_cols, values, h0, ws, wrs)
+    nbm, width, bm, bk = values.shape
+    n_layers = len(ws)
+    runtime.require_cuda_operands(
+        what, cols=block_cols, vals=values, h0=h0,
+        **{f"w{ell}": w for ell, w in enumerate(ws)},
+        **{f"wr{ell}": wr for ell, wr in enumerate(wrs)})
+    if not fused_network_fits(dims, bm, nbm * bm, bk=bk):
+        raise ValueError(f"{what}: layer widths {dims} at block ({bm}, {bk}) "
+                         f"are outside what the kernel takes — "
+                         f"analysis.vmem.fused_network_fits says when a "
+                         f"model must take the per-layer ladder instead")
+    lib = runtime.load_library()
+    c_dims = (ctypes.c_int * (n_layers + 1))(*dims)
+    smem = network_vmem_bytes(dims, bm, nbm * bm)
+    if smem != lib.gcn_network_smem_bytes(c_dims, n_layers, bm) \
+            or MAX_NETWORK_LAYERS != lib.gcn_network_max_layers() \
+            or not lib.gcn_network_supported(c_dims, n_layers, bm, bk):
+        raise RuntimeError(
+            f"{what}: analysis.vmem models {smem} B of shared memory and at "
+            f"most {MAX_NETWORK_LAYERS} layers, the library "
+            f"{lib.gcn_network_smem_bytes(c_dims, n_layers, bm)} B and "
+            f"{lib.gcn_network_max_layers()}")
+    dev = values.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = torch.empty((nbm * bm, dims[-1]), **f32)
+    tele_acts = torch.empty((n_layers, nbm, width), **f32)
+    tele_preds = torch.empty((n_layers, nbm, width), **f32)
+    acts = [torch.empty((nbm * bm, dims[ell + 1]), **f32)
+            for ell in range(n_layers - 1)]
+    barrier = torch.zeros(2, dtype=torch.int32, device=dev)
+    w_ptrs = (ctypes.c_void_p * n_layers)(*[w.data_ptr() for w in ws])
+    wr_ptrs = (ctypes.c_void_p * n_layers)(*[wr.data_ptr() for wr in wrs])
+    act_ptrs = (ctypes.c_void_p * max(n_layers - 1, 1))(
+        *[a.data_ptr() for a in acts])
+    il, ii, jj, delta = (-1, -1, -1, 0.0) if inject is None else inject
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.gcn_network_launch(
+            block_cols.data_ptr(), values.data_ptr(), h0.data_ptr(),
+            ctypes.addressof(w_ptrs), ctypes.addressof(wr_ptrs),
+            ctypes.addressof(act_ptrs), ctypes.addressof(c_dims),
+            out.data_ptr(), tele_acts.data_ptr(), tele_preds.data_ptr(),
+            barrier.data_ptr(), n_layers, nbm, width, bm, bk,
+            int(bool(with_check)), int(il), int(ii), int(jj), float(delta),
+            stream, ctypes.addressof(grid))
+    runtime.check_launch(code, what)
+    gcn_network_kernel.launches += 1
+    gcn_network_kernel.last_grid = grid.value
+    return out, tele_acts, tele_preds, (tuple(acts) if stash_acts else None)
+
+
+gcn_network_kernel.launches = 0
+# blocks of the persistent grid the last launch chose (read by chip_smoke.py)
+gcn_network_kernel.last_grid = 0

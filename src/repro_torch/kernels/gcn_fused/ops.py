@@ -1,19 +1,20 @@
-"""Public wrappers for the fused GCN-layer kernel: operand padding, the
-final checksum reduction, Check construction, and the packed
-(block-diagonal) per-graph variant.
+"""Public wrappers for the fused GCN-layer and whole-network kernels:
+operand padding, the final checksum reduction, Check construction, the
+packed (block-diagonal) per-graph variants, and the device-memory traffic
+models of the three GCN kernel paths.
 
 Counterpart of the JAX package's ``repro/kernels/gcn_fused/ops.py``.  The
 shared-memory budget predicates are the SAME objects the engine's fallback
-decision and the serving statistics use (``analysis/vmem.py``), re-exported
-here as the reference does.  The input-feature axis F is not padded at all
-(the CUDA kernel walks it in chunks and masks the ragged end); the output
-axis G pads to a multiple of 8 floats; ``block_g`` is accepted for parity of
-the call.  The whole-network wrappers and the device-memory traffic models
-arrive with the whole-network kernel.
+decisions and the serving statistics use (``analysis/vmem.py``),
+re-exported here as the reference does.  The input-feature axis F is not
+padded at all (the CUDA kernels walk it in chunks and mask the ragged end);
+each layer's output axis G pads to a multiple of 8 floats — per layer, also
+in the whole-network kernel, which takes no shared padded width; ``block_g``
+is accepted for parity of the call.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -26,7 +27,7 @@ from repro_torch.analysis.vmem import (  # noqa: F401  (re-exported: the
     fused_vmem_bytes,
     network_vmem_bytes,
 )
-from repro_torch.core.abft import Check
+from repro_torch.core.abft import Check, segment_sum
 from repro_torch.kernels.spmm_abft.layout import BlockEll
 from repro_torch.kernels.spmm_abft.ops import (
     device_block_ell,
@@ -37,7 +38,7 @@ from repro_torch.kernels.spmm_abft.ops import (
     validate_packed_operands,
 )
 
-from .kernel import gcn_fused_kernel
+from .kernel import gcn_fused_kernel, gcn_network_kernel
 
 Tensor = torch.Tensor
 
@@ -170,3 +171,198 @@ def gcn_fused_packed(cols: Tensor, vals: Tensor, h: Tensor, w: Tensor,
         lambda sums, extra: packed_check_corners(sums, extra, segments,
                                                  num_segments))
     return res[0][:, :g], chk
+
+
+# ---------------------------------------------------------------------------
+# Whole-network fusion: L layers in ONE launch.
+# ---------------------------------------------------------------------------
+
+def _network_weights(ws: Sequence[Tensor], wrs: Sequence[Optional[Tensor]],
+                     block_g: int) -> Tuple[List[Tensor], List[Tensor]]:
+    """Every layer's W / w_r through :func:`_pad_weights`: each layer keeps
+    its own widths (F unpadded, G to the register-tile quantum).  The
+    reference pads every layer to one shared width P so its activations fit
+    two fixed VMEM buffers; the port's kernel keeps one device-memory
+    buffer per layer and needs no shared width."""
+    padded = [_pad_weights(w, wr, block_g) for w, wr in zip(ws, wrs)]
+    return [w for w, _ in padded], [wr for _, wr in padded]
+
+
+def _network_checks(tele_acts: Tensor, tele_preds: Tensor, granularity: str,
+                    segments: Optional[Tensor], num_segments: Optional[int]
+                    ) -> List[Check]:
+    """Per-layer Checks from the network kernel's telescoped running sums
+    [L, nbm, width].  The final telescope value of a stripe IS its stripe
+    corner (the same Σ acc / Σ ex the single-layer sweep emits), so every
+    granularity reduces from the telescopes exactly as it would from a
+    sequential per-layer run."""
+    checks: List[Check] = []
+    for ell in range(tele_acts.shape[0]):
+        ta, tp = tele_acts[ell], tele_preds[ell]
+        if granularity == "slot":
+            checks.append(slot_check_corners(ta, tp))
+        elif granularity == "stripe":
+            checks.append(Check(predicted=tp[:, -1], actual=ta[:, -1],
+                                granularity="stripe"))
+        elif granularity == "graph":
+            checks.append(Check(
+                predicted=segment_sum(tp[:, -1], segments, num_segments),
+                actual=segment_sum(ta[:, -1], segments, num_segments),
+                granularity="graph"))
+        else:
+            checks.append(Check(predicted=tp[:, -1].sum(),
+                                actual=ta[:, -1].sum()))
+    return checks
+
+
+def _network_sweep(cols: Tensor, vals: Tensor, hp: Tensor,
+                   ws: Sequence[Tensor], wrs: Sequence[Optional[Tensor]], *,
+                   block_g: int, granularity: str, inject, stash_acts: bool,
+                   segments: Optional[Tensor] = None,
+                   num_segments: Optional[int] = None):
+    """One network launch on padded operands: (out [rows, g_last], checks,
+    stashed post-ReLU activations | None)."""
+    want_check = wrs[0] is not None
+    wps, wrps = _network_weights(ws, wrs, block_g)
+    out, tele_acts, tele_preds, acts = gcn_network_kernel(
+        cols, vals, hp, wps, wrps, inject=inject, with_check=want_check,
+        stash_acts=stash_acts)
+    checks = (_network_checks(tele_acts, tele_preds, granularity, segments,
+                              num_segments) if want_check
+              else [None] * len(ws))
+    return out[:, :ws[-1].shape[1]], checks, acts
+
+
+def gcn_network_packed(cols: Tensor, vals: Tensor, h0: Tensor,
+                       ws: Sequence[Tensor], wrs: Sequence[Optional[Tensor]],
+                       segments: Optional[Tensor], *,
+                       num_segments: Optional[int] = None,
+                       block_g: int = 128, granularity: str = "graph",
+                       inject: Optional[Tuple[int, int, int, float]] = None,
+                       stash_acts: bool = False
+                       ) -> Tuple[Tensor, List[Optional[Check]],
+                                  Optional[Tuple[Tensor, ...]]]:
+    """An L-layer GCN over a block-diagonal packed batch in ONE kernel
+    launch: relu and the next layer's combination follow each layer's
+    aggregation inside the launch, and the eq.-5 column is carried across
+    every layer boundary — one check per layer, taken pre-activation,
+    exactly as the sequential path.
+
+    ``wrs`` entries are the folded per-layer W·e (all present, or all
+    ``None`` to disable checking).  ``inject=(layer, stripe, slot, delta)``
+    is the accumulator fault hook.  ``stash_acts=True`` also returns the
+    per-layer inputs ``h_layers`` (h0, relu(out_0), …) for the
+    surgical-repair tiers.  Returns (out [rows, g_last], [Check | None] per
+    layer, h_layers | None).
+    """
+    validate_packed_operands(vals, h0.shape[0], "h0")
+    out, checks, acts = _network_sweep(
+        cols, vals, h0.to(torch.float32).contiguous(), ws, wrs,
+        block_g=block_g, granularity=granularity, inject=inject,
+        stash_acts=stash_acts, segments=segments, num_segments=num_segments)
+    h_layers = (h0,) + acts if stash_acts else None
+    return out, checks, h_layers
+
+
+def gcn_network_layer(bell: BlockEll, h: Tensor, ws: Sequence[Tensor],
+                      wrs: Sequence[Optional[Tensor]], *, block_g: int = 128,
+                      granularity: str = "layer",
+                      inject: Optional[Tuple[int, int, int, float]] = None,
+                      stash_acts: bool = False,
+                      _staged: Optional[Tuple[Tensor, Tensor]] = None
+                      ) -> Tuple[Tensor, List[Optional[Check]],
+                                 Optional[Tuple[Tensor, ...]]]:
+    """Single-graph whole-network fusion (see :func:`gcn_network_packed`).
+
+    Requires square blocks; H is padded to the full nbm*block_m stripe rows
+    (the activations must cover every output stripe AND every referenced
+    column block — a square adjacency always satisfies this).  ``_staged``
+    reuses already-staged (block_cols, values) device tensors.
+    Returns (out [n, g_last], [Check | None] per layer, h_layers | None);
+    stashed h_layers keep the padded stripe rows (the repair path indexes
+    them by stripe)."""
+    if bell.block_m != bell.block_k:
+        raise ValueError("whole-network fusion needs square blocks; got "
+                         f"block_m={bell.block_m}, block_k={bell.block_k}")
+    if granularity == "graph":
+        raise ValueError("granularity='graph' needs a packed batch "
+                         "(gcn_network_packed with segments)")
+    n, _ = bell.shape
+    rows = bell.n_block_rows * bell.block_m
+    if bell.padded_cols > rows:
+        raise ValueError(f"the adjacency references {bell.padded_cols} "
+                         f"columns beyond its {rows} padded rows")
+    cols, vals = _staged if _staged is not None \
+        else device_block_ell(bell, h.device)
+    out, checks, acts = _network_sweep(
+        cols, vals, fit_rows(h.to(torch.float32), rows).contiguous(), ws,
+        wrs, block_g=block_g, granularity=granularity, inject=inject,
+        stash_acts=stash_acts)
+    h_layers = (fit_rows(h, rows),) + acts if stash_acts else None
+    return out[:n], checks, h_layers
+
+
+# ---------------------------------------------------------------------------
+# Device-memory traffic of the three GCN kernel paths, as their tile
+# schedules ask for it: every stored tile (ELL padding tiles included —
+# both paths schedule them like real tiles) reads its S tile and its
+# operand tile, weights are read once, every output is written once.  The
+# models do not know the L2 cache: a W re-read per tile, or an activation
+# tile the previous layer just wrote, counts once or per tile as the
+# docstrings say.  They price a BlockEll layout, which analysis/vmem.py
+# does not know, so they live here.
+# ---------------------------------------------------------------------------
+
+def schedule_bytes_twopass(bell: BlockEll, f: int, g: int, *,
+                           itemsize: int = 4) -> int:
+    """One two-pass layer: the combination ``torch.matmul`` (read H [n, f]
+    and W, write X padded to [k_pad, gp]), the independent eq.-5 column
+    H·w_r, then the spmm_abft launch (per stored tile the S tile, one X
+    tile and one x_r tile; the index table; out / stripe sums / extra)."""
+    gp = _lanes(g)
+    nbm, width = bell.n_block_rows, bell.width
+    bm, bk = bell.block_m, bell.block_k
+    tiles = nbm * width
+    k_pad = max(bell.padded_cols, bell.block_k)
+    n = bell.shape[0]
+    combine = n * f + f * g + k_pad * gp
+    eq5 = n * f + f + k_pad
+    aggregate = (tiles * (bm * bk + bk * gp + bk) + tiles
+                 + nbm * bm * gp + nbm + nbm * bm)
+    return itemsize * (combine + eq5 + aggregate)
+
+
+def schedule_bytes_fused(bell: BlockEll, f: int, g: int, *,
+                         itemsize: int = 4) -> int:
+    """One gcn_fused launch: per stored tile the S tile and one unpadded
+    H tile [bk, f]; the index table; W [f, gp] and w_r once (the kernel
+    streams them per tile from L2); out / stripe sums / extra.  X never
+    exists in device memory."""
+    gp = _lanes(g)
+    nbm, width = bell.n_block_rows, bell.width
+    bm, bk = bell.block_m, bell.block_k
+    tiles = nbm * width
+    return itemsize * (tiles * (bm * bk + bk * f) + tiles + f * gp + f
+                       + nbm * bm * gp + nbm + nbm * bm)
+
+
+def schedule_bytes_network(bell: BlockEll, dims: Sequence[int], *,
+                           itemsize: int = 4) -> int:
+    """One gcn_network launch over layer widths ``dims``: per layer the S
+    tiles and the index table again, one H tile [bk, F_l] per stored tile
+    (h0 at layer 0, the previous layer's activations after — written once
+    [rows, F_{l+1}] and read back through L2), each layer's W [F_l, gp_l]
+    and w_r once, the slot telescopes, and the final logits [rows, gp]
+    once.  The activation buffers double as the repair stash, so stashing
+    adds nothing."""
+    nbm, width = bell.n_block_rows, bell.width
+    bm, bk = bell.block_m, bell.block_k
+    tiles = nbm * width
+    rows = nbm * bm
+    traffic = 0
+    for ell, (f, g) in enumerate(zip(dims[:-1], dims[1:])):
+        gp = _lanes(g)
+        traffic += (tiles * (bm * bk + bk * f) + tiles + f * gp + f
+                    + 2 * tiles)                       # telescopes
+        traffic += rows * gp if ell == len(dims) - 2 else rows * g
+    return itemsize * traffic

@@ -28,8 +28,8 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # every translation unit of the library, and the headers they include
-SOURCES = ("spmm_abft.cu", "gcn_fused.cu")
-HEADERS = ("abft_tile.cuh",)
+SOURCES = ("spmm_abft.cu", "gcn_fused.cu", "gcn_network.cu")
+HEADERS = ("abft_tile.cuh", "fused_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -49,6 +49,10 @@ _SIGNATURES = {
     "gcn_fused_supported": [_I, _I, _I],
     "abft_block_threads": [],
     "gcn_fused_launch": [_P] * 10 + [_I] * 10 + [_F, _P],
+    "gcn_network_max_layers": [],
+    "gcn_network_supported": [_P, _I, _I, _I],
+    "gcn_network_smem_bytes": [_P, _I, _I],
+    "gcn_network_launch": [_P] * 11 + [_I] * 9 + [_F, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -192,25 +196,28 @@ def require_cuda_operands(what: str, **tensors) -> None:
             raise ValueError(f"{what}: {name} is not 16-byte aligned")
 
 
+def _wrappers():
+    """(name, launch wrapper, plain version) of every kernel."""
+    from .gcn_fused.kernel import (gcn_fused_kernel, gcn_fused_plain,
+                                   gcn_network_kernel, gcn_network_plain)
+    from .spmm_abft.kernel import spmm_abft_kernel, spmm_abft_plain
+    return (("spmm_abft", spmm_abft_kernel, spmm_abft_plain),
+            ("gcn_fused", gcn_fused_kernel, gcn_fused_plain),
+            ("gcn_network", gcn_network_kernel, gcn_network_plain))
+
+
 def launch_counts() -> Dict[str, int]:
     """Launches of every kernel wrapper so far in this process."""
-    from .gcn_fused.kernel import gcn_fused_kernel
-    from .spmm_abft.kernel import spmm_abft_kernel
-    return {"spmm_abft": spmm_abft_kernel.launches,
-            "gcn_fused": gcn_fused_kernel.launches}
+    return {name: kernel.launches for name, kernel, _ in _wrappers()}
 
 
 def plain_counts() -> Dict[str, int]:
     """Calls of every kernel's plain PyTorch version so far."""
-    from .gcn_fused.kernel import gcn_fused_plain
-    from .spmm_abft.kernel import spmm_abft_plain
-    return {"spmm_abft": spmm_abft_plain.calls,
-            "gcn_fused": gcn_fused_plain.calls}
+    return {name: plain.calls for name, _, plain in _wrappers()}
 
 
 def reset_counts() -> None:
     """Set every launch and plain-call count to 0."""
-    from .gcn_fused.kernel import gcn_fused_kernel, gcn_fused_plain
-    from .spmm_abft.kernel import spmm_abft_kernel, spmm_abft_plain
-    spmm_abft_kernel.launches = gcn_fused_kernel.launches = 0
-    spmm_abft_plain.calls = gcn_fused_plain.calls = 0
+    for _, kernel, plain in _wrappers():
+        kernel.launches = 0
+        plain.calls = 0

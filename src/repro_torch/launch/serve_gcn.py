@@ -2,8 +2,10 @@
 
 This server materializes a whole stream, packs it once, and replays the
 batches — the right harness for apples-to-apples throughput measurements,
-where arrival timing must not pollute the measurement.  It is a thin client
-of ``engine.streaming``'s steps, retry ladder and the ``ABFTGuard``
+where arrival timing must not pollute the measurement.  For continuous
+traffic use the streaming server (``repro_torch.launch.serve_stream`` /
+``engine.streaming.StreamingEngine``).  Both are thin clients of
+``engine.streaming``'s steps, retry ladders and the ``ABFTGuard``
 escalation ladder.  Counterpart of the JAX package's
 ``repro/launch/serve_gcn.py``; it runs on the GPU unless ``--device cpu``
 (or ``device="cpu"``) is given.
@@ -19,22 +21,25 @@ Variable-size graphs batch one of two ways:
   spmm_abft kernel, and the fused epilogue segment-sums the per-stripe
   checksum partials into *per-graph* eq.-6 corners — serving cost scales
   with nnz, not N².  ``--fused-layer`` runs each layer through the
-  single-pass gcn_fused kernel instead.
+  single-pass gcn_fused kernel instead; ``--fused-network`` runs the whole
+  network in one gcn_network launch.
 
 Both paths run under ``ABFTGuard.run_step_graphs``: the step emits a
 per-graph verdict vector, so a flagged batch retries *only the flagged
 graphs* (a small re-pack) instead of replaying the whole bucket; a
-persistently flagged step falls back to restore->replay->verify.  Per-layer
-``w_r`` is folded once at weight-load time (``engine.fold_w_r``), not
-recomputed per step.  Reports graphs/sec over the sustained phase plus the
-stream-order per-graph verdicts.
+persistently flagged step falls back to restore->replay->verify.  With
+``--check-granularity stripe`` (block_ell backend) the packed epilogue keeps
+its per-row-stripe corners and the guard gains the surgical tier: a flagged
+stripe's rows are gathered, re-executed through the fused kernel, spliced,
+and re-verified (``engine.localize``) before any graph is re-packed;
+``slot`` adds the slot-surgical rung below it.  Per-layer ``w_r`` is folded
+once at weight-load time (``engine.fold_w_r``), not recomputed per step.
+Reports graphs/sec over the sustained phase plus the stream-order per-graph
+verdicts.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_gcn --graphs 64 \
-        --batch 8 --backend block_ell --block 32 --abft fused --fused-layer
-
-``--fused-network`` and ``--check-granularity stripe|slot`` are accepted
-and refused with an error until the whole-network kernel and the surgical
-repair tiers are ported (slice 2 of the port).
+        --batch 8 --backend block_ell --block 32 --abft fused \
+        --fused-network --check-granularity slot
 """
 from __future__ import annotations
 
@@ -80,10 +85,15 @@ def serve(batches: Sequence[Batch], params, cfg: ABFTConfig,
     block size (``PackedGraphs.block``).  ``fused_layer=True`` selects the
     single-pass gcn_fused kernel on the packed path (dense path unaffected),
     falling back per layer to the two-pass kernel when one block's
-    shared-memory working set exceeds ``vmem_budget``.  ``fused_network``
-    and the ``"stripe"``/``"slot"`` granularities' surgical retry tiers
-    raise ``NotImplementedError`` until they are ported.  ``device``
-    defaults to the GPU and raises when there is none.
+    shared-memory working set exceeds ``vmem_budget``;
+    ``fused_network=True`` tries the whole-network kernel first — every
+    layer in ONE launch, falling back to the per-layer ladder when
+    ``analysis.vmem.fused_network_fits`` declines.  ``granularity="stripe"``
+    (packed batches only) keeps per-stripe check corners and arms the
+    guard's surgical retry tier; ``"slot"`` keeps per-(stripe, slot)
+    telescoped corners and adds the slot-surgical rung below it — the
+    escalation ladder becomes slot -> stripe -> graph -> whole-step
+    restore.  ``device`` defaults to the GPU and raises when there is none.
     """
     if granularity not in ("graph", "stripe", "slot"):
         raise ValueError(f"serve granularity {granularity!r} not in "
@@ -160,7 +170,9 @@ def serve(batches: Sequence[Batch], params, cfg: ABFTConfig,
     gps = n_graphs / max(dt, 1e-9)
     kind = "packed block_ell" if any(isinstance(b, PackedGraphs)
                                      for b in batches) else "dense"
-    if fused_layer and kind != "dense":
+    if fused_network and kind != "dense":
+        kind += " (fused-network)"
+    elif fused_layer and kind != "dense":
         kind += " (fused-layer)"
     if granularity == "stripe":
         kind += " [stripe corners]"
@@ -238,8 +250,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          "gcn_fused kernel (combination + aggregation + "
                          "check in one sweep; block_ell backend)")
     ap.add_argument("--fused-network", action="store_true",
-                    help="whole network in one kernel sweep — not ported "
-                         "yet (slice 2 of the port); refused")
+                    help="run the WHOLE network through one gcn_network "
+                         "launch (activations in device memory between "
+                         "layers; falls back to the per-layer ladder when "
+                         "analysis.vmem.fused_network_fits declines; "
+                         "block_ell backend)")
     ap.add_argument("--vmem-budget", type=int, default=None,
                     help="override, in bytes, the shared memory one "
                          "gcn_fused thread block may use before a layer "
@@ -248,9 +263,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          "per-block limit)")
     ap.add_argument("--check-granularity", default="graph",
                     choices=["graph", "stripe", "slot"],
-                    help="fault attribution: per packed graph (default); "
-                         "stripe/slot need the surgical retry tiers, not "
-                         "ported yet (slice 2 of the port) — refused")
+                    help="fault attribution: per packed graph (default), "
+                         "per row-stripe, or per (stripe, slot) tile "
+                         "column — stripe/slot arm the guard's surgical "
+                         "retry tiers (block_ell backend)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; fails without a GPU) or 'cpu' "
@@ -259,13 +275,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.check_granularity != "graph" and args.backend != "block_ell":
         ap.error(f"--check-granularity {args.check_granularity} needs "
                  f"--backend block_ell (dense batches have no row-stripes)")
-    if args.fused_network:
-        ap.error("--fused-network needs the whole-network kernel, which "
-                 "arrives with slice 2 of the port; use --fused-layer")
-    if args.check_granularity != "graph":
-        ap.error(f"--check-granularity {args.check_granularity} needs the "
-                 f"surgical retry tiers (engine/localize.py), which arrive "
-                 f"with slice 2 of the port; use --check-granularity graph")
+    if args.fused_network and args.backend != "block_ell":
+        ap.error("--fused-network needs --backend block_ell")
 
     dev = resolve_device(args.device)
     # f32 end to end: TF32 would lift the clean divergence from ~1e-6 to
@@ -291,6 +302,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     params = init_gcn(gen, (args.feat, args.hidden, args.classes),
                       device=dev)
     return serve(batches, params, cfg, fused_layer=args.fused_layer,
+                 fused_network=args.fused_network,
                  vmem_budget=args.vmem_budget,
                  granularity=args.check_granularity, device=dev)
 

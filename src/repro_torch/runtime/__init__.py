@@ -1,2 +1,3 @@
-from .abft_guard import ABFTGuard, GuardConfig  # noqa: F401
+from .abft_guard import (ABFTGuard, GuardConfig,  # noqa: F401
+                         UnverifiableBatch)
 from .watchdog import StragglerWatchdog  # noqa: F401

@@ -85,6 +85,14 @@ def _host(x: Any, dtype: Any = None) -> np.ndarray:
     return np.asarray(x, dtype=dtype)
 
 
+class UnverifiableBatch(RuntimeError):
+    """The guard refuses to adopt a step: still flagged after every repair
+    tier, or no restore/replay path to escalate to.  The serving layer
+    degrades its backend on this and only this; a kernel that fails to
+    build or launch during a repair raises its own error, which must reach
+    the caller instead of being taken for a flagged batch."""
+
+
 @dataclasses.dataclass
 class GuardConfig:
     max_retries: int = 2
@@ -391,7 +399,7 @@ class ABFTGuard:
                 "the doomed retry tiers, escalating to restore",
                 self.steps, sorted(persistent)[:4])
             if replay is None:
-                raise RuntimeError(
+                raise UnverifiableBatch(
                     f"ABFT: persistent fault at {sorted(persistent)[:4]} "
                     f"and no replay=(step_fn, args) to escalate to — "
                     f"evict or degrade this backend")
@@ -510,7 +518,7 @@ class ABFTGuard:
                 return out, self._adopt(metrics)
         self._recent.append(True)
         if replay is None:
-            raise RuntimeError(
+            raise UnverifiableBatch(
                 "ABFT: persistent per-graph fault and no replay=(step_fn, "
                 "args) to escalate to — the dispatching caller must keep "
                 "the step closure alive until adjudication")
@@ -534,8 +542,8 @@ class ABFTGuard:
         returned state is ignored.  Never returns flagged metrics; raises
         after ``max_restores`` failed restore+replay rounds."""
         if self.restore_fn is None:
-            raise RuntimeError("ABFT: persistent fault and no restore_fn "
-                               "given")
+            raise UnverifiableBatch("ABFT: persistent fault and no "
+                                    "restore_fn given")
         for r in range(1, self.cfg.max_restores + 1):
             if self.cfg.restore_backoff > 0:
                 delay = min(self.cfg.restore_backoff
@@ -561,7 +569,7 @@ class ABFTGuard:
             if not bool(_host(flag).any()):
                 log.warning("ABFT: replay after restore %d verified clean", r)
                 return out, metrics
-        raise RuntimeError(
+        raise UnverifiableBatch(
             f"ABFT: step still flagged after {self.cfg.max_restores} "
             f"restore+replay attempt(s) — refusing to adopt unverified "
             f"state (suspect persistent hardware fault; evict this host)")

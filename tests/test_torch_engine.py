@@ -225,8 +225,8 @@ def test_backend_registry_and_validation():
         make_backend(bell, cfg, granularity="graph", device="cpu")
     with pytest.raises(ValueError, match="inject is"):
         make_backend(bell, cfg, inject=(0, 1, 2.0), device="cpu")
-    with pytest.raises(NotImplementedError, match="B3"):
-        make_backend(bell, cfg, fused_network=True, device="cpu")
+    net = make_backend(bell, cfg, fused_network=True, device="cpu")
+    assert isinstance(net, BlockEllBackend) and net.fused_network
     with pytest.raises(NotImplementedError, match="A11"):
         make_backend(bell, cfg, partition=object(), device="cpu")
     bk = make_backend(bell, cfg, device="cpu")
@@ -237,6 +237,11 @@ def test_backend_registry_and_validation():
     _, tp = _params(6)
     out, chk = bk(cfg, torch.from_numpy(h0), tp["layers"][0]["w"])
     assert tuple(out.shape) == (45, DIMS[1]) and not bool(chk.flag(cfg))
+    # fused_network=True: the whole forward through the network hook
+    a, _ = gcn_forward(tp, TGraph(bell, h0), cfg, backend=net)
+    b, _ = gcn_forward(tp, TGraph(bell, h0), cfg, backend=bk)
+    assert (net.network_hits, net.network_fallbacks) == (1, 0)
+    np.testing.assert_allclose(_np(a), _np(b), atol=1e-5)
 
 
 def test_convert_round_trip_and_torch_init():

@@ -110,7 +110,7 @@ def test_cpu_runs_only_when_asked_for():
         repro_torch.resolve_device("cuda:0")
 
 
-@pytest.mark.parametrize("kernel", ["spmm_abft", "gcn_fused"])
+@pytest.mark.parametrize("kernel", ["spmm_abft", "gcn_fused", "gcn_network"])
 def test_wrapper_never_takes_the_plain_version_off_the_cpu(kernel):
     """Tensors on any device other than the CPU go to the launch path, which
     raises when it cannot launch; the plain version is not consulted."""
@@ -119,49 +119,54 @@ def test_wrapper_never_takes_the_plain_version_off_the_cpu(kernel):
     vals = torch.zeros((2, 2, 8, 8), device=dev)
     x, xr = torch.zeros((16, 4), device=dev), torch.zeros((16, 1), device=dev)
     w, wr = torch.zeros((4, 4), device=dev), torch.zeros((4, 1), device=dev)
-    before = (spmm_kernel.spmm_abft_plain.calls,
-              fused_kernel.gcn_fused_plain.calls,
-              spmm_kernel.spmm_abft_kernel.launches,
-              fused_kernel.gcn_fused_kernel.launches)
+    before = (runtime.plain_counts(), runtime.launch_counts())
     with pytest.raises(ValueError, match="not on a CUDA device"):
         if kernel == "spmm_abft":
             spmm_kernel.spmm_abft_kernel(cols, vals, x, xr)
-        else:
+        elif kernel == "gcn_fused":
             fused_kernel.gcn_fused_kernel(cols, vals, x, w, wr)
-    assert before == (spmm_kernel.spmm_abft_plain.calls,
-                      fused_kernel.gcn_fused_plain.calls,
-                      spmm_kernel.spmm_abft_kernel.launches,
-                      fused_kernel.gcn_fused_kernel.launches)
+        else:
+            fused_kernel.gcn_network_kernel(
+                cols, vals, x, [torch.zeros((4, 8), device=dev)], [wr])
+    assert before == (runtime.plain_counts(), runtime.launch_counts())
 
 
 def test_launch_and_plain_counters():
     runtime.reset_counts()
-    assert runtime.launch_counts() == {"spmm_abft": 0, "gcn_fused": 0}
+    zero = {"spmm_abft": 0, "gcn_fused": 0, "gcn_network": 0}
+    assert runtime.launch_counts() == zero
     cols = torch.zeros((1, 1), dtype=torch.int32)
     vals = torch.ones((1, 1, 4, 4))
     spmm_kernel.spmm_abft_kernel(cols, vals, torch.ones(4, 4),
                                  torch.ones(4, 1))
     fused_kernel.gcn_fused_kernel(cols, vals, torch.ones(4, 3),
                                   torch.ones(3, 4), torch.ones(3, 1))
-    assert runtime.plain_counts() == {"spmm_abft": 1, "gcn_fused": 1}
-    assert runtime.launch_counts() == {"spmm_abft": 0, "gcn_fused": 0}
+    fused_kernel.gcn_network_kernel(cols, vals, torch.ones(4, 3),
+                                    [torch.ones(3, 8)], [torch.ones(3, 1)])
+    assert runtime.plain_counts() == {"spmm_abft": 1, "gcn_fused": 1,
+                                      "gcn_network": 1}
+    assert runtime.launch_counts() == zero
     runtime.reset_counts()
-    assert runtime.plain_counts() == {"spmm_abft": 0, "gcn_fused": 0}
+    assert runtime.plain_counts() == zero
 
 
 def test_cuda_sources_exist_and_carry_their_notes():
     paths = runtime.source_paths()
     assert {p.name for p in paths} == {"spmm_abft.cu", "gcn_fused.cu",
-                                       "abft_tile.cuh"}
+                                       "gcn_network.cu", "abft_tile.cuh",
+                                       "fused_tile.cuh"}
     for p in paths:
         assert p.is_file() and p.parent == PKG / "kernels" / "csrc"
     for name, ref in (("spmm_abft.cu", "src/repro/kernels/spmm_abft/kernel.py"),
-                      ("gcn_fused.cu", "src/repro/kernels/gcn_fused/kernel.py")):
+                      ("gcn_fused.cu", "src/repro/kernels/gcn_fused/kernel.py"),
+                      ("gcn_network.cu",
+                       "src/repro/kernels/gcn_fused/kernel.py")):
         text = (PKG / "kernels" / "csrc" / name).read_text()
         assert ref in text and "What bounds it" in text
         assert 'extern "C"' in text and "torch/extension.h" not in text
     assert "compute_90a" in " ".join(runtime.NVCC_FLAGS)
-    assert set(runtime._SIGNATURES) >= {"spmm_abft_launch", "gcn_fused_launch"}
+    assert set(runtime._SIGNATURES) >= {"spmm_abft_launch", "gcn_fused_launch",
+                                        "gcn_network_launch"}
 
 
 def test_build_without_nvcc_raises_instead_of_falling_back(monkeypatch,
@@ -207,4 +212,13 @@ def test_shared_memory_model_is_one_object_everywhere():
     assert vmem.network_vmem_bytes([16, 16, 7], 32, 256) > \
         vmem.network_vmem_bytes([16, 7], 32, 256)
     assert vmem.fused_network_fits([16, 16, 7], 32, 256)
-    assert not vmem.fused_network_fits([1433, 16, 7], 128, 22528)
+    # the port's network predicate (activations in device memory): Cora at
+    # 128-blocks fits; a non-square block, an output width past the register
+    # tile and a model deeper than the launcher's struct do not
+    assert vmem.fused_network_fits([1433, 16, 7], 128, 18432)
+    assert vmem.network_vmem_bytes([1433, 16, 7], 128, 18432) == cora
+    assert not vmem.fused_network_fits([1433, 16, 7], 128, 18432, bk=64)
+    assert not vmem.fused_network_fits([16, 72, 7], 128, 18432)
+    deep = [16] * (vmem.MAX_NETWORK_LAYERS + 2)
+    assert vmem.fused_network_fits(deep[:-1], 32, 256)
+    assert not vmem.fused_network_fits(deep, 32, 256)

@@ -165,8 +165,9 @@ def test_step_logits_and_verdicts_per_graph(fused_layer):
 @pytest.mark.parametrize("fused_layer", [False, True],
                          ids=["two-pass", "fused-layer"])
 def test_localizing_step_metrics(fused_layer, granularity):
-    """The step computes stripe and slot reports (and the operand stashes) at
-    those granularities even though the surgical retries are not ported."""
+    """The step computes stripe and slot reports and the operand stashes at
+    those granularities, and the matching surgical retry repairs the
+    injected fault as the reference's does."""
     _stream, jb, tb, jp, tp = _setup(seed=2)
     jcfg, tcfg = JConfig(), TConfig()
     inject = (1, 1, 0, 9.0)
@@ -187,12 +188,39 @@ def test_localizing_step_metrics(fused_layer, granularity):
             assert (a is None) == (b is None)
             if a is not None:
                 np.testing.assert_allclose(_np(a), np.asarray(b), atol=ATOL)
-    for fn in (tr.stripe_retry_fn, tr.slot_retry_fn):
-        with pytest.raises(NotImplementedError, match="localize"):
-            fn(tb[0])
-    with pytest.raises(NotImplementedError):
-        t_serve_mod.serve(tb, tp, tcfg, verbose=False,
-                          granularity=granularity, device="cpu")
+    fn = "slot_retry_fn" if granularity == "slot" else "stripe_retry_fn"
+    tout, tsub = getattr(tr, fn)(tb[0])(tl, tm)
+    jout, jsub = getattr(jr, fn)(jb[0])(jl, jm)
+    np.testing.assert_allclose(_np(tout), np.asarray(jout), atol=ATOL)
+    for key in ("abft_graph_flags", "abft_rows_recomputed",
+                "abft_stripes_recomputed"):
+        np.testing.assert_array_equal(np.asarray(tsub[key]),
+                                      np.asarray(jsub[key]))
+
+
+@pytest.mark.parametrize("path,granularity", [
+    ({"fused_network": True}, "graph"), ({"fused_network": True}, "stripe"),
+    ({"fused_network": True}, "slot"), ({"fused_layer": True}, "slot"),
+    ({}, "stripe")],
+    ids=["network-graph", "network-stripe", "network-slot",
+         "fused-layer-slot", "two-pass-stripe"])
+def test_serve_repair_tiers_match_reference(monkeypatch, path, granularity):
+    """serve() with an injected accumulator upset, at every granularity and
+    on the network path: the same stats, per-graph verdicts and repair-tier
+    counts as the reference, and every adopted verdict clean."""
+    _stream, jb, tb, jp, tp = _setup()
+    pb = tb[0]
+    owner = pb.n_graphs - 1
+    inject = (0, int(pb.row_offsets[owner]) // BLOCK, 0, 25.0)
+    jstats, tstats, jg, tg, jr, tr = _serve_both(
+        monkeypatch, jb, tb, jp, tp, inject=inject, granularity=granularity,
+        **path)
+    _same_stats(jstats, tstats, jg, tg)
+    assert tg.flags >= 1 and not tstats["graph_flags"].any()
+    assert tr.compile_count == jr.compile_count
+    if path.get("fused_network"):
+        assert tstats["network_hits"] == len(tb)
+        assert tstats["repair_tiers"][granularity] >= 1
 
 
 def test_retry_ladder_shapes_are_powers_of_two():
@@ -243,14 +271,25 @@ def test_cli_prints_the_reference_lines_and_refuses_later_slices(capsys):
                  "fusion: network_hits=0 network_fallbacks=0 fused_hits=4"):
         assert line in out, line
     assert stats["graphs"] == 8 and not stats["graph_flags"].any()
-    for argv in (["--backend", "block_ell", "--fused-network"],
-                 ["--backend", "block_ell", "--check-granularity", "stripe"],
-                 ["--backend", "block_ell", "--check-granularity", "slot"],
-                 ["--check-granularity", "stripe"]):
+    # the whole-network kernel and the surgical tiers, served
+    for extra, kind in ((["--fused-network"], "(fused-network) batches"),
+                        (["--check-granularity", "stripe"],
+                         "[stripe corners]"),
+                        (["--fused-network", "--check-granularity", "slot"],
+                         "(fused-network) [slot corners]")):
+        stats = t_serve_mod.main(["--graphs", "8", "--batch", "4",
+                                  "--backend", "block_ell", "--block", "8",
+                                  "--device", "cpu"] + extra)
+        out = capsys.readouterr().out
+        assert kind in out and "repair tiers: slot=0" in out, out
+        assert stats["graphs"] == 8 and not stats["graph_flags"].any()
+        if "--fused-network" in extra:
+            assert "fusion: network_hits=2 network_fallbacks=0" in out
+            assert stats["network_hits"] == 2
+    for argv in (["--check-granularity", "stripe"], ["--fused-network"]):
         with pytest.raises(SystemExit):
             t_serve_mod.main(argv + ["--device", "cpu"])
-        err = capsys.readouterr().err
-        assert "slice 2" in err or "needs --backend block_ell" in err
+        assert "needs --backend block_ell" in capsys.readouterr().err
     with pytest.raises(ValueError, match="granularity"):
         t_serve_mod.serve([], {}, TConfig(), granularity="layer",
                           device="cpu")
