@@ -9,17 +9,21 @@ whole-network kernel bit for bit against a chain of single-layer launches),
 and drives the port's main paths — guarded packed block-ELL GCN serving
 (two-pass, fused-layer and whole-network), the stripe/slot repair tiers and
 the streaming server — at the published widths of Cora's 2-layer GCN
-(1433 -> 16 -> 7), through the entry points a user would call.  Any phase
-that fails raises and the run exits non-zero; without a CUDA device it exits
-non-zero before printing anything.
+(1433 -> 16 -> 7), and the checked-op path — guarded LM serving (prefill,
+greedy decode, the retry and restore ladder) at gemma-2b's published widths,
+all 18 layers, float32, on the ``matmul_abft`` and ``flash_checksum``
+kernels — through the entry points a user would call.  Any phase that fails
+raises and the run exits non-zero; without a CUDA device it exits non-zero
+before printing anything.
 
 One JSON object per phase is printed (``env``, ``build``, ``kernel_checks``,
-``serve``, ``fault``, ``stream``, ``full_graph``), then the ``kernels``
-summary line, the card's name and power limit as ``nvidia-smi`` gives them,
-and a last line ``{"ok": true, "device": {...}}``.
+``lm_kernels``, ``serve``, ``fault``, ``stream``, ``full_graph``,
+``lm_serve``), then the ``kernels`` summary line, the card's name and power
+limit as ``nvidia-smi`` gives them, and a last line
+``{"ok": true, "device": {...}}``.
 
-Bounds use the published peaks of an H100 SXM: 3.35 TB/s of device memory
-and 67 TFLOP/s in float32 outside the tensor cores.
+Bounds use the published peaks of an H100 SXM: 3.35 TB/s of device memory,
+67 TFLOP/s in float32 outside the tensor cores, 989 TFLOP/s in bfloat16.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 # the main path's configuration: Cora's published model and graph size
 DIMS = (1433, 16, 7)
@@ -45,7 +50,18 @@ STREAM = dict(n_requests=32, profile=16, n_slots=4)
 OUT_ATOL = OUT_RTOL = 1e-4       # kernel vs plain version, every output
 CORNER_RTOL = 1e-4               # clean |pred - actual| / max(1, |actual|)
 LOGIT_ATOL = 1e-4                # vs the float64 dense forward
+# the LM's logits card vs CPU: 1e-4, plus 1e-6 of |logit| — one f32 spacing
+# is 1.22e-4 at |logit| >= 1024, which gemma's logit of the input token
+# itself reaches (~1800: its embedding dominates the residual stream), so
+# atol alone would ask for bit-identity there; 1e-6 is at most ~8 spacings
+LM_LOGIT_RTOL = 1e-6
 REPAIR_ATOL = 1e-5               # repaired vs clean logits
+# the checked-op path: gemma-2b at its published widths, float32, depth not
+# cut; 2 sequences of 512 prompt tokens, then 16 greedy decode steps
+LM = dict(arch="gemma-2b", batch=2, prompt=512, new=16, seed=0,
+          inject_at=3, inject_delta=25.0, flip_layer=5, flip_bit=30,
+          cut_layers=2, cut_prompt=128, cut_decode=2)
+BF16_TOL = dict(matmul_abft=2e-2, flash_checksum=3e-2)   # the JAX tests'
 
 
 def emit(phase: str, **fields) -> None:
@@ -112,13 +128,50 @@ def phase_env(torch) -> str:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import importlib.util
+    # how far one float32 torch.matmul (cuBLAS) lands from float64: the
+    # plain versions and the plain decode attention run on it
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(16, 8, 256, generator=g, device="cuda")
+    b = torch.randn(16, 256, 129, generator=g, device="cuda")
+    ref = a.double() @ b.double()
+    probe = float(((a @ b).double() - ref).abs().max()
+                  / ref.abs().max())
     emit("env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, cuda_available=torch.cuda.is_available(),
          triton_installed=importlib.util.find_spec("triton") is not None,
          nvcc=" | ".join(nvcc), nvidia_smi=smi,
          device=torch.cuda.get_device_name(0),
-         allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+         allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         fp32_precision=getattr(torch.backends.cuda.matmul,
+                                "fp32_precision", None),
+         float32_matmul_precision=torch.get_float32_matmul_precision(),
+         f32_matmul_max_rel_err_vs_f64=probe)
     return smi
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers, stack and spills of every kernel entry in a ``ptxas -v``
+    log, keyed by the (mangled) entry name."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def phase_build() -> None:
@@ -128,7 +181,8 @@ def phase_build() -> None:
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds=round(runtime.last_build_seconds, 3),
          library=str(runtime.build_root()),
-         sources=[str(p.relative_to(ROOT)) for p in runtime.source_paths()])
+         sources=[str(p.relative_to(ROOT)) for p in runtime.source_paths()],
+         ptxas=ptxas_summary(runtime.last_build_log))
 
 
 def make_stream_batches(block: int):
@@ -933,6 +987,529 @@ def phase_full_graph(torch, params):
     emit("full_graph", **result)
 
 
+# ---------------------------------------------------------------------------
+# the checked-op path: guarded LM serving on matmul_abft and flash_checksum
+# ---------------------------------------------------------------------------
+
+def lm_config():
+    """gemma-2b at its published widths, served in float32 (the dtype in
+    which the JAX package serves and tests its LM)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(LM["arch"]), dtype="float32")
+
+
+def lm_matmul_shapes(cfg):
+    """Every (M, K, N, trans_b) the LM run launches matmul_abft at, with its
+    launches per prefill and per decode step."""
+    d, hq = cfg.d_model, cfg.n_heads * cfg.hd
+    hkv, ff, n = cfg.n_kv_heads * cfg.hd, cfg.d_ff, cfg.n_layers
+    per_layer = [(d, hq), (d, hkv), (d, hkv), (hq, d), (d, ff), (d, ff),
+                 (ff, d)]
+    shapes = {}
+    for m, step in ((LM["batch"] * LM["prompt"], "prefill"),
+                    (LM["batch"], "decode")):
+        for k, nn in per_layer:
+            shapes.setdefault((m, k, nn, False), {"prefill": 0, "decode": 0})
+            shapes[(m, k, nn, False)][step] += n
+    # the tied head: the last position of each sequence, both steps
+    head = (LM["batch"], d, cfg.padded_vocab, True)
+    shapes[head] = {"prefill": 1, "decode": 1}
+    return shapes
+
+
+def matmul_bound(torch, m, k, n, dtype):
+    """Least time of one product on the card: every input read once, every
+    output written once, against 2MNK + 2MK operations at the type's peak."""
+    item = torch.empty((), dtype=dtype).element_size()
+    tm, tn = (4, 64) if m <= 16 else (64, 128)
+    n_bytes = item * (m * k + k * n + m * n) + 4 * (
+        k + m + -(-m // tm) * -(-n // tn))
+    n_ops = 2 * m * n * k + 2 * m * k
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    t_b, t_o = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / peak * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), \
+        n_bytes, n_ops
+
+
+def check_matmul_shape(torch, m, k, n, trans_b, dtype, gen, timed):
+    """matmul_abft kernel vs plain at one launch shape (with and without the
+    extra column), the clean corner, a corrupted output that must diverge;
+    optionally its times.  Operands scaled as the LM's: activations ~1,
+    weights ~1/sqrt(K) (the head's table ~1)."""
+    from repro_torch.kernels.matmul_abft.kernel import (matmul_abft_kernel,
+                                                        matmul_abft_plain)
+    from repro_torch.kernels.matmul_abft.ops import matmul_abft
+    a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    std = 1.0 if trans_b else k ** -0.5
+    b = (torch.randn(*((n, k) if trans_b else (k, n)), generator=gen,
+                     device="cuda") * std).to(dtype)
+    br = b.float().sum(dim=0 if trans_b else 1).contiguous()
+    tag = f"matmul_abft M={m} K={k} N={n} trans_b={trans_b} {dtype}"
+    tol = OUT_ATOL if dtype == torch.float32 else BF16_TOL["matmul_abft"]
+    worst = worst_c = 0.0
+    for with_br in (True, False):
+        got = matmul_abft_kernel(a, b, br if with_br else None,
+                                 trans_b=trans_b)
+        torch.cuda.synchronize()
+        want = matmul_abft_plain(a, b, br if with_br else None,
+                                 trans_b=trans_b)
+        worst_c = max(worst_c, assert_close(f"{tag} c", got[0].float(),
+                                            want[0].float(), atol=tol,
+                                            rtol=tol))
+        worst = max(worst, worst_c)
+        worst = max(worst, assert_close(f"{tag} block_sums", got[1], want[1],
+                                        atol=OUT_ATOL, rtol=OUT_RTOL))
+        if with_br:
+            worst = max(worst, assert_close(f"{tag} extra", got[2], want[2],
+                                            atol=OUT_ATOL, rtol=OUT_RTOL))
+            c_checked = got[0]
+        elif got[2] is not None or not torch.equal(got[0], c_checked):
+            raise AssertionError(f"{tag}: the unchecked product differs "
+                                 f"from the checked one")
+    c, chk = matmul_abft(a, b, br, trans_b=trans_b)
+    rel = corner_rel(chk.predicted, chk.actual)
+    if not rel <= (CORNER_RTOL if dtype == torch.float32 else 1e-2):
+        raise AssertionError(f"{tag}: clean corner divergence {rel:.3e}")
+    bad = c.float().clone()
+    bad.view(-1)[c.numel() // 2] += 100.0
+    div = float((chk.predicted - bad.sum()).abs())
+    if not div > 50.0:
+        raise AssertionError(f"{tag}: a corrupted output diverges by only "
+                             f"{div}")
+    # max_abs_err covers every output; the extra column of the head reaches
+    # |2e4| (b_r sums 256000 table rows), so it is reported for C alone too
+    entry = dict(m=m, k=k, n=n, trans_b=trans_b, dtype=str(dtype),
+                 max_abs_err=worst, max_abs_err_c=worst_c, max_rel_corner=rel,
+                 corrupted_divergence=div)
+    if timed and dtype == torch.float32 and m <= 16:
+        # the kernel, the plain version on the card and on the CPU, each
+        # against float64 (the thin products the LM head and decode use)
+        ref = (a.double() @ (b.double().t() if trans_b else b.double()))
+        cpu = matmul_abft_plain(a.cpu(), b.cpu(), br.cpu(), trans_b=trans_b)
+        entry["vs_f64"] = {
+            name: float((x.double() - ref).abs().max())
+            for name, x in (("kernel", c), ("plain_card", want[0]),
+                            ("plain_cpu", cpu[0].to("cuda")))}
+    if timed:
+        bound, by, n_bytes, n_ops = matmul_bound(torch, m, k, n, dtype)
+        lib_b = torch.cat([b.t() if trans_b else b, br[:, None].to(dtype)],
+                          dim=1).contiguous()
+        entry.update(
+            ms=time_ms(lambda: matmul_abft_kernel(a, b, br, trans_b=trans_b),
+                       reps=5),
+            plain_ms=time_ms(lambda: matmul_abft_plain(a, b, br,
+                                                       trans_b=trans_b),
+                             warm=1, reps=2),
+            library_ms=time_ms(lambda: torch.matmul(a, lib_b), reps=5),
+            bound_ms=bound, bound_by=by, bytes=n_bytes, flops=n_ops)
+    return entry
+
+
+def flash_bound(torch, b, t, s, h, kh, dh, dtype):
+    """Least time of one causal launch: q, k, v, vr, o, o_extra once against
+    the causal pairs' work (q·k and p·v over dh, p·vr) at the type's peak."""
+    item = torch.empty((), dtype=dtype).element_size()
+    n_bytes = item * (2 * b * t * h * dh + 2 * b * s * kh * dh + b * s * h) \
+        + 4 * b * t * h
+    pairs = b * h * sum(min(i + 1, s) for i in range(t))
+    n_ops = pairs * (4 * dh + 2)
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    t_b, t_o = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / peak * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), \
+        n_bytes, n_ops
+
+
+def sdpa_library_ms(torch, q, k, v, vr):
+    """One ``scaled_dot_product_attention`` call computing o and o_extra
+    together (vr as an extra value column) — the yardstick only; nothing in
+    the port calls it.  Returns (ms | None, note)."""
+    try:
+        import torch.nn.functional as F
+        h = q.shape[2]
+        g = h // k.shape[2]
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+        vv = torch.cat([v.repeat_interleave(g, dim=2), vr[..., None]],
+                       dim=-1).transpose(1, 2).contiguous()
+        F.scaled_dot_product_attention(qt, kt, vv, is_causal=True)
+        torch.cuda.synchronize()
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vv, is_causal=True), reps=5), \
+            "F.scaled_dot_product_attention(q, k, [v | vr], is_causal=True)"
+    except Exception as exc:  # the yardstick may not exist in this build
+        return None, f"SDPA unavailable: {type(exc).__name__}: {exc}"
+
+
+def check_flash_shape(torch, b, t, s, h, kh, dh, dtype, gen, timed):
+    """flash_checksum kernel vs plain (with and without the column), the
+    chain identity Σ o_extra = Σ (o W_o) as a clean corner, a corrupted
+    accumulator that must diverge; optionally its times."""
+    from repro_torch.kernels.flash_checksum.kernel import (
+        flash_checksum_kernel, flash_checksum_plain)
+    from repro_torch.kernels.flash_checksum.ops import (carried_column,
+                                                        chain_check)
+    from repro_torch.kernels.matmul_abft.ops import matmul_abft
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    q, k, v = rnd(b, t, h, dh), rnd(b, s, kh, dh), rnd(b, s, kh, dh)
+    d_model = 2048
+    wo = (torch.randn(h * dh, d_model, generator=gen, device="cuda")
+          * (h * dh) ** -0.5)
+    w_or = wo.sum(dim=1).reshape(h, dh)
+    vr = carried_column(v, w_or, h).to(dtype)
+    tag = f"flash_checksum B={b} T={t} S={s} H={h} Kh={kh} dh={dh} {dtype}"
+    tol = OUT_ATOL if dtype == torch.float32 else BF16_TOL["flash_checksum"]
+    got = flash_checksum_kernel(q, k, v, vr)
+    torch.cuda.synchronize()
+    want = flash_checksum_plain(q, k, v, vr)
+    worst = max(assert_close(f"{tag} o", got[0].float(), want[0].float(),
+                             atol=tol, rtol=tol),
+                assert_close(f"{tag} o_extra", got[1], want[1],
+                             atol=max(tol, OUT_ATOL) * 2,
+                             rtol=max(tol, OUT_RTOL) * 2))
+    o_bare, ex_bare = flash_checksum_kernel(q, k, v, None)
+    if ex_bare is not None or not torch.equal(o_bare, got[0]):
+        raise AssertionError(f"{tag}: o without the carried column differs")
+    o, ex = got
+    wo_t = wo.to(dtype)
+    out, _ = matmul_abft(o.reshape(b * t, h * dh), wo_t, with_check=False)
+    chk = chain_check(ex, out)
+    rel = corner_rel(chk.predicted, chk.actual)
+    if not rel <= (CORNER_RTOL if dtype == torch.float32 else 5e-2):
+        raise AssertionError(f"{tag}: clean chain divergence {rel:.3e}")
+    # upset the accumulator element whose W_o row sum is largest, so the
+    # chain's change (25 x that sum) cannot fall under tau by chance
+    bad = o.clone()
+    hh, dd = divmod(int(w_or.abs().argmax()), dh)
+    bad[0, 0, hh, dd] += 25.0
+    out_bad, _ = matmul_abft(bad.reshape(b * t, h * dh), wo_t,
+                             with_check=False)
+    div = float((chain_check(ex, out_bad).diff()))
+    if not div > 1e-3 * max(1.0, float(chk.actual.abs())):
+        raise AssertionError(f"{tag}: a corrupted accumulator diverges by "
+                             f"only {div}")
+    entry = dict(b=b, t=t, s=s, h=h, kh=kh, dh=dh, dtype=str(dtype),
+                 max_abs_err=worst, max_rel_corner=rel,
+                 corrupted_divergence=div)
+    if timed:
+        bound, by, n_bytes, n_ops = flash_bound(torch, b, t, s, h, kh, dh,
+                                                dtype)
+        lib_ms, lib_note = sdpa_library_ms(torch, q, k, v, vr)
+        entry.update(
+            ms=time_ms(lambda: flash_checksum_kernel(q, k, v, vr), reps=5),
+            plain_ms=time_ms(lambda: flash_checksum_plain(q, k, v, vr),
+                             warm=1, reps=2),
+            library_ms=lib_ms, library_note=lib_note,
+            bound_ms=bound, bound_by=by, bytes=n_bytes, flops=n_ops)
+    return entry
+
+
+def phase_lm_kernels(torch):
+    """Hold matmul_abft and flash_checksum against their plain versions at
+    every launch shape of the LM run, in float32 (timed) and bfloat16, plus
+    ragged and GQA shapes; returns the two kernels-line entries."""
+    from repro_torch.analysis.vmem import flash_smem_bytes
+    cfg = lm_config()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shapes = lm_matmul_shapes(cfg)
+    per_shape = []
+    for (m, k, n, tb), counts in shapes.items():
+        e = check_matmul_shape(torch, m, k, n, tb, torch.float32, gen, True)
+        e["launches_per_step"] = counts
+        per_shape.append(e)
+    bf16 = [check_matmul_shape(torch, m, k, n, tb, torch.bfloat16, gen,
+                               False)
+            for (m, k, n, tb) in shapes]
+    ragged = [check_matmul_shape(torch, m, k, n, tb, dt, gen, False)
+              for m, k, n, tb in ((200, 100, 72, False), (17, 33, 65, True),
+                                  (1, 2050, 129, False))
+              for dt in (torch.float32, torch.bfloat16)]
+    b, t, h, kh, dh = LM["batch"], LM["prompt"], cfg.n_heads, \
+        cfg.n_kv_heads, cfg.hd
+    flash_main = check_flash_shape(torch, b, t, t, h, kh, dh, torch.float32,
+                                   gen, True)
+    flash_other = [check_flash_shape(torch, b, t, t, h, kh, dh,
+                                     torch.bfloat16, gen, False)] + [
+        check_flash_shape(torch, *shape, dt, gen, False)
+        for shape in ((1, 100, 100, 4, 2, 64), (2, 128, 256, 4, 2, 64),
+                      (1, 70, 70, 4, 4, 16))
+        for dt in (torch.float32, torch.bfloat16)]
+
+    def step_ms(key, step):
+        return sum(e[key] * e["launches_per_step"][step] for e in per_shape)
+    per_step = {step: {key: step_ms(key, step) for key in
+                       ("ms", "plain_ms", "library_ms", "bound_ms")}
+                for step in ("prefill", "decode")}
+    main = max(per_shape, key=lambda e: e["flops"] * e["launches_per_step"][
+        "prefill"])
+    entries = {
+        "matmul_abft": dict(
+            name="matmul_abft", route="cuda",
+            source="src/repro_torch/kernels/csrc/matmul_abft.cu",
+            replaces="src/repro/kernels/matmul_abft/kernel.py:65",
+            max_abs_err=max(e["max_abs_err"] for e in per_shape),
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"],
+            library_note="torch.matmul(a, [b | b_r]) at the same shape",
+            shape=dict(m=main["m"], k=main["k"], n=main["n"]),
+            per_step_ms=per_step),
+        "flash_checksum": dict(
+            name="flash_checksum", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_checksum.cu",
+            replaces="src/repro/kernels/flash_checksum/kernel.py:88",
+            max_abs_err=flash_main["max_abs_err"], ms=flash_main["ms"],
+            plain_ms=flash_main["plain_ms"], bound_ms=flash_main["bound_ms"],
+            bound_by=flash_main["bound_by"],
+            library_ms=flash_main["library_ms"],
+            library_note=flash_main["library_note"],
+            smem_bytes=flash_smem_bytes(dh),
+            shape=dict(b=b, t=t, s=t, h=h, kh=kh, dh=dh))}
+    emit("lm_kernels", tolerance=dict(f32=OUT_ATOL, bf16=BF16_TOL,
+                                      corner_rtol=CORNER_RTOL),
+         matmul_f32=per_shape, matmul_bf16=bf16, matmul_ragged=ragged,
+         flash_f32=flash_main, flash_other=flash_other, per_step=per_step,
+         kernels=list(entries.values()))
+    return entries
+
+
+def _argmax_tokens(torch, logits):
+    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+
+
+def lm_trajectory(torch, step_prefill, step_decode, tokens, n_new, *,
+                  inject_at=None, delta=0.0, timed=False):
+    """Prefill then ``n_new`` greedy decode steps; every step's logits and
+    token, and (``timed``) host-clock ms around each synchronised step."""
+    t0 = tokens.shape[1]
+    times = []
+    start = time.perf_counter()
+    logits, states = step_prefill(tokens, delta if inject_at == -1 else 0.0)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - start) * 1e3)
+    out_logits, out_tokens = [logits], []
+    for i in range(n_new):
+        nxt = _argmax_tokens(torch, logits)
+        out_tokens.append(nxt)
+        start = time.perf_counter()
+        logits, states = step_decode(states, nxt, t0 + i,
+                                     delta if inject_at == i else 0.0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        out_logits.append(logits)
+    return out_logits, out_tokens, times
+
+
+def phase_lm_serve(torch, smi):
+    """The checked-op main path: LMEngine at gemma-2b's full width, all 18
+    layers, f32 — guarded == unguarded bit for bit with no clean flag, an
+    accumulator upset on a decode step and a wq bit flip each detected and
+    repaired bit for bit, every product on matmul_abft and every prefill
+    attention on flash_checksum; then the same params cut to 2 layers on the
+    card against the CPU (the plain versions)."""
+    from repro_torch.core.abft import ABFTConfig
+    from repro_torch.engine.lm import LMEngine, fold_lm_w_r
+    from repro_torch.kernels import runtime
+    from repro_torch.models.transformer import (init_model, model_decode,
+                                                model_prefill)
+
+    cfg = lm_config()
+    abft = ABFTConfig(mode="fused", threshold=1e-3, relative=True)
+    off = ABFTConfig(mode="none")
+    cache_len = LM["prompt"] + LM["new"]
+    t_init = time.perf_counter()
+    params = init_model(cfg, LM["seed"], device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_init
+    eng = LMEngine(cfg, abft, params, cache_len=cache_len)
+    gen = torch.Generator(device="cuda").manual_seed(LM["seed"] + 1)
+    tokens = torch.randint(1, cfg.vocab_size, (LM["batch"], LM["prompt"]),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    per_prefill = cfg.n_layers * 7 + 1
+    torch.cuda.reset_peak_memory_stats()
+
+    # the bit-identity baseline: unguarded mode="none" on the master params
+    runtime.reset_counts()
+    ref_logits, ref_tokens, ref_ms = lm_trajectory(
+        torch,
+        lambda tok, inj: model_prefill(params, cfg, {"tokens": tok}, off,
+                                       cache_len)[:2],
+        lambda st, tok, pos, inj: model_decode(params, cfg, st, tok, pos,
+                                               off)[:2],
+        tokens, LM["new"])
+    ref_counts = runtime.launch_counts()
+
+    # the main path: the guarded engine, clean
+    def g_prefill(tok, inj):
+        logits, states, m = eng.prefill(tok, inject=inj)
+        metrics.append(m)
+        return logits, states
+
+    def g_decode(st, tok, pos, inj):
+        logits, states, m = eng.decode(st, tok, pos, inject=inj)
+        metrics.append(m)
+        return logits, states
+
+    metrics = []
+    runtime.reset_counts()
+    logits, toks, step_ms = lm_trajectory(torch, g_prefill, g_decode, tokens,
+                                          LM["new"])
+    counts, plain = runtime.launch_counts(), runtime.plain_counts()
+    want = {"matmul_abft": per_prefill * (LM["new"] + 1),
+            "flash_checksum": cfg.n_layers}
+    others = {k: v for k, v in counts.items() if k not in want}
+    if {k: counts[k] for k in want} != want or any(others.values()) \
+            or any(plain.values()) or ref_counts != counts:
+        raise AssertionError(f"lm_serve: launches {counts} (want {want}, "
+                             f"unguarded {ref_counts}), plain {plain}")
+    identical = all(torch.equal(a, b) for a, b in zip(logits, ref_logits)) \
+        and all(torch.equal(a, b) for a, b in zip(toks, ref_tokens))
+    if not identical or eng.guard.flags:
+        raise AssertionError(f"lm_serve: guarded trajectory bit-identical "
+                             f"{identical}, clean flags {eng.guard.flags}")
+    ids = metrics[0]["abft_op_ids"]
+    if len(ids) != 7 * cfg.n_layers + 1 or ids[0] != "op0:L0" \
+            or ids[-1] != "op7":
+        raise AssertionError(f"lm_serve: op ids {ids[:3]}..{ids[-2:]}")
+    max_rel = max(float(m["abft_max_rel"]) for m in metrics)
+    if not max_rel <= CORNER_RTOL:
+        raise AssertionError(f"lm_serve: clean max_rel {max_rel:.3e}")
+    finite = all(bool(torch.isfinite(x[..., :cfg.vocab_size]).all())
+                 for x in logits)
+    shape_ok = tuple(logits[0].shape) == (LM["batch"], 1, cfg.padded_vocab)
+    if not (finite and shape_ok):
+        raise AssertionError(f"lm_serve: logits finite {finite}, shape "
+                             f"{tuple(logits[0].shape)}")
+
+    # a transient accumulator upset on one decode step: one retry, bit for bit
+    flags0, retries0 = eng.guard.flags, eng.guard.retries
+    metrics = []
+    inj_logits, inj_toks, _ = lm_trajectory(
+        torch, g_prefill, g_decode, tokens, LM["new"],
+        inject_at=LM["inject_at"], delta=LM["inject_delta"])
+    inject = dict(decode_step=LM["inject_at"], delta=LM["inject_delta"],
+                  flags=eng.guard.flags - flags0,
+                  retries=eng.guard.retries - retries0,
+                  bitwise=all(torch.equal(a, b) for a, b in
+                              zip(inj_logits, ref_logits)))
+    if inject["flags"] != 1 or inject["retries"] != 1 \
+            or not inject["bitwise"]:
+        raise AssertionError(f"lm_serve: injected upset {inject}")
+
+    # a bit flip in one layer's wq after load: a corrupted clone replaces
+    # the working leaf (the master shares the tensor and stays pristine)
+    flags0, restores0 = eng.guard.flags, eng.guard.restores
+    seg = dict(eng.params["segments"][0])
+    b0 = dict(seg["b0"])
+    attn = dict(b0["attn"])
+    wq = dict(attn["wq"])
+    w = wq["w"].clone()
+    word = w.view(torch.int32)
+    word[LM["flip_layer"], 0, 0, 0] ^= (1 << LM["flip_bit"])
+    wq["w"], attn["wq"], b0["attn"], seg["b0"] = w, wq, attn, b0
+    eng.params = dict(eng.params, segments=[seg])
+    metrics = []
+    flip_logits, _, _ = lm_trajectory(torch, g_prefill, g_decode, tokens, 2)
+    flip = dict(layer=LM["flip_layer"], bit=LM["flip_bit"],
+                flags=eng.guard.flags - flags0,
+                restores=eng.guard.restores - restores0,
+                bitwise=all(torch.equal(a, b) for a, b in
+                            zip(flip_logits, ref_logits)),
+                master_pristine=not torch.equal(
+                    params["segments"][0]["b0"]["attn"]["wq"]["w"], w))
+    if flip["flags"] != 1 or flip["restores"] != 1 or not flip["bitwise"] \
+            or not flip["master_pristine"]:
+        raise AssertionError(f"lm_serve: weight flip {flip}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the same params cut to 2 layers: the card against the CPU's plain
+    # versions, prefill and decode logits within LOGIT_ATOL
+    n_cut = LM["cut_layers"]
+    import dataclasses
+    cut_cfg = dataclasses.replace(cfg, n_layers=n_cut)
+    cut = dict(params, segments=[{"b0": {
+        key: _slice_tree(val, n_cut)
+        for key, val in params["segments"][0]["b0"].items()}}])
+    cut_tokens = tokens[:, :LM["cut_prompt"]]
+    cut_len = LM["cut_prompt"] + LM["cut_decode"]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p_dev = _tree_to(cut, dev)
+        folded = fold_lm_w_r(p_dev, cut_cfg, abft)
+        t0 = time.perf_counter()
+        lg, st, rep = model_prefill(folded, cut_cfg,
+                                    {"tokens": cut_tokens.to(dev)}, abft,
+                                    cut_len)
+        outs, flags = [lg], [bool(rep.flag)]
+        for i in range(LM["cut_decode"]):
+            nxt = _argmax_tokens(torch, outs[-1])
+            lg, st, rep = model_decode(folded, cut_cfg, st, nxt,
+                                       LM["cut_prompt"] + i, abft)
+            outs.append(lg)
+            flags.append(bool(rep.flag))
+        runs[dev] = dict(logits=[x.cpu() for x in outs], flags=flags,
+                         seconds=time.perf_counter() - t0)
+        del p_dev, folded
+    pairs = [(a[..., :cfg.vocab_size], b[..., :cfg.vocab_size])
+             for a, b in zip(runs["cuda"]["logits"], runs["cpu"]["logits"])]
+    cut_errs = [max_err(a, b) for a, b in pairs]
+    cut_err = max(cut_errs)
+    # max |card - CPU| / (atol + rtol |CPU|): at most 1 passes
+    cut_ratio = [float(((a - b).abs() / (LOGIT_ATOL + LM_LOGIT_RTOL
+                                          * b.abs())).max()) for a, b in pairs]
+    cut_ok = max(cut_ratio) <= 1.0 and not any(runs["cuda"]["flags"]) \
+        and not any(runs["cpu"]["flags"])
+
+    prefill_ms, decode_ms = step_ms[0], step_ms[1:]
+    emit("lm_serve", nvidia_smi=smi, model=cfg.name, dtype=cfg.dtype,
+         layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
+         kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, d_ff=cfg.d_ff,
+         vocab=cfg.vocab_size, batch=LM["batch"], prompt=LM["prompt"],
+         new=LM["new"], cache_len=cache_len, init_seconds=t_init,
+         launches=counts, plain_calls=plain,
+         launches_per_step=dict(matmul_abft=per_prefill,
+                                flash_checksum_per_prefill=cfg.n_layers),
+         clean=dict(bitwise_identical=identical, flags=0, max_rel=max_rel,
+                    op_ids=len(ids)),
+         prefill_ms=prefill_ms, unguarded_prefill_ms=ref_ms[0],
+         decode_ms_per_step=sum(decode_ms) / len(decode_ms),
+         decode_ms_min_max=[min(decode_ms), max(decode_ms)],
+         unguarded_decode_ms_per_step=sum(ref_ms[1:]) / len(ref_ms[1:]),
+         inject=inject, weight_flip=flip, peak_memory_gb=peak_gb,
+         cut=dict(layers=n_cut, prompt=LM["cut_prompt"],
+                  decode=LM["cut_decode"], max_abs_err_card_vs_cpu=cut_err,
+                  per_step_max_abs_err=cut_errs,
+                  per_step_gate_ratio=cut_ratio,
+                  max_abs_logit=max(float(b.abs().max()) for _, b in pairs),
+                  tolerance=dict(atol=LOGIT_ATOL, rtol=LM_LOGIT_RTOL),
+                  card_seconds=runs["cuda"]["seconds"],
+                  cpu_seconds=runs["cpu"]["seconds"]),
+         guard=eng.stats())
+    if not cut_ok:      # reported above first, so the numbers are kept
+        raise AssertionError(f"2-layer logits card vs CPU, per step: "
+                             f"{cut_errs} (atol {LOGIT_ATOL}, rtol "
+                             f"{LM_LOGIT_RTOL}); flags "
+                             f"{runs['cuda']['flags']} {runs['cpu']['flags']}")
+    return {k: counts[k] for k in want}
+
+
+def _slice_tree(tree, n):
+    if isinstance(tree, dict):
+        return {k: _slice_tree(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
 def main() -> int:
     try:
         import torch
@@ -956,12 +1533,15 @@ def main() -> int:
     _stream, batches = make_stream_batches(SERVE["block"])
     params = make_params(torch)
     entries = phase_kernels(torch, batches, params)
+    entries.update(phase_lm_kernels(torch))
     if stop_after == "kernels":
         return 0
     launches = phase_serve(torch, batches, params)
     phase_fault(torch, batches, params)
     phase_stream(torch, params, smi)
     phase_full_graph(torch, params)
+    del batches, params
+    launches.update(phase_lm_serve(torch, smi))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -134,3 +134,42 @@ def fused_network_fits(dims: Sequence[int], bm: int, rows: int, *,
         all(fused_tile_supported(g, bm, bk, block_g=block_g)
             for g in dims[1:]) and \
         network_vmem_bytes(dims, bm, bm, block_g=block_g) <= budget
+
+
+# ---------------------------------------------------------------------------
+# The checked-op kernels (kernels/csrc/matmul_abft.cu, flash_checksum.cu).
+# ---------------------------------------------------------------------------
+
+# matmul_abft walks K in steps of this many columns; each step is summed
+# into its own partial before it joins the accumulator (the plain version
+# associates the same way).
+MATMUL_BLOCK_K = 32
+# M at or below this takes the thin 4 x 64 tile (one output per thread):
+# a decode step's M = 2 would waste 32x the arithmetic in a 64-row tile.
+MATMUL_SMALL_M = 16
+
+
+def matmul_tile(m: int) -> tuple:
+    """(rows, columns) of the C tile one ``matmul_abft`` block owns for an
+    ``m``-row product; ``block_sums`` has one entry per such tile.  The
+    tiles are static shared memory (under 48 KB), so no budget applies."""
+    return (4, 64) if m <= MATMUL_SMALL_M else (64, 128)
+
+
+# flash_checksum: 64 query rows per block, key blocks of 32, head_dim up to
+# 256.  The TPU kernel's 128 x 128 blocks do not fit: at dh = 256 in f32 a
+# 128-row q tile alone is 128 KB of the 227 KB a block may use.
+FLASH_BLOCK_Q = 64
+FLASH_BLOCK_K = 32
+FLASH_MAX_DH = 256
+
+
+def flash_smem_bytes(dh: int, *, itemsize: int = 4) -> int:
+    """Dynamic shared memory of one ``flash_checksum`` block: the q tile
+    [64, dh + 1] and the k tile [32, dh + 1] (one padding float per row:
+    conflict-free score reads), the v tile [32, dh], the probabilities
+    [64, 33], the carried column's key block [32] and one float per query
+    row (the rescale factor, then the final sum).  140,288 B at dh = 256."""
+    bq, bk = FLASH_BLOCK_Q, FLASH_BLOCK_K
+    return itemsize * (bq * (dh + 1) + bk * (dh + 1) + bk * dh
+                       + bq * (bk + 1) + bk + bq)

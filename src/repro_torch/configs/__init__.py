@@ -1,0 +1,39 @@
+"""Config registry: the architectures the port can run.
+
+Counterpart of the JAX package's ``repro/configs/__init__.py``.  Only the
+attention decoders whose blocks the port has are registered (gemma-2b); the
+other architectures of the JAX package need MoE, RWKV, RG-LRU,
+encoder-decoder or windowed attention, which are still to port
+(ROADMAP A10).
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+from .base import ModelConfig, MoECfg, ShapeConfig, SHAPES, smoke_config  # noqa: F401
+
+_REGISTRY: Dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    _ensure_loaded()
+    if name not in _REGISTRY:
+        raise KeyError(f"{name!r} is not an architecture the port runs yet "
+                       f"(have {sorted(_REGISTRY)}; ROADMAP A10)")
+    return _REGISTRY[name]
+
+
+def list_archs() -> List[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
+def _ensure_loaded() -> None:
+    if _REGISTRY:
+        return
+    from . import gemma_2b  # noqa: F401

@@ -1,9 +1,11 @@
 """Carry weights between the JAX package and the port.
 
 The JAX package's GCN params are a tree ``{"layers": [{"w": ..., "w_r"?:
-...}, ...]}`` of ``jax.Array`` leaves; exported with
-``jax.tree.map(np.asarray, params)`` they become numpy arrays, which is the
-form this module reads and writes.  Neither side imports the other.
+...}, ...]}`` and its LM params a tree ``{"embed": {"table"}, "segments":
+[layer-stacked unit dicts], "final_norm": {"scale"}}`` of ``jax.Array``
+leaves; exported with ``jax.tree.map(np.asarray, params)`` they become
+numpy arrays, which is the form this module reads and writes.  Neither side
+imports the other.
 """
 from __future__ import annotations
 
@@ -50,3 +52,37 @@ def params_to_device(tree: Any, *, device: DeviceLike = "cuda") -> Any:
     dev = resolve_device(device)
     return _map(tree, lambda x: x.to(dev) if isinstance(x, torch.Tensor)
                 else x)
+
+
+def _shapes(tree: Any, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_shapes(v, f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_shapes(v, f"{prefix}/{i}"))
+        return out
+    return {prefix: tuple(tree.shape)}
+
+
+def lm_params_from_numpy(tree: Any, cfg, *,
+                         device: DeviceLike = "cuda") -> Any:
+    """The JAX package's LM params (numpy leaves) -> the port's, after
+    checking that every leaf has the shape the port's ``init_model(cfg)``
+    gives it (a tree from another configuration raises instead of failing
+    inside a kernel).  :func:`params_to_numpy` carries them back."""
+    from repro_torch.models.transformer import init_model
+
+    want = _shapes(init_model(cfg, 0, device="meta"))
+    have = _shapes(tree)
+    if want != have:
+        diff = sorted(k for k in set(want) | set(have)
+                      if want.get(k) != have.get(k))
+        raise ValueError(f"LM params do not match {cfg.name}: "
+                         + ", ".join(f"{k} {have.get(k)} (want "
+                                     f"{want.get(k)})" for k in diff[:6]))
+    return params_from_numpy(tree, device=device)
+

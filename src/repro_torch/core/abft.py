@@ -20,9 +20,7 @@ backs every implementation — :func:`resolve_w_r`, :func:`fold_w_r_tree`,
 none of it mentions GCNs.
 
 Counterpart of the JAX package's ``repro/core/abft.py``.  ``Check.diff`` has
-no check-sink marker (that marker exists for jaxpr static analysis only),
-and the reference ops ``MatmulOp``/``ChainOp``/``per_op_report`` arrive with
-the checked-op path.
+no check-sink marker (that marker exists for jaxpr static analysis only).
 """
 from __future__ import annotations
 
@@ -282,8 +280,10 @@ class CheckedOp:
         repair sites (``"op:<id>"``) — stable across steps of one serving
         trace.
 
-    Implementations so far: the GCN ``AggregationBackend``s
-    (``engine/backends``).
+    Implementations: the GCN ``AggregationBackend``s (``engine/backends``),
+    the reference ops below, and the kernel ops ``kernels/matmul_abft``
+    (``MatmulAbftOp``, every dense of the LM) and ``kernels/flash_checksum``
+    (``FlashAttentionOp``).
     """
 
     op_id: str = "op"
@@ -295,6 +295,80 @@ class CheckedOp:
 
     def __call__(self, cfg: ABFTConfig, *operands, **folded):
         raise NotImplementedError
+
+
+class MatmulOp(CheckedOp):
+    """Reference split-ABFT op (eqs. 2–3): ``out = A @ B``, one scalar
+    comparison, optional folded ``b_r``.  Plain PyTorch: the kernel-backed
+    drop-in is ``kernels.matmul_abft.ops.MatmulAbftOp``."""
+
+    op_id = "matmul"
+
+    def __call__(self, cfg: ABFTConfig, a: Tensor, b: Tensor, *,
+                 b_r: Optional[Tensor] = None):
+        c = torch.matmul(a, b)
+        if not cfg.enabled:
+            return c, None
+        return c, check_matmul(a, b, c, cfg, b_r=b_r)
+
+
+class ChainOp(CheckedOp):
+    """Reference fused op (eqs. 4–6): ``out = M0 @ ... @ Mk`` with ONE
+    comparison for the whole linear chain, optional folded right checksum
+    of the last matrix."""
+
+    op_id = "chain"
+
+    def __call__(self, cfg: ABFTConfig, *mats: Tensor,
+                 w_r: Optional[Tensor] = None):
+        out = mats[0]
+        for m in mats[1:]:
+            out = torch.matmul(out, m)
+        if not cfg.enabled:
+            return out, None
+        if w_r is None:
+            return out, check_chain(mats, out, cfg)
+        w_r = resolve_w_r(mats[-1], w_r, cfg)
+        v = col_checksum(mats[0], cfg.dtype)
+        for m in mats[1:-1]:
+            v = torch.einsum("...k,...kj->...j", v, m.to(cfg.dtype))
+        pred = torch.einsum("...k,...k->...", v, w_r)
+        return out, Check(predicted=pred, actual=_total(out, cfg))
+
+
+def per_op_report(checks: Sequence[Optional[Check]], cfg: ABFTConfig, *,
+                  prefix: str = "op", device: Any = None
+                  ) -> tuple[tuple, Tensor, Tensor]:
+    """Per-op twin of :func:`summarize`: one verdict per check element,
+    keyed by a static op id.
+
+    Returns ``(op_ids, flags, max_rel)`` where ``op_ids`` is a tuple of
+    strings and ``flags``/``max_rel`` are aligned ``[n_ops]`` vectors.  A
+    check whose fields are batched — a transformer segment stacks one
+    comparison per layer into ``[count]`` fields — contributes one verdict
+    per element with a ``:L{j}`` suffix, so a flagged op names the layer it
+    fired in.  The ids are positional among the present checks (``None`` =
+    op disabled): stable across steps of one serving configuration, which
+    is all the guard's persistent-site discrimination needs.  ``device``
+    places the empty vectors when there is nothing to report.
+    """
+    checks = [c for c in checks if c is not None]
+    if not checks or not cfg.enabled:
+        return ((), torch.zeros((0,), dtype=torch.bool, device=device),
+                torch.zeros((0,), dtype=torch.float32, device=device))
+    ids: list = []
+    flags, rels = [], []
+    for i, c in enumerate(checks):
+        f, r = c.elementwise(cfg)
+        f, r = f.reshape(-1), r.reshape(-1)
+        n = int(f.shape[0])
+        if n == 1:
+            ids.append(f"{prefix}{i}")
+        else:
+            ids.extend(f"{prefix}{i}:L{j}" for j in range(n))
+        flags.append(f)
+        rels.append(r.to(torch.float32))
+    return tuple(ids), torch.cat(flags), torch.cat(rels)
 
 
 # ---------------------------------------------------------------------------

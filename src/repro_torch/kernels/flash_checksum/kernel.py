@@ -1,0 +1,148 @@
+"""Flash attention emitting the fused ABFT chain column: the wrapper that
+launches the CUDA kernel, and its plain PyTorch version.
+
+Replaces the TPU kernel ``flash_checksum_kernel`` of the JAX package
+(``src/repro/kernels/flash_checksum/kernel.py``); the CUDA source is
+``kernels/csrc/flash_checksum.cu``, which also says what bounds the kernel
+on a Hopper card and what its design does about it.
+
+The layout is the model's, not the TPU kernel's per-(batch·head) slices:
+q [B, T, H, dh], k and v [B, S, Kh, dh] (the key/value head of query head h
+is h // (H / Kh) — K and V are never repeated per query head), the carried
+column vr [B, S, H] (= V·w_or, in q's dtype).  Outputs o [B, T, H, dh] in
+q's dtype and o_extra [B, T, H] f32 with Σ o_extra = eᵀ(A·V·W_o)e.  The
+causal mask compares query and key indices.  ``vr=None`` skips the column;
+o does not change.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.analysis.vmem import (FLASH_BLOCK_K, FLASH_MAX_DH,
+                                        FUSED_SMEM_BUDGET, flash_smem_bytes)
+
+Tensor = torch.Tensor
+DTYPES = (torch.float32, torch.bfloat16)
+NEG = -1e30
+
+
+def _check_shapes(q: Tensor, k: Tensor, v: Tensor, vr: Optional[Tensor]):
+    if q.ndim != 4 or k.ndim != 4 or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"q {tuple(q.shape)} must be [B, T, H, dh] and k, v "
+                         f"{tuple(k.shape)}, {tuple(v.shape)} [B, S, Kh, dh]")
+    b, t, h, dh = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != dh or h % kh:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         f"share B and dh, or H % Kh != 0")
+    if vr is not None and tuple(vr.shape) != (b, s, h):
+        raise ValueError(f"vr {tuple(vr.shape)} is not [B, S, H] = "
+                         f"{(b, s, h)}")
+    for name, x in (("k", k), ("v", v), ("vr", vr)):
+        if x is not None and x.dtype != q.dtype:
+            raise ValueError(f"{name} has dtype {x.dtype}, q {q.dtype}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"q has dtype {q.dtype}, not one of {DTYPES}")
+    return b, t, h, dh, s, kh
+
+
+def flash_checksum_plain(q: Tensor, k: Tensor, v: Tensor,
+                         vr: Optional[Tensor] = None, *, causal: bool = True
+                         ) -> Tuple[Tensor, Optional[Tensor]]:
+    """Plain PyTorch version of :func:`flash_checksum_kernel`: the same
+    online softmax over key blocks of the kernel's width, in order, with
+    p cast to v's dtype before both products and ``acc * corr + p @ v``
+    associated as the kernel does.  A key block that lies wholly above a
+    query row's diagonal changes nothing (p = 0, corr = 1), so processing
+    it equals the kernel's skip."""
+    flash_checksum_plain.calls += 1
+    b, t, h, dh, s, kh = _check_shapes(q, k, v, vr)
+    g = h // kh
+    f32 = torch.float32
+    scale = dh ** -0.5
+    dev = q.device
+    qf = q.to(f32)
+    ke = k.repeat_interleave(g, dim=2).to(f32)
+    ve = v.repeat_interleave(g, dim=2)
+    m = torch.full((b, t, h), NEG, dtype=f32, device=dev)
+    l = torch.zeros((b, t, h), dtype=f32, device=dev)
+    acc = torch.zeros((b, t, h, dh), dtype=f32, device=dev)
+    ex = torch.zeros((b, t, h), dtype=f32, device=dev)
+    qpos = torch.arange(t, device=dev)[:, None]
+    for k0 in range(0, s, FLASH_BLOCK_K):
+        k1 = min(k0 + FLASH_BLOCK_K, s)
+        sc = torch.einsum("bthd,bchd->bthc", qf, ke[:, k0:k1]) * scale
+        kpos = torch.arange(k0, k1, device=dev)[None, :]
+        valid = (kpos <= qpos) if causal else torch.ones_like(kpos <= qpos)
+        valid = valid[None, :, None, :]
+        sc = torch.where(valid, sc, torch.full_like(sc, NEG))
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.where(valid, torch.exp(sc - m_new[..., None]),
+                        torch.zeros_like(sc))
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pr = p.to(v.dtype).to(f32)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bthc,bchd->bthd", pr, ve[:, k0:k1].to(f32))
+        if vr is not None:
+            ex = ex * corr + torch.einsum("bthc,bch->bth", pr,
+                                          vr[:, k0:k1].to(f32))
+        m = m_new
+    lsafe = torch.clamp(l, min=1e-30)
+    o = (acc / lsafe[..., None]).to(q.dtype)
+    return o, (None if vr is None else ex / lsafe)
+
+
+flash_checksum_plain.calls = 0
+
+
+def flash_checksum_kernel(q: Tensor, k: Tensor, v: Tensor,
+                          vr: Optional[Tensor] = None, *, causal: bool = True
+                          ) -> Tuple[Tensor, Optional[Tensor]]:
+    """q: [B, T, H, dh]; k, v: [B, S, Kh, dh]; vr: [B, S, H] or None; one
+    dtype (float32 or bfloat16), dh <= 256.  Returns (o [B, T, H, dh],
+    o_extra [B, T, H] f32 | None).
+
+    Operands on a CUDA device launch the CUDA kernel (one launch, counted in
+    ``flash_checksum_kernel.launches``) or raise; only operands that lie on
+    the CPU take :func:`flash_checksum_plain`."""
+    if q.device.type == "cpu":
+        return flash_checksum_plain(q, k, v, vr, causal=causal)
+    from repro_torch.kernels import runtime
+
+    what = "flash_checksum_kernel"
+    b, t, h, dh, s, kh = _check_shapes(q, k, v, vr)
+    ops = dict(q=q, k=k, v=v) if vr is None else dict(q=q, k=k, v=v, vr=vr)
+    runtime.require_cuda_operands(what, allow=DTYPES, **ops)
+    lib = runtime.load_library()
+    smem = flash_smem_bytes(dh)
+    if dh > FLASH_MAX_DH or FLASH_MAX_DH != lib.flash_checksum_max_dh():
+        raise ValueError(f"{what}: head_dim {dh} over the kernel's "
+                         f"{lib.flash_checksum_max_dh()} (analysis.vmem "
+                         f"models {FLASH_MAX_DH})")
+    if smem != lib.flash_checksum_smem_bytes(dh) or smem > FUSED_SMEM_BUDGET:
+        raise RuntimeError(f"{what}: analysis.vmem models {smem} B of shared "
+                           f"memory, the library "
+                           f"{lib.flash_checksum_smem_bytes(dh)} B (budget "
+                           f"{FUSED_SMEM_BUDGET} B)")
+    dev = q.device
+    o = torch.empty_like(q)
+    o_extra = None if vr is None else torch.empty((b, t, h),
+                                                  dtype=torch.float32,
+                                                  device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.flash_checksum_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if vr is None else vr.data_ptr(), o.data_ptr(),
+            None if o_extra is None else o_extra.data_ptr(),
+            b, t, s, h, kh, dh, float(dh ** -0.5), int(causal),
+            DTYPES.index(q.dtype), stream)
+    runtime.check_launch(code, what)
+    flash_checksum_kernel.launches += 1
+    return o, o_extra
+
+
+flash_checksum_kernel.launches = 0

@@ -1,0 +1,134 @@
+"""Tiled matmul with the FUSED ABFT checksum epilogue: the wrapper that
+launches the CUDA kernel, and its plain PyTorch version.
+
+Replaces the TPU kernel ``matmul_abft_kernel`` of the JAX package
+(``src/repro/kernels/matmul_abft/kernel.py``); the CUDA source is
+``kernels/csrc/matmul_abft.cu``, which also says what bounds the kernel on a
+Hopper card and what its design does about it.
+
+  outputs: c          = A @ B                [M, N]  (A's dtype)
+           block_sums = Σ C per block tile   [ceil(M/tm), ceil(N/tn)] f32
+                        (the f32 accumulator before the cast; the tile is
+                        the kernel's own, ``analysis.vmem.matmul_tile``)
+           extra      = A @ b_r              [M, 1]  f32 (b_r = B·e)
+
+``trans_b=True`` takes B as its transpose ``[N, K]`` (the tied LM head's
+embedding table as it lies).  ``br=None`` skips the extra column — an
+unchecked product — and leaves ``c`` unchanged.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.analysis.vmem import MATMUL_BLOCK_K, matmul_tile
+
+Tensor = torch.Tensor
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_shapes(a: Tensor, b: Tensor, br: Optional[Tensor],
+                  trans_b: bool) -> Tuple[int, int, int]:
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must be "
+                         f"2-D")
+    m, k = a.shape
+    kb, n = (b.shape[1], b.shape[0]) if trans_b else b.shape
+    if kb != k:
+        raise ValueError(f"a is [{m}, {k}] but b is {tuple(b.shape)} "
+                         f"(trans_b={trans_b})")
+    if br is not None and br.numel() != k:
+        raise ValueError(f"br has {br.numel()} entries, K = {k}")
+    if a.dtype != b.dtype or a.dtype not in DTYPES:
+        raise ValueError(f"a ({a.dtype}) and b ({b.dtype}) must share one of "
+                         f"{DTYPES}")
+    if br is not None and br.dtype != torch.float32:
+        raise ValueError(f"br has dtype {br.dtype}; it is float32")
+    return m, n, k
+
+
+def tile_sums(acc: Tensor, m: int, n: int) -> Tensor:
+    """Σ of the f32 accumulator over each kernel tile (zero padded)."""
+    tm, tn = matmul_tile(m)
+    mt, nt = -(-m // tm), -(-n // tn)
+    pad = F.pad(acc, (0, nt * tn - n, 0, mt * tm - m))
+    return pad.reshape(mt, tm, nt, tn).sum(dim=(1, 3))
+
+
+def matmul_abft_plain(a: Tensor, b: Tensor, br: Optional[Tensor] = None, *,
+                      trans_b: bool = False
+                      ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """Plain PyTorch version of :func:`matmul_abft_kernel`: f32 products of
+    32-wide K chunks, each added to the accumulator in order — the kernel's
+    association.  The CPU tests and the port's CPU runs use this; on a GPU
+    it is the yardstick the kernel is held against, never the serving
+    path."""
+    matmul_abft_plain.calls += 1
+    m, n, k = _check_shapes(a, b, br, trans_b)
+    bk = b.t() if trans_b else b
+    acc = torch.zeros((m, n), dtype=torch.float32, device=a.device)
+    ex = None if br is None else torch.zeros((m, 1), dtype=torch.float32,
+                                             device=a.device)
+    brc = None if br is None else br.reshape(k, 1)
+    for k0 in range(0, k, MATMUL_BLOCK_K):
+        af = a[:, k0:k0 + MATMUL_BLOCK_K].to(torch.float32)
+        acc.add_(af @ bk[k0:k0 + MATMUL_BLOCK_K].to(torch.float32))
+        if ex is not None:
+            ex.add_(af @ brc[k0:k0 + MATMUL_BLOCK_K])
+    return acc.to(a.dtype), tile_sums(acc, m, n), ex
+
+
+matmul_abft_plain.calls = 0
+
+
+def matmul_abft_kernel(a: Tensor, b: Tensor, br: Optional[Tensor] = None,
+                       *, trans_b: bool = False
+                       ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """a: [M, K]; b: [K, N] (or [N, K] with ``trans_b``), both float32 or
+    both bfloat16; br: [K] or [K, 1] float32, or None.  Returns (c [M, N],
+    block_sums [ceil(M/tm), ceil(N/tn)], extra [M, 1] | None).  Ragged M, N
+    and K need no padding.
+
+    Operands on a CUDA device launch the CUDA kernel (one launch, counted in
+    ``matmul_abft_kernel.launches``) or raise; only operands that lie on the
+    CPU take :func:`matmul_abft_plain`."""
+    if a.device.type == "cpu":
+        return matmul_abft_plain(a, b, br, trans_b=trans_b)
+    from repro_torch.kernels import runtime
+
+    what = "matmul_abft_kernel"
+    m, n, k = _check_shapes(a, b, br, trans_b)
+    runtime.require_cuda_operands(what, allow=DTYPES, a=a, b=b)
+    if br is not None:
+        runtime.require_cuda_operands(what, br=br)
+        if br.device != a.device:
+            raise ValueError(f"{what}: br lies on {br.device}, a on "
+                             f"{a.device}")
+    lib = runtime.load_library()
+    tm, tn = matmul_tile(m)
+    if (tm, tn) != (lib.matmul_abft_tile_m(m), lib.matmul_abft_tile_n(m)):
+        raise RuntimeError(f"{what}: analysis.vmem models a ({tm}, {tn}) "
+                           f"tile for M={m}, the library "
+                           f"({lib.matmul_abft_tile_m(m)}, "
+                           f"{lib.matmul_abft_tile_n(m)})")
+    dev = a.device
+    c = torch.empty((m, n), dtype=a.dtype, device=dev)
+    sums = torch.empty((-(-m // tm), -(-n // tn)), dtype=torch.float32,
+                       device=dev)
+    extra = None if br is None else torch.empty((m, 1), dtype=torch.float32,
+                                                device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.matmul_abft_launch(
+            a.data_ptr(), b.data_ptr(),
+            None if br is None else br.data_ptr(), c.data_ptr(),
+            sums.data_ptr(), None if extra is None else extra.data_ptr(),
+            m, n, k, int(trans_b), DTYPES.index(a.dtype), stream)
+    runtime.check_launch(code, what)
+    matmul_abft_kernel.launches += 1
+    return c, sums, extra
+
+
+matmul_abft_kernel.launches = 0

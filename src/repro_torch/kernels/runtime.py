@@ -28,7 +28,8 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # every translation unit of the library, and the headers they include
-SOURCES = ("spmm_abft.cu", "gcn_fused.cu", "gcn_network.cu")
+SOURCES = ("spmm_abft.cu", "gcn_fused.cu", "gcn_network.cu",
+           "matmul_abft.cu", "flash_checksum.cu")
 HEADERS = ("abft_tile.cuh", "fused_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -53,12 +54,20 @@ _SIGNATURES = {
     "gcn_network_supported": [_P, _I, _I, _I],
     "gcn_network_smem_bytes": [_P, _I, _I],
     "gcn_network_launch": [_P] * 11 + [_I] * 9 + [_F, _P, _P],
+    "matmul_abft_tile_m": [_I],
+    "matmul_abft_tile_n": [_I],
+    "matmul_abft_launch": [_P] * 6 + [_I] * 5 + [_P],
+    "flash_checksum_smem_bytes": [_I],
+    "flash_checksum_max_dh": [],
+    "flash_checksum_launch": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
 # seconds the last build took in this process (0.0 when the library was
-# found already built); read by chip_smoke.py
+# found already built), and the compiler's output of a verbose build; read
+# by chip_smoke.py
 last_build_seconds: float = 0.0
+last_build_log: str = ""
 
 
 def source_paths() -> List[Path]:
@@ -103,7 +112,7 @@ def build(verbose: bool = False) -> Path:
     """Compile ``csrc/`` into the shared library (if not built yet for these
     sources) and return its path.  Raises with the compiler's output when
     ``nvcc`` fails."""
-    global last_build_seconds
+    global last_build_seconds, last_build_log
     out_dir = build_root() / _sources_digest()
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
@@ -141,7 +150,8 @@ def build(verbose: bool = False) -> Path:
             raise RuntimeError(
                 f"nvcc link failed ({' '.join(link)}):\n{done.stdout}")
         if verbose:
-            print("".join(log) + done.stdout)
+            last_build_log = "".join(log) + done.stdout
+            print(last_build_log)
         os.replace(tmp_lib, lib_path)       # atomic: readers never see half
     last_build_seconds = time.perf_counter() - t0
     return lib_path
@@ -170,15 +180,18 @@ def check_launch(code: int, what: str) -> None:
             f"memory; 98 = invalid device function, e.g. not an sm_90 card)")
 
 
-def require_cuda_operands(what: str, **tensors) -> None:
+def require_cuda_operands(what: str, *, allow=None, **tensors) -> None:
     """The kernels' operand contract: CUDA, one device, contiguous, 16-byte
-    aligned, float32 (``cols`` int32).  Raises on anything else — there is
-    no silent copy or cast on the launch path."""
+    aligned, of a dtype the kernel takes — ``allow`` (default float32 only,
+    the GCN kernels; the checked-op kernels pass float32 and bfloat16),
+    ``cols`` always int32.  Raises on anything else — there is no silent
+    copy or cast on the launch path."""
     import torch
 
+    allow = (torch.float32,) if allow is None else tuple(allow)
     dev = None
     for name, t in tensors.items():
-        want = torch.int32 if name == "cols" else torch.float32
+        want = (torch.int32,) if name == "cols" else allow
         if not t.is_cuda:
             raise ValueError(f"{what}: {name} lies on {t.device}, not on "
                              f"a CUDA device")
@@ -187,9 +200,9 @@ def require_cuda_operands(what: str, **tensors) -> None:
         if t.device != dev:
             raise ValueError(f"{what}: {name} lies on {t.device}, other "
                              f"operands on {dev}")
-        if t.dtype != want:
+        if t.dtype not in want:
             raise ValueError(f"{what}: {name} has dtype {t.dtype}, the "
-                             f"kernel takes {want}")
+                             f"kernel takes {' or '.join(map(str, want))}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} is not contiguous")
         if t.data_ptr() % 16:
@@ -200,10 +213,15 @@ def _wrappers():
     """(name, launch wrapper, plain version) of every kernel."""
     from .gcn_fused.kernel import (gcn_fused_kernel, gcn_fused_plain,
                                    gcn_network_kernel, gcn_network_plain)
+    from .flash_checksum.kernel import (flash_checksum_kernel,
+                                        flash_checksum_plain)
+    from .matmul_abft.kernel import matmul_abft_kernel, matmul_abft_plain
     from .spmm_abft.kernel import spmm_abft_kernel, spmm_abft_plain
     return (("spmm_abft", spmm_abft_kernel, spmm_abft_plain),
             ("gcn_fused", gcn_fused_kernel, gcn_fused_plain),
-            ("gcn_network", gcn_network_kernel, gcn_network_plain))
+            ("gcn_network", gcn_network_kernel, gcn_network_plain),
+            ("matmul_abft", matmul_abft_kernel, matmul_abft_plain),
+            ("flash_checksum", flash_checksum_kernel, flash_checksum_plain))
 
 
 def launch_counts() -> Dict[str, int]:

@@ -15,7 +15,9 @@ from repro_torch.analysis import vmem
 from repro_torch.core.abft import ABFTConfig
 from repro_torch.kernels import runtime
 from repro_torch.kernels.gcn_fused import kernel as fused_kernel
+from repro_torch.kernels.flash_checksum import kernel as flash_kernel
 from repro_torch.kernels.gcn_fused import ops as fused_ops
+from repro_torch.kernels.matmul_abft import kernel as mm_kernel
 from repro_torch.kernels.spmm_abft import kernel as spmm_kernel
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -67,21 +69,28 @@ def _no_gpu():
 @pytest.mark.parametrize("entry", ["resolve_device", "gcn_apply", "serve",
                                    "main", "init_gcn", "params_from_numpy",
                                    "packed_runner", "make_backend",
-                                   "device_block_ell"])
+                                   "device_block_ell", "init_model",
+                                   "lm_engine", "serve_lm",
+                                   "lm_params_from_numpy",
+                                   "init_decode_state"])
 def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked_for(entry):
     _no_gpu()
     import numpy as np
 
     from repro_torch import convert
+    from repro_torch.configs import get_config, smoke_config
     from repro_torch.core.gcn import init_gcn
     from repro_torch.engine import (Graph, gcn_apply, make_backend,
                                     make_packed_batches, synth_graph_stream)
     from repro_torch.engine.streaming import PackedRunner
     from repro_torch.kernels.spmm_abft.layout import dense_to_block_ell
     from repro_torch.kernels.spmm_abft.ops import device_block_ell
-    from repro_torch.launch import serve_gcn
+    from repro_torch.engine.lm import LMEngine
+    from repro_torch.launch import serve_gcn, serve_lm
+    from repro_torch.models.transformer import init_decode_state, init_model
 
     cfg = ABFTConfig()
+    lm = smoke_config(get_config("gemma-2b"))
     stream = synth_graph_stream(2, n_lo=10, n_hi=20, feat=4)
     params = init_gcn(torch.Generator().manual_seed(0), (4, 3), device="cpu")
     bell = dense_to_block_ell(stream[0][0], 8, 8)
@@ -98,6 +107,12 @@ def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked_for(entry):
         "packed_runner": lambda: PackedRunner(params, cfg, 128),
         "make_backend": lambda: make_backend(bell, cfg),
         "device_block_ell": lambda: device_block_ell(bell),
+        "init_model": lambda: init_model(lm, 0),
+        "lm_engine": lambda: LMEngine.init(lm, cfg, 0),
+        "serve_lm": lambda: serve_lm.main(["--new", "1"]),
+        "lm_params_from_numpy": lambda: convert.lm_params_from_numpy(
+            convert.params_to_numpy(init_model(lm, 0, device="cpu")), lm),
+        "init_decode_state": lambda: init_decode_state(lm, 1, 4),
     }
     with pytest.raises(RuntimeError, match="device='cuda' requested"):
         calls[entry]()
@@ -110,7 +125,8 @@ def test_cpu_runs_only_when_asked_for():
         repro_torch.resolve_device("cuda:0")
 
 
-@pytest.mark.parametrize("kernel", ["spmm_abft", "gcn_fused", "gcn_network"])
+@pytest.mark.parametrize("kernel", ["spmm_abft", "gcn_fused", "gcn_network",
+                                    "matmul_abft", "flash_checksum"])
 def test_wrapper_never_takes_the_plain_version_off_the_cpu(kernel):
     """Tensors on any device other than the CPU go to the launch path, which
     raises when it cannot launch; the plain version is not consulted."""
@@ -125,15 +141,22 @@ def test_wrapper_never_takes_the_plain_version_off_the_cpu(kernel):
             spmm_kernel.spmm_abft_kernel(cols, vals, x, xr)
         elif kernel == "gcn_fused":
             fused_kernel.gcn_fused_kernel(cols, vals, x, w, wr)
-        else:
+        elif kernel == "gcn_network":
             fused_kernel.gcn_network_kernel(
                 cols, vals, x, [torch.zeros((4, 8), device=dev)], [wr])
+        elif kernel == "matmul_abft":
+            mm_kernel.matmul_abft_kernel(x, w, wr[:, 0])
+        else:
+            q = torch.zeros((1, 4, 2, 8), device=dev)
+            kv = torch.zeros((1, 4, 1, 8), device=dev)
+            flash_kernel.flash_checksum_kernel(q, kv, kv)
     assert before == (runtime.plain_counts(), runtime.launch_counts())
 
 
 def test_launch_and_plain_counters():
     runtime.reset_counts()
-    zero = {"spmm_abft": 0, "gcn_fused": 0, "gcn_network": 0}
+    zero = {"spmm_abft": 0, "gcn_fused": 0, "gcn_network": 0,
+            "matmul_abft": 0, "flash_checksum": 0}
     assert runtime.launch_counts() == zero
     cols = torch.zeros((1, 1), dtype=torch.int32)
     vals = torch.ones((1, 1, 4, 4))
@@ -143,8 +166,13 @@ def test_launch_and_plain_counters():
                                   torch.ones(3, 4), torch.ones(3, 1))
     fused_kernel.gcn_network_kernel(cols, vals, torch.ones(4, 3),
                                     [torch.ones(3, 8)], [torch.ones(3, 1)])
+    mm_kernel.matmul_abft_kernel(torch.ones(3, 4), torch.ones(4, 5))
+    flash_kernel.flash_checksum_kernel(torch.ones(1, 3, 2, 4),
+                                       torch.ones(1, 3, 1, 4),
+                                       torch.ones(1, 3, 1, 4))
     assert runtime.plain_counts() == {"spmm_abft": 1, "gcn_fused": 1,
-                                      "gcn_network": 1}
+                                      "gcn_network": 1, "matmul_abft": 1,
+                                      "flash_checksum": 1}
     assert runtime.launch_counts() == zero
     runtime.reset_counts()
     assert runtime.plain_counts() == zero
@@ -153,20 +181,27 @@ def test_launch_and_plain_counters():
 def test_cuda_sources_exist_and_carry_their_notes():
     paths = runtime.source_paths()
     assert {p.name for p in paths} == {"spmm_abft.cu", "gcn_fused.cu",
-                                       "gcn_network.cu", "abft_tile.cuh",
+                                       "gcn_network.cu", "matmul_abft.cu",
+                                       "flash_checksum.cu", "abft_tile.cuh",
                                        "fused_tile.cuh"}
     for p in paths:
         assert p.is_file() and p.parent == PKG / "kernels" / "csrc"
     for name, ref in (("spmm_abft.cu", "src/repro/kernels/spmm_abft/kernel.py"),
                       ("gcn_fused.cu", "src/repro/kernels/gcn_fused/kernel.py"),
                       ("gcn_network.cu",
-                       "src/repro/kernels/gcn_fused/kernel.py")):
+                       "src/repro/kernels/gcn_fused/kernel.py"),
+                      ("matmul_abft.cu",
+                       "src/repro/kernels/matmul_abft/kernel.py"),
+                      ("flash_checksum.cu",
+                       "src/repro/kernels/flash_checksum/kernel.py")):
         text = (PKG / "kernels" / "csrc" / name).read_text()
         assert ref in text and "What bounds it" in text
         assert 'extern "C"' in text and "torch/extension.h" not in text
     assert "compute_90a" in " ".join(runtime.NVCC_FLAGS)
     assert set(runtime._SIGNATURES) >= {"spmm_abft_launch", "gcn_fused_launch",
-                                        "gcn_network_launch"}
+                                        "gcn_network_launch",
+                                        "matmul_abft_launch",
+                                        "flash_checksum_launch"}
 
 
 def test_build_without_nvcc_raises_instead_of_falling_back(monkeypatch,
@@ -222,3 +257,35 @@ def test_shared_memory_model_is_one_object_everywhere():
     deep = [16] * (vmem.MAX_NETWORK_LAYERS + 2)
     assert vmem.fused_network_fits(deep[:-1], 32, 256)
     assert not vmem.fused_network_fits(deep, 32, 256)
+    # the checked-op kernels: the launcher's figures, stated here too
+    assert vmem.flash_smem_bytes(256) == 140_288
+    assert vmem.flash_smem_bytes(256) <= vmem.FUSED_SMEM_BUDGET
+    assert vmem.matmul_tile(2) == (4, 64) and vmem.matmul_tile(1024) == \
+        (64, 128)
+    assert vmem.matmul_tile(vmem.MATMUL_SMALL_M + 1) == (64, 128)
+
+
+def test_checked_op_wrappers_refuse_what_the_kernels_do_not_take():
+    """dtype, shape and layout checks run before anything is launched."""
+    with pytest.raises(ValueError, match="share one of"):
+        mm_kernel.matmul_abft_kernel(torch.ones(2, 3),
+                                     torch.ones(3, 4, dtype=torch.float64))
+    with pytest.raises(ValueError, match="trans_b"):
+        mm_kernel.matmul_abft_kernel(torch.ones(2, 3), torch.ones(4, 5),
+                                     trans_b=True)
+    with pytest.raises(ValueError, match="float32"):
+        mm_kernel.matmul_abft_kernel(torch.ones(2, 3), torch.ones(3, 4),
+                                     torch.ones(3, dtype=torch.float64))
+    with pytest.raises(ValueError, match="H % Kh"):
+        flash_kernel.flash_checksum_kernel(torch.ones(1, 2, 3, 4),
+                                           torch.ones(1, 2, 2, 4),
+                                           torch.ones(1, 2, 2, 4))
+    with pytest.raises(ValueError, match=r"\[B, S, H\]"):
+        flash_kernel.flash_checksum_kernel(torch.ones(1, 2, 2, 4),
+                                           torch.ones(1, 2, 1, 4),
+                                           torch.ones(1, 2, 1, 4),
+                                           torch.ones(1, 2, 1))
+    meta = torch.zeros((4, 4), device="meta")
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        runtime.require_cuda_operands("probe", allow=mm_kernel.DTYPES,
+                                      a=meta.to(torch.bfloat16))
