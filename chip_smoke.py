@@ -16,6 +16,11 @@ kernels — through the entry points a user would call.  Any phase that fails
 raises and the run exits non-zero; without a CUDA device it exits non-zero
 before printing anything.
 
+``lm_kernels`` also times the thin (M <= 16) ``matmul_abft`` products from
+CUDA graphs — the device's own time, with B in L2 and L2-cold — beside the
+eager back-to-back time, and ``lm_serve`` traces one guarded decode step
+with ``torch.profiler`` (device busy time, top kernels).
+
 One JSON object per phase is printed (``env``, ``build``, ``kernel_checks``,
 ``lm_kernels``, ``serve``, ``fault``, ``stream``, ``full_graph``,
 ``lm_serve``), then the ``kernels`` summary line, the card's name and power
@@ -88,6 +93,42 @@ def time_ms(fn, warm: int = 2, reps: int = 10) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int = 10, cold: bool = False) -> float:
+    """Mean device milliseconds of ``fn()`` replayed from a CUDA graph, so
+    no host dispatch sits between the launches.  ``cold``: the 50 MB L2
+    cache is flushed before each call (a 64 MB read), as a decode step
+    finds its next weight, and the flushes' own time is subtracted."""
+    import torch
+    flush = torch.empty(16 << 20, dtype=torch.float32, device="cuda") \
+        if cold else None
+
+    def graph_ms(with_fn):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()                  # the allocator and the library warm up
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                if flush is not None:
+                    flush.sum()
+                if with_fn:
+                    fn()
+        g.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop)
+
+    total = graph_ms(True) - (graph_ms(False) if cold else 0.0)
+    return total / reps
 
 
 def nbytes(*tensors) -> int:
@@ -1022,8 +1063,9 @@ def lm_matmul_shapes(cfg):
 def matmul_bound(torch, m, k, n, dtype):
     """Least time of one product on the card: every input read once, every
     output written once, against 2MNK + 2MK operations at the type's peak."""
+    from repro_torch.analysis.vmem import matmul_tile
     item = torch.empty((), dtype=dtype).element_size()
-    tm, tn = (4, 64) if m <= 16 else (64, 128)
+    tm, tn = matmul_tile(m)
     n_bytes = item * (m * k + k * n + m * n) + 4 * (
         k + m + -(-m // tm) * -(-n // tn))
     n_ops = 2 * m * n * k + 2 * m * k
@@ -1035,9 +1077,14 @@ def matmul_bound(torch, m, k, n, dtype):
 
 def check_matmul_shape(torch, m, k, n, trans_b, dtype, gen, timed):
     """matmul_abft kernel vs plain at one launch shape (with and without the
-    extra column), the clean corner, a corrupted output that must diverge;
-    optionally its times.  Operands scaled as the LM's: activations ~1,
-    weights ~1/sqrt(K) (the head's table ~1)."""
+    extra column), a second run bit for bit the first, the clean corner, a
+    corrupted output that must diverge; optionally its times.  Operands
+    scaled as the LM's: activations ~1, weights ~1/sqrt(K) (the head's
+    table ~1)."""
+    from repro_torch.analysis.vmem import (MATMUL_THIN_N, matmul_split_k,
+                                           matmul_splits,
+                                           matmul_thin_smem_bytes,
+                                           matmul_tile)
     from repro_torch.kernels.matmul_abft.kernel import (matmul_abft_kernel,
                                                         matmul_abft_plain)
     from repro_torch.kernels.matmul_abft.ops import matmul_abft
@@ -1065,6 +1112,10 @@ def check_matmul_shape(torch, m, k, n, trans_b, dtype, gen, timed):
             worst = max(worst, assert_close(f"{tag} extra", got[2], want[2],
                                             atol=OUT_ATOL, rtol=OUT_RTOL))
             c_checked = got[0]
+            again = matmul_abft_kernel(a, b, br, trans_b=trans_b)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"{tag}: a second run differs (C, "
+                                     f"block_sums or extra)")
         elif got[2] is not None or not torch.equal(got[0], c_checked):
             raise AssertionError(f"{tag}: the unchecked product differs "
                                  f"from the checked one")
@@ -1080,8 +1131,17 @@ def check_matmul_shape(torch, m, k, n, trans_b, dtype, gen, timed):
                              f"{div}")
     # max_abs_err covers every output; the extra column of the head reaches
     # |2e4| (b_r sums 256000 table rows), so it is reported for C alone too
+    splits = matmul_splits(m, n, k)
+    # M <= 16: (column tile, split) items, taken by persistent blocks (as
+    # many as are resident); M > 16: one block per 64 x 128 C tile
+    tiles = -(-n // MATMUL_THIN_N) if m <= 16 else -(-n // 128) * -(-m // 64)
     entry = dict(m=m, k=k, n=n, trans_b=trans_b, dtype=str(dtype),
-                 max_abs_err=worst, max_abs_err_c=worst_c, max_rel_corner=rel,
+                 splits=splits, split_k=matmul_split_k(m, n, k),
+                 tile=list(matmul_tile(m)), items=splits * tiles,
+                 thin_smem_bytes=matmul_thin_smem_bytes(
+                     m, a.element_size(), trans_b) if m <= 16 else 0,
+                 repeat_bitwise=True, max_abs_err=worst,
+                 max_abs_err_c=worst_c, max_rel_corner=rel,
                  corrupted_divergence=div)
     if timed and dtype == torch.float32 and m <= 16:
         # the kernel, the plain version on the card and on the CPU, each
@@ -1104,6 +1164,20 @@ def check_matmul_shape(torch, m, k, n, trans_b, dtype, gen, timed):
                              warm=1, reps=2),
             library_ms=time_ms(lambda: torch.matmul(a, lib_b), reps=5),
             bound_ms=bound, bound_by=by, bytes=n_bytes, flops=n_ops)
+        if m <= 16:
+            # the eager `ms` above holds the host's dispatch of each call;
+            # from a CUDA graph, the device's own time, with B in L2 and
+            # (cold) not, as a decode step finds it
+            def kern():
+                return matmul_abft_kernel(a, b, br, trans_b=trans_b)
+
+            def lib():
+                return torch.matmul(a, lib_b)
+            entry.update(
+                device_ms=device_ms(kern), device_cold_ms=device_ms(
+                    kern, reps=5, cold=True),
+                library_device_ms=device_ms(lib),
+                library_device_cold_ms=device_ms(lib, reps=5, cold=True))
     return entry
 
 
@@ -1212,6 +1286,7 @@ def phase_lm_kernels(torch):
     every launch shape of the LM run, in float32 (timed) and bfloat16, plus
     ragged and GQA shapes; returns the two kernels-line entries."""
     from repro_torch.analysis.vmem import flash_smem_bytes
+    from repro_torch.kernels import runtime
     cfg = lm_config()
     gen = torch.Generator(device="cuda").manual_seed(7)
     shapes = lm_matmul_shapes(cfg)
@@ -1223,9 +1298,14 @@ def phase_lm_kernels(torch):
     bf16 = [check_matmul_shape(torch, m, k, n, tb, torch.bfloat16, gen,
                                False)
             for (m, k, n, tb) in shapes]
+    # ragged shapes; the thin path's: K not a multiple of 32 or of the
+    # split, N (B) or K (B^T) not a multiple of 4 — the scalar tail
     ragged = [check_matmul_shape(torch, m, k, n, tb, dt, gen, False)
               for m, k, n, tb in ((200, 100, 72, False), (17, 33, 65, True),
-                                  (1, 2050, 129, False))
+                                  (1, 2050, 129, False),
+                                  (2, 16384, 64, False),
+                                  (16, 2050, 130, False), (1, 33, 65, True),
+                                  (2, 100, 72, True))
               for dt in (torch.float32, torch.bfloat16)]
     b, t, h, kh, dh = LM["batch"], LM["prompt"], cfg.n_heads, \
         cfg.n_kv_heads, cfg.hd
@@ -1239,10 +1319,19 @@ def phase_lm_kernels(torch):
         for dt in (torch.float32, torch.bfloat16)]
 
     def step_ms(key, step):
-        return sum(e[key] * e["launches_per_step"][step] for e in per_shape)
+        return sum(e[key] * e["launches_per_step"][step] for e in per_shape
+                   if e["launches_per_step"][step])
     per_step = {step: {key: step_ms(key, step) for key in
                        ("ms", "plain_ms", "library_ms", "bound_ms")}
                 for step in ("prefill", "decode")}
+    per_step["decode"].update({key: step_ms(key, "decode") for key in (
+        "device_ms", "device_cold_ms", "library_device_ms",
+        "library_device_cold_ms")})
+    # registers and spills of the thin path's two kernels (the build phase
+    # compiled with ptxas -v)
+    thin_ptxas = {name: v for name, v in
+                  ptxas_summary(runtime.last_build_log).items()
+                  if "thin_split" in name or "thin_reduce" in name}
     main = max(per_shape, key=lambda e: e["flops"] * e["launches_per_step"][
         "prefill"])
     entries = {
@@ -1272,7 +1361,7 @@ def phase_lm_kernels(torch):
                                       corner_rtol=CORNER_RTOL),
          matmul_f32=per_shape, matmul_bf16=bf16, matmul_ragged=ragged,
          flash_f32=flash_main, flash_other=flash_other, per_step=per_step,
-         kernels=list(entries.values()))
+         thin_ptxas=thin_ptxas, kernels=list(entries.values()))
     return entries
 
 
@@ -1384,6 +1473,12 @@ def phase_lm_serve(torch, smi):
         raise AssertionError(f"lm_serve: logits finite {finite}, shape "
                              f"{tuple(logits[0].shape)}")
 
+    # where a guarded decode step's time goes on the device
+    _, st0, _ = eng.prefill(tokens)
+    trace = decode_trace(torch, lambda: eng.decode(
+        st0, toks[0], LM["prompt"], inject=0.0))
+    del st0
+
     # a transient accumulator upset on one decode step: one retry, bit for bit
     flags0, retries0 = eng.guard.flags, eng.guard.retries
     metrics = []
@@ -1478,6 +1573,7 @@ def phase_lm_serve(torch, smi):
          decode_ms_per_step=sum(decode_ms) / len(decode_ms),
          decode_ms_min_max=[min(decode_ms), max(decode_ms)],
          unguarded_decode_ms_per_step=sum(ref_ms[1:]) / len(ref_ms[1:]),
+         decode_trace=trace,
          inject=inject, weight_flip=flip, peak_memory_gb=peak_gb,
          cut=dict(layers=n_cut, prompt=LM["cut_prompt"],
                   decode=LM["cut_decode"], max_abs_err_card_vs_cpu=cut_err,
@@ -1494,6 +1590,39 @@ def phase_lm_serve(torch, smi):
                              f"{LM_LOGIT_RTOL}); flags "
                              f"{runs['cuda']['flags']} {runs['cpu']['flags']}")
     return {k: counts[k] for k in want}
+
+
+def decode_trace(torch, step):
+    """One decode step under ``torch.profiler``: the device time of its CUDA
+    kernels, summed, against the step's host-clock time (the profiler's own
+    cost included), and the kernels that take the most.  Reports the
+    profiler's error instead where it cannot trace the card."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if getattr(e, "device_type", None) is not None
+                   and "CUDA" in str(e.device_type)]
+
+        def dev_us(e):
+            return float(getattr(e, "self_device_time_total", None)
+                         or getattr(e, "self_cuda_time_total", 0.0))
+        busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+        top = sorted(kernels, key=dev_us, reverse=True)[:10]
+        return dict(profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+                    kernels=len(kernels), launches=sum(e.count
+                                                       for e in kernels),
+                    top=[dict(name=e.key[:80], count=e.count,
+                              ms=dev_us(e) / 1e3) for e in top])
+    except Exception as exc:  # the tracer may not reach this card
+        return dict(error=f"{type(exc).__name__}: {exc}")
 
 
 def _slice_tree(tree, n):

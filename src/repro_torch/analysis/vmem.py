@@ -144,16 +144,86 @@ def fused_network_fits(dims: Sequence[int], bm: int, rows: int, *,
 # into its own partial before it joins the accumulator (the plain version
 # associates the same way).
 MATMUL_BLOCK_K = 32
-# M at or below this takes the thin 4 x 64 tile (one output per thread):
-# a decode step's M = 2 would waste 32x the arithmetic in a 64-row tile.
+# M at or below this takes the thin split-K path (decode steps, the LM
+# head): every row of A in one block, B streamed once.
 MATMUL_SMALL_M = 16
+# The thin path's column tile: one block's 256 threads own one column each.
+MATMUL_THIN_N = 256
+# The thin path's block_sums tile: 64 columns over all 16 rows, 128 values
+# at M = 2.  The kernel and the plain version round each 32-wide chunk of C
+# in their own order; over 512 of gemma's head logits (|C| ~ 45) the tile
+# sums drift 5e-4 apart, over 128 they stay within 1e-4.
+MATMUL_THIN_SUM_N = 64
+# The card's streaming multiprocessors (an H100 SXM), a stated constant:
+# the split count must be a pure function of the shape, so that the CPU's
+# plain version follows the same association as the card.
+MATMUL_SMS = 132
+# The thin path cuts K into the largest power of two of splits that keeps
+# its (column tile, split) items within this many: 4 per SM, so that a
+# decode step's narrow products still fill every SM with the 2 resident
+# blocks of the f32 M <= 2 kernel, each taking at most 2 items.
+MATMUL_MAX_ITEMS = 4 * MATMUL_SMS
 
 
 def matmul_tile(m: int) -> tuple:
-    """(rows, columns) of the C tile one ``matmul_abft`` block owns for an
-    ``m``-row product; ``block_sums`` has one entry per such tile.  The
-    tiles are static shared memory (under 48 KB), so no budget applies."""
-    return (4, 64) if m <= MATMUL_SMALL_M else (64, 128)
+    """(rows, columns) of the C tile ``block_sums`` is taken over for an
+    ``m``-row product: one entry per tile.  M > 16: the 64 x 128 tile one
+    block owns.  M <= 16: 64 columns over all 16 rows (the reduction
+    kernel's block sums four).  Static shared memory (under 48 KB), so no
+    budget applies."""
+    return (MATMUL_SMALL_M, MATMUL_THIN_SUM_N) if m <= MATMUL_SMALL_M \
+        else (64, 128)
+
+
+def _split_chunks(m: int, n: int, k: int) -> int:
+    """32-wide K chunks per split: K cut into the largest power of two of
+    splits that keeps ``tiles x splits`` within ``MATMUL_MAX_ITEMS`` and
+    every split at least one chunk long; all of K at M > 16."""
+    chunks = -(-k // MATMUL_BLOCK_K)
+    if m > MATMUL_SMALL_M:
+        return chunks
+    tiles = -(-n // MATMUL_THIN_N)
+    s = 1
+    while 2 * s <= chunks and tiles * 2 * s <= MATMUL_MAX_ITEMS:
+        s *= 2
+    return -(-chunks // s)
+
+
+def matmul_split_k(m: int, n: int, k: int) -> int:
+    """Columns of K one split covers (a multiple of 32; the last split
+    ends at K)."""
+    return MATMUL_BLOCK_K * _split_chunks(m, n, k)
+
+
+def matmul_splits(m: int, n: int, k: int) -> int:
+    """S, the number of K splits of an ``m x k @ k x n`` product: split s
+    covers ``[s * matmul_split_k, min((s + 1) * matmul_split_k, k))``; 1 at
+    M > 16.  The kernel library exports the same function and the wrapper
+    asserts that the two agree."""
+    return -(-k // matmul_split_k(m, n, k))
+
+
+# Stages of the thin path's cp.async ring (one chunk multiplied, the rest
+# in flight).
+MATMUL_THIN_STAGES = 3
+
+
+def _thin_rows(m: int) -> int:
+    """The thin path's compile-time row count for ``m`` rows."""
+    return next(r for r in (1, 2, 4, 8, 16) if m <= r)
+
+
+def matmul_thin_smem_bytes(m: int, itemsize: int, trans_b: bool) -> int:
+    """Dynamic shared memory of one thin-path block (M <= 16): per stage the
+    B chunk in the operand dtype ([32, 256], or [256, 32 + v] for a
+    transposed B, v elements to a 16-byte piece), A's [rows, 40] slice and
+    b_r's 32 f32 values.  111,936 B at gemma's head (f32, M = 2): two blocks
+    a card's SM."""
+    v = 16 // itemsize
+    b = MATMUL_THIN_N * (MATMUL_BLOCK_K + v) if trans_b \
+        else MATMUL_BLOCK_K * MATMUL_THIN_N
+    a = _thin_rows(m) * (MATMUL_BLOCK_K + 8)
+    return MATMUL_THIN_STAGES * ((b + a) * itemsize + 4 * MATMUL_BLOCK_K)
 
 
 # flash_checksum: 64 query rows per block, key blocks of 32, head_dim up to

@@ -12,6 +12,12 @@ Hopper card and what its design does about it.
                         the kernel's own, ``analysis.vmem.matmul_tile``)
            extra      = A @ b_r              [M, 1]  f32 (b_r = B·e)
 
+The association, the kernel's and the plain version's: K is cut into
+``matmul_splits(m, n, k)`` splits of ``matmul_split_k(m, n, k)`` columns
+(one split when M > 16); inside a split each 32-wide K chunk is summed
+apart and the chunk sums are added in order; then the split sums are added
+in order.
+
 ``trans_b=True`` takes B as its transpose ``[N, K]`` (the tied LM head's
 embedding table as it lies).  ``br=None`` skips the extra column — an
 unchecked product — and leaves ``c`` unchanged.
@@ -23,7 +29,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.analysis.vmem import MATMUL_BLOCK_K, matmul_tile
+from repro_torch.analysis.vmem import (MATMUL_BLOCK_K, MATMUL_SMALL_M,
+                                      matmul_split_k, matmul_splits,
+                                      matmul_thin_smem_bytes, matmul_tile)
 
 Tensor = torch.Tensor
 DTYPES = (torch.float32, torch.bfloat16)
@@ -60,27 +68,54 @@ def tile_sums(acc: Tensor, m: int, n: int) -> Tensor:
 def matmul_abft_plain(a: Tensor, b: Tensor, br: Optional[Tensor] = None, *,
                       trans_b: bool = False
                       ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
-    """Plain PyTorch version of :func:`matmul_abft_kernel`: f32 products of
-    32-wide K chunks, each added to the accumulator in order — the kernel's
-    association.  The CPU tests and the port's CPU runs use this; on a GPU
-    it is the yardstick the kernel is held against, never the serving
-    path."""
+    """Plain PyTorch version of :func:`matmul_abft_kernel`, in the kernel's
+    association: f32 products of 32-wide K chunks, each added to its split's
+    accumulator in order, the splits added in order.  The CPU tests and the
+    port's CPU runs use this; on a GPU it is the yardstick the kernel is
+    held against, never the serving path."""
     matmul_abft_plain.calls += 1
     m, n, k = _check_shapes(a, b, br, trans_b)
     bk = b.t() if trans_b else b
-    acc = torch.zeros((m, n), dtype=torch.float32, device=a.device)
-    ex = None if br is None else torch.zeros((m, 1), dtype=torch.float32,
-                                             device=a.device)
     brc = None if br is None else br.reshape(k, 1)
-    for k0 in range(0, k, MATMUL_BLOCK_K):
-        af = a[:, k0:k0 + MATMUL_BLOCK_K].to(torch.float32)
-        acc.add_(af @ bk[k0:k0 + MATMUL_BLOCK_K].to(torch.float32))
-        if ex is not None:
-            ex.add_(af @ brc[k0:k0 + MATMUL_BLOCK_K])
+    kc = matmul_split_k(m, n, k)
+    acc = ex = None
+    for k_lo in range(0, k, kc):
+        part = torch.zeros((m, n), dtype=torch.float32, device=a.device)
+        pex = None if br is None else torch.zeros(
+            (m, 1), dtype=torch.float32, device=a.device)
+        for k0 in range(k_lo, min(k_lo + kc, k), MATMUL_BLOCK_K):
+            af = a[:, k0:k0 + MATMUL_BLOCK_K].to(torch.float32)
+            part.add_(af @ bk[k0:k0 + MATMUL_BLOCK_K].to(torch.float32))
+            if pex is not None:
+                pex.add_(af @ brc[k0:k0 + MATMUL_BLOCK_K])
+        acc = part if acc is None else acc.add_(part)
+        if pex is not None:
+            ex = pex if ex is None else ex.add_(pex)
     return acc.to(a.dtype), tile_sums(acc, m, n), ex
 
 
 matmul_abft_plain.calls = 0
+
+
+def _agreed_with_library(lib, what: str, m: int, n: int, k: int, a: Tensor,
+                         trans_b: bool) -> tuple:
+    """(tile_m, tile_n, splits) of an ``m x k @ k x n`` product as
+    ``analysis.vmem`` states them (and the thin path's shared memory for
+    ``a``'s dtype); raises when the library disagrees."""
+    tm, tn = matmul_tile(m)
+    smem = matmul_thin_smem_bytes(m, a.element_size(), trans_b) \
+        if m <= MATMUL_SMALL_M else 0
+    ours = (tm, tn, matmul_splits(m, n, k), matmul_split_k(m, n, k), smem)
+    theirs = (lib.matmul_abft_tile_m(m), lib.matmul_abft_tile_n(m),
+              lib.matmul_abft_splits(m, n, k),
+              lib.matmul_abft_split_k(m, n, k),
+              lib.matmul_abft_thin_smem_bytes(m, DTYPES.index(a.dtype),
+                                              int(trans_b)))
+    if ours != theirs:
+        raise RuntimeError(f"{what}: analysis.vmem models (tile_m, tile_n, "
+                           f"splits, split_k, thin smem bytes) = {ours} for "
+                           f"M={m} N={n} K={k}, the library {theirs}")
+    return ours[:3]
 
 
 def matmul_abft_kernel(a: Tensor, b: Tensor, br: Optional[Tensor] = None,
@@ -91,7 +126,8 @@ def matmul_abft_kernel(a: Tensor, b: Tensor, br: Optional[Tensor] = None,
     block_sums [ceil(M/tm), ceil(N/tn)], extra [M, 1] | None).  Ragged M, N
     and K need no padding.
 
-    Operands on a CUDA device launch the CUDA kernel (one launch, counted in
+    Operands on a CUDA device launch the CUDA kernel (one launcher call —
+    two kernels when M <= 16 — counted once in
     ``matmul_abft_kernel.launches``) or raise; only operands that lie on the
     CPU take :func:`matmul_abft_plain`."""
     if a.device.type == "cpu":
@@ -107,24 +143,23 @@ def matmul_abft_kernel(a: Tensor, b: Tensor, br: Optional[Tensor] = None,
             raise ValueError(f"{what}: br lies on {br.device}, a on "
                              f"{a.device}")
     lib = runtime.load_library()
-    tm, tn = matmul_tile(m)
-    if (tm, tn) != (lib.matmul_abft_tile_m(m), lib.matmul_abft_tile_n(m)):
-        raise RuntimeError(f"{what}: analysis.vmem models a ({tm}, {tn}) "
-                           f"tile for M={m}, the library "
-                           f"({lib.matmul_abft_tile_m(m)}, "
-                           f"{lib.matmul_abft_tile_n(m)})")
+    tm, tn, splits = _agreed_with_library(lib, what, m, n, k, a, trans_b)
     dev = a.device
     c = torch.empty((m, n), dtype=a.dtype, device=dev)
     sums = torch.empty((-(-m // tm), -(-n // tn)), dtype=torch.float32,
                        device=dev)
     extra = None if br is None else torch.empty((m, 1), dtype=torch.float32,
                                                 device=dev)
+    # the thin path's split sums [S, M, N] and extra column [S, M]
+    ws = torch.empty(splits * m * (n + 1), dtype=torch.float32, device=dev) \
+        if m <= MATMUL_SMALL_M else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.matmul_abft_launch(
             a.data_ptr(), b.data_ptr(),
             None if br is None else br.data_ptr(), c.data_ptr(),
             sums.data_ptr(), None if extra is None else extra.data_ptr(),
+            None if ws is None else ws.data_ptr(),
             m, n, k, int(trans_b), DTYPES.index(a.dtype), stream)
     runtime.check_launch(code, what)
     matmul_abft_kernel.launches += 1

@@ -56,7 +56,10 @@ _SIGNATURES = {
     "gcn_network_launch": [_P] * 11 + [_I] * 9 + [_F, _P, _P],
     "matmul_abft_tile_m": [_I],
     "matmul_abft_tile_n": [_I],
-    "matmul_abft_launch": [_P] * 6 + [_I] * 5 + [_P],
+    "matmul_abft_splits": [_I, _I, _I],
+    "matmul_abft_split_k": [_I, _I, _I],
+    "matmul_abft_thin_smem_bytes": [_I, _I, _I],
+    "matmul_abft_launch": [_P] * 7 + [_I] * 5 + [_P],
     "flash_checksum_smem_bytes": [_I],
     "flash_checksum_max_dh": [],
     "flash_checksum_launch": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],

@@ -18,6 +18,8 @@ import torch
 from repro.core import abft as jabft
 from repro.kernels.flash_checksum import ops as jflash
 from repro.kernels.matmul_abft import ops as jmm
+from repro_torch.analysis import vmem
+from repro_torch.configs import get_config
 from repro_torch.core import abft as tabft
 from repro_torch.kernels import runtime
 from repro_torch.kernels.flash_checksum import kernel as tfk
@@ -103,6 +105,89 @@ def test_matmul_abft_plain_against_the_dense_oracle(m, k, n, dtypes):
         assert tuple(sums.shape) == (-(-m // tm), -(-n // tn))
         c2, _, extra2 = tmk.matmul_abft_plain(a, bb, None, trans_b=trans)
         assert extra2 is None and torch.equal(c2, c)
+
+
+# M <= 16 (decode steps, the LM head): the thin split-K path.  K not a
+# multiple of 32 (2050, 33, 100) or of the split, N not a multiple of 4
+# (130, 65), K of a transposed B not a multiple of 4 (33).
+THIN = [(2, 16384, 64, False), (16, 2050, 130, False), (1, 33, 65, True),
+        (2, 100, 72, True)]
+
+
+@pytest.mark.parametrize("m,k,n,trans", THIN,
+                         ids=["2x16384x64", "16x2050x130", "1x33x65T",
+                              "2x100x72T"])
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
+def test_thin_matmul_plain_matches_the_jax_op_and_float64(m, k, n, trans,
+                                                          dtypes):
+    """The plain version in the split-K association against the JAX op
+    (interpret mode, B as [K, N]: it has no transposed operand) with the
+    tolerances above, and against a float64 product of the same (rounded)
+    operands: f32 C within 1e-4 + 1e-5 |C|, bf16 C within its rounding
+    (2^-8 |C|) + 1e-4; ``extra`` within 1e-4 + 1e-5 |extra|."""
+    tdt, jdt = dtypes
+    a = _np(m * 3 + k, (m, k))
+    b = _np(n * 5 + k, (k, n), k ** -0.5)
+    ta = _t(a, tdt)
+    tb = _t(b.T if trans else b, tdt)
+    b32 = tb.to(torch.float32)
+    br = b32.sum(dim=0 if trans else 1).contiguous()
+    c, sums, extra = tmk.matmul_abft_plain(ta, tb, br, trans_b=trans)
+    assert c.dtype == tdt and tuple(c.shape) == (m, n)
+    assert tuple(sums.shape) == (1, -(-n // 64))
+    jc, jchk = jmm.matmul_abft(_j(a, jdt), _j(b, jdt), jnp.asarray(br.numpy()),
+                               block_m=16, block_n=128, block_k=512,
+                               interpret=True)
+    tol = 2e-2 if tdt == torch.bfloat16 else 2e-5
+    np.testing.assert_allclose(_f32(c), _f32(jc), rtol=tol, atol=tol * 8)
+    _corner_close(sums.sum(), jchk.actual, "actual")
+    _corner_close(extra.sum(), jchk.predicted, "predicted")
+    a64 = ta.to(torch.float64)
+    ref = a64 @ (b32.t() if trans else b32).to(torch.float64)
+    err = (c.to(torch.float64) - ref).abs()
+    rel = 2.0 ** -8 if tdt == torch.bfloat16 else 1e-5
+    assert bool((err <= 1e-4 + rel * ref.abs()).all()), float(err.max())
+    ex_ref = a64 @ br.to(torch.float64)[:, None]
+    assert bool(((extra.to(torch.float64) - ex_ref).abs()
+                 <= 1e-4 + 1e-5 * ex_ref.abs()).all())
+    c2, _, ex2 = tmk.matmul_abft_plain(ta, tb, None, trans_b=trans)
+    assert ex2 is None and torch.equal(c2, c)
+
+
+def test_matmul_splits_cover_k_and_fill_the_card():
+    """Every split is a whole number of 32-wide chunks (the last ends at
+    K), the splits cover K, and every gemma-2b decode shape (M = 2) makes
+    >= 264 (column tile, split) items — 2 per H100 SM, the resident blocks
+    of the f32 M <= 2 kernel, so each launch fills the card — where K has
+    enough chunks: q/o 64 splits x 8 tiles = 512 items (one split per
+    chunk: K 2048 allows no more splits), k/v 64 x 1 = 64 (likewise),
+    gate/up 8 x 64 = 512, down 64 x 8 = 512, the tied head 1 x 1000 =
+    1000."""
+    cfg = get_config("gemma-2b")
+    d, hq = cfg.d_model, cfg.n_heads * cfg.hd
+    hkv, ff, vocab = cfg.n_kv_heads * cfg.hd, cfg.d_ff, cfg.padded_vocab
+    decode = {(d, hq): (64, 512), (d, hkv): (64, 64), (d, ff): (8, 512),
+              (ff, d): (64, 512), (hq, d): (64, 512), (d, vocab): (1, 1000)}
+    for (k, n), (splits, items) in decode.items():
+        tiles = -(-n // vmem.MATMUL_THIN_N)
+        assert vmem.matmul_splits(2, n, k) == splits
+        assert splits * tiles == items
+        assert items >= 2 * vmem.MATMUL_SMS == 264 or \
+            splits == -(-k // vmem.MATMUL_BLOCK_K)
+        assert items <= vmem.MATMUL_MAX_ITEMS or splits == 1
+    shapes = [(m, k, n) for m in (1, 2, 7, 16) for k in (1, 31, 33, 2050,
+                                                         16384)
+              for n in (1, 65, 256, 2049)] + [(m, k, n) for m, k, n, _ in THIN]
+    for m, k, n in shapes:
+        kc, splits = vmem.matmul_split_k(m, n, k), vmem.matmul_splits(m, n, k)
+        assert kc % vmem.MATMUL_BLOCK_K == 0 and kc > 0
+        bounds = [(s * kc, min((s + 1) * kc, k)) for s in range(splits)]
+        assert bounds[0][0] == 0 and bounds[-1][1] == k
+        assert all(lo < hi for lo, hi in bounds)
+        assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    for m in (17, 1024):
+        assert vmem.matmul_splits(m, 2048, 16384) == 1
+        assert vmem.matmul_split_k(m, 2048, 16384) == 16384
 
 
 def test_matmul_abft_detects_corruption():
@@ -331,8 +416,9 @@ def test_cuda_checked_op_kernels_match_plain_versions(dtype):
     dev = torch.device("cuda")
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     runtime.reset_counts()
-    for m, k, n, trans in ((2, 2048, 300, True), (200, 100, 72, False),
-                           (1024, 256, 384, False)):
+    shapes = [(2, 2048, 300, True), (200, 100, 72, False),
+              (1024, 256, 384, False)] + THIN
+    for m, k, n, trans in shapes:
         a = _t(_np(m, (m, k)), dtype).to(dev)
         b = _t(_np(n, (n, k) if trans else (k, n), k ** -0.5), dtype).to(dev)
         br = b.float().sum(0 if trans else 1).contiguous()
@@ -341,6 +427,8 @@ def test_cuda_checked_op_kernels_match_plain_versions(dtype):
         for g, w in zip(got, want):
             torch.testing.assert_close(g.float(), w.float(), atol=tol,
                                        rtol=tol)
+        again = tmk.matmul_abft_kernel(a, b, br, trans_b=trans)
+        assert all(torch.equal(g, h) for g, h in zip(got, again))
         assert torch.equal(tmk.matmul_abft_kernel(a, b, None,
                                                   trans_b=trans)[0], got[0])
     q = _t(_np(1, (2, 100, 4, 64)), dtype).to(dev)
@@ -352,5 +440,5 @@ def test_cuda_checked_op_kernels_match_plain_versions(dtype):
         torch.testing.assert_close(g.float(), w.float(), atol=2 * tol,
                                    rtol=2 * tol)
     assert torch.equal(tfk.flash_checksum_kernel(q, kk, v, None)[0], got[0])
-    assert runtime.launch_counts()["matmul_abft"] == 6
+    assert runtime.launch_counts()["matmul_abft"] == 3 * len(shapes)
     assert runtime.launch_counts()["flash_checksum"] == 2

@@ -260,9 +260,43 @@ def test_shared_memory_model_is_one_object_everywhere():
     # the checked-op kernels: the launcher's figures, stated here too
     assert vmem.flash_smem_bytes(256) == 140_288
     assert vmem.flash_smem_bytes(256) <= vmem.FUSED_SMEM_BUDGET
-    assert vmem.matmul_tile(2) == (4, 64) and vmem.matmul_tile(1024) == \
+    # M <= 16: the thin split-K path's sum tile, 64 columns over all 16
+    # rows; M > 16: the 64 x 128 tile one block owns
+    assert vmem.matmul_tile(2) == (16, 64) and vmem.matmul_tile(1024) == \
         (64, 128)
+    assert vmem.matmul_tile(vmem.MATMUL_SMALL_M) == (16, 64)
     assert vmem.matmul_tile(vmem.MATMUL_SMALL_M + 1) == (64, 128)
+    # the thin path's cp.async ring: 3 stages of B's chunk, A's slice and
+    # b_r; two blocks fit an SM at gemma's head (f32, transposed, M = 2)
+    assert vmem.matmul_thin_smem_bytes(2, 4, True) == 111_936
+    assert vmem.matmul_thin_smem_bytes(2, 4, False) == 99_648
+    assert vmem.matmul_thin_smem_bytes(16, 4, True) <= vmem.FUSED_SMEM_BUDGET
+    assert vmem.matmul_thin_smem_bytes(1, 2, False) == \
+        vmem.matmul_thin_smem_bytes(2, 2, False) - 3 * 40 * 2
+
+
+def test_matmul_wrapper_refuses_a_library_that_splits_otherwise():
+    """The B4 wrapper holds the library's tile, split count, split width
+    and thin-path shared memory against ``analysis.vmem`` — the plain
+    version's association follows vmem, so a library that splits K
+    otherwise must not launch."""
+    import types
+
+    def lib_with(splits):
+        return types.SimpleNamespace(
+            matmul_abft_tile_m=lambda m: vmem.matmul_tile(m)[0],
+            matmul_abft_tile_n=lambda m: vmem.matmul_tile(m)[1],
+            matmul_abft_splits=splits,
+            matmul_abft_split_k=vmem.matmul_split_k,
+            matmul_abft_thin_smem_bytes=lambda m, dt, tb:
+                vmem.matmul_thin_smem_bytes(m, 4, bool(tb)))
+    a = torch.ones(2, 2048)
+    assert mm_kernel._agreed_with_library(
+        lib_with(vmem.matmul_splits), "probe", 2, 2048, 16384, a, False) \
+        == (16, 64, 64)
+    with pytest.raises(RuntimeError, match="splits"):
+        mm_kernel._agreed_with_library(lib_with(lambda m, n, k: 1), "probe",
+                                       2, 2048, 16384, a, False)
 
 
 def test_checked_op_wrappers_refuse_what_the_kernels_do_not_take():
