@@ -1081,10 +1081,11 @@ def check_matmul_shape(torch, m, k, n, trans_b, dtype, gen, timed):
     corrupted output that must diverge; optionally its times.  Operands
     scaled as the LM's: activations ~1, weights ~1/sqrt(K) (the head's
     table ~1)."""
-    from repro_torch.analysis.vmem import (MATMUL_THIN_N, matmul_split_k,
-                                           matmul_splits,
+    from repro_torch.analysis.vmem import (MATMUL_THIN_N, MATMUL_WIDE_TILE,
+                                           matmul_split_k, matmul_splits,
                                            matmul_thin_smem_bytes,
-                                           matmul_tile)
+                                           matmul_tile,
+                                           matmul_wide_smem_bytes)
     from repro_torch.kernels.matmul_abft.kernel import (matmul_abft_kernel,
                                                         matmul_abft_plain)
     from repro_torch.kernels.matmul_abft.ops import matmul_abft
@@ -1133,13 +1134,17 @@ def check_matmul_shape(torch, m, k, n, trans_b, dtype, gen, timed):
     # |2e4| (b_r sums 256000 table rows), so it is reported for C alone too
     splits = matmul_splits(m, n, k)
     # M <= 16: (column tile, split) items, taken by persistent blocks (as
-    # many as are resident); M > 16: one block per 64 x 128 C tile
-    tiles = -(-n // MATMUL_THIN_N) if m <= 16 else -(-n // 128) * -(-m // 64)
+    # many as are resident); M > 16: one block per wide C tile
+    wm, wn = MATMUL_WIDE_TILE
+    tiles = -(-n // MATMUL_THIN_N) if m <= 16 else -(-n // wn) * -(-m // wm)
     entry = dict(m=m, k=k, n=n, trans_b=trans_b, dtype=str(dtype),
                  splits=splits, split_k=matmul_split_k(m, n, k),
                  tile=list(matmul_tile(m)), items=splits * tiles,
                  thin_smem_bytes=matmul_thin_smem_bytes(
                      m, a.element_size(), trans_b) if m <= 16 else 0,
+                 wide_tile=[wm, wn] if m > 16 else None,
+                 wide_smem_bytes=matmul_wide_smem_bytes(
+                     a.element_size(), trans_b) if m > 16 else 0,
                  repeat_bitwise=True, max_abs_err=worst,
                  max_abs_err_c=worst_c, max_rel_corner=rel,
                  corrupted_divergence=div)
@@ -1298,10 +1303,14 @@ def phase_lm_kernels(torch):
     bf16 = [check_matmul_shape(torch, m, k, n, tb, torch.bfloat16, gen,
                                False)
             for (m, k, n, tb) in shapes]
-    # ragged shapes; the thin path's: K not a multiple of 32 or of the
-    # split, N (B) or K (B^T) not a multiple of 4 — the scalar tail
+    # ragged shapes.  The wide path's: one row past a 128-row block (129)
+    # and one short of two (255), K and N not multiples of 4, B and B^T.
+    # The thin path's: K not a multiple of 32 or of the split, N (B) or K
+    # (B^T) not a multiple of 4 — the scalar tail
     ragged = [check_matmul_shape(torch, m, k, n, tb, dt, gen, False)
               for m, k, n, tb in ((200, 100, 72, False), (17, 33, 65, True),
+                                  (129, 70, 130, False), (129, 70, 130, True),
+                                  (255, 99, 131, False), (255, 99, 131, True),
                                   (1, 2050, 129, False),
                                   (2, 16384, 64, False),
                                   (16, 2050, 130, False), (1, 33, 65, True),
@@ -1327,11 +1336,20 @@ def phase_lm_kernels(torch):
     per_step["decode"].update({key: step_ms(key, "decode") for key in (
         "device_ms", "device_cold_ms", "library_device_ms",
         "library_device_cold_ms")})
-    # registers and spills of the thin path's two kernels (the build phase
-    # compiled with ptxas -v)
-    thin_ptxas = {name: v for name, v in
-                  ptxas_summary(runtime.last_build_log).items()
+    # registers and spills of the thin path's two kernels and of the wide
+    # path's (the build phase compiled with ptxas -v)
+    ptxas = ptxas_summary(runtime.last_build_log)
+    thin_ptxas = {name: v for name, v in ptxas.items()
                   if "thin_split" in name or "thin_reduce" in name}
+    wide_ptxas = {name: v for name, v in ptxas.items()
+                  if "wide_kernel" in name}
+    # each prefill product's share of the prefill's B4 time
+    prefill = [dict(m=e["m"], k=e["k"], n=e["n"], items=e["items"],
+                    launches=e["launches_per_step"]["prefill"], ms=e["ms"],
+                    bound_ms=e["bound_ms"], library_ms=e["library_ms"],
+                    share=e["ms"] * e["launches_per_step"]["prefill"]
+                    / per_step["prefill"]["ms"])
+               for e in per_shape if e["launches_per_step"]["prefill"]]
     main = max(per_shape, key=lambda e: e["flops"] * e["launches_per_step"][
         "prefill"])
     entries = {
@@ -1361,7 +1379,8 @@ def phase_lm_kernels(torch):
                                       corner_rtol=CORNER_RTOL),
          matmul_f32=per_shape, matmul_bf16=bf16, matmul_ragged=ragged,
          flash_f32=flash_main, flash_other=flash_other, per_step=per_step,
-         thin_ptxas=thin_ptxas, kernels=list(entries.values()))
+         prefill_shapes=prefill, thin_ptxas=thin_ptxas,
+         wide_ptxas=wide_ptxas, kernels=list(entries.values()))
     return entries
 
 

@@ -165,14 +165,36 @@ MATMUL_SMS = 132
 MATMUL_MAX_ITEMS = 4 * MATMUL_SMS
 
 
+# Stages of both paths' cp.async rings (one chunk multiplied, the rest in
+# flight).
+MATMUL_STAGES = 3
+# M > 16 (prefill): the C tile one block of the wide path owns (256
+# threads, 8 x 8 outputs each).
+MATMUL_WIDE_TILE = (128, 128)
+# M > 16: the block_sums tile, each 64-row half of a block's tile.
+MATMUL_WIDE_SUM_TILE = (64, 128)
+
+
 def matmul_tile(m: int) -> tuple:
     """(rows, columns) of the C tile ``block_sums`` is taken over for an
-    ``m``-row product: one entry per tile.  M > 16: the 64 x 128 tile one
-    block owns.  M <= 16: 64 columns over all 16 rows (the reduction
-    kernel's block sums four).  Static shared memory (under 48 KB), so no
-    budget applies."""
+    ``m``-row product: one entry per tile.  M > 16: 64 x 128, each half of
+    the 128 x 128 tile one block owns.  M <= 16: 64 columns over all 16
+    rows (the reduction kernel's block sums four)."""
     return (MATMUL_SMALL_M, MATMUL_THIN_SUM_N) if m <= MATMUL_SMALL_M \
-        else (64, 128)
+        else MATMUL_WIDE_SUM_TILE
+
+
+def matmul_wide_smem_bytes(itemsize: int, trans_b: bool) -> int:
+    """Dynamic shared memory of one wide-path block (M > 16): per stage A's
+    [128, 32 + v] slice (rows of 32 k plus v elements of padding, v to a
+    16-byte piece), B's [32, 128] slice ([128, 32 + v] for a transposed B)
+    in the operand dtype, and b_r's 32 f32 values.  104,832 B in f32 (one
+    block an SM runs: its registers allow no second)."""
+    v = 16 // itemsize
+    bm, bn = MATMUL_WIDE_TILE
+    a = bm * (MATMUL_BLOCK_K + v)
+    b = bn * (MATMUL_BLOCK_K + v) if trans_b else MATMUL_BLOCK_K * bn
+    return MATMUL_STAGES * ((a + b) * itemsize + 4 * MATMUL_BLOCK_K)
 
 
 def _split_chunks(m: int, n: int, k: int) -> int:
@@ -203,11 +225,6 @@ def matmul_splits(m: int, n: int, k: int) -> int:
     return -(-k // matmul_split_k(m, n, k))
 
 
-# Stages of the thin path's cp.async ring (one chunk multiplied, the rest
-# in flight).
-MATMUL_THIN_STAGES = 3
-
-
 def _thin_rows(m: int) -> int:
     """The thin path's compile-time row count for ``m`` rows."""
     return next(r for r in (1, 2, 4, 8, 16) if m <= r)
@@ -223,7 +240,7 @@ def matmul_thin_smem_bytes(m: int, itemsize: int, trans_b: bool) -> int:
     b = MATMUL_THIN_N * (MATMUL_BLOCK_K + v) if trans_b \
         else MATMUL_BLOCK_K * MATMUL_THIN_N
     a = _thin_rows(m) * (MATMUL_BLOCK_K + 8)
-    return MATMUL_THIN_STAGES * ((b + a) * itemsize + 4 * MATMUL_BLOCK_K)
+    return MATMUL_STAGES * ((b + a) * itemsize + 4 * MATMUL_BLOCK_K)
 
 
 # flash_checksum: 64 query rows per block, key blocks of 32, head_dim up to

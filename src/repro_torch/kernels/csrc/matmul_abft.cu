@@ -33,15 +33,24 @@
 // no atomics, results repeat bit for bit, and b_r = null changes nothing in
 // C (the check column has its own accumulators).
 //
-// M > 16: one thread block owns one 64 x 128 C tile with a 4 x 8 register
-// tile per thread and walks all of K in 32-wide steps.  A and B tiles are
-// staged through shared memory (one padding float per row: conflict-free
-// stores for both B layouts); the next step's tiles are loaded into
-// registers while the current one is multiplied.  The tile's block sum
-// reduces in one fixed order (per thread, a warp shuffle tree, then warp by
-// warp).  The ni == 0 blocks also accumulate A @ b_r.  What holds it back:
-// no tensor cores, no TMA / cp.async pipeline, 255 registers (one block per
-// SM).
+// M > 16 (prefill), `wide_kernel`: one block of 256 threads owns one
+// 128 x 128 C tile, 8 x 8 outputs a thread, and walks all of K in 32-wide
+// chunks through a 3-stage cp.async ring in dynamic shared memory
+// (104,832 B in f32; `vmem.matmul_wide_smem_bytes`).  A's and B's slices
+// are copied as they lie, in 16-byte pieces that hold no register, and read
+// back with 16-byte loads: per 4 k a thread's 8 loads of A and 8 of B feed
+// 256 FFMA (the 64 x 128 tile this replaced read 12 scalars for 32 FFMA, so
+// shared-memory instructions, not FFMA, set its pace).  One barrier a chunk;
+// interior blocks copy from pointers set up once, with no bounds arithmetic.
+// The block's two 64-row halves are two entries of block_sums, so the sum
+// tile stays 64 x 128.  What holds it back: registers — acc and the chunk
+// partial take 128 of the 255 a thread, so one block of 8 warps runs an SM
+// and the compiler cannot load fragments far ahead of their FFMA; the copy
+// of each chunk and its barrier (tools/wide_tile_variants.py's `diag_*`
+// variants measure both); the products with narrow N (k/v, 256 columns: 16
+// blocks) leave most SMs idle, and split-K would change the association;
+// B^T and bf16 take the same tile unoptimised (B^T with scalar loads; bf16
+// widened at each read).
 //
 // M <= 16, two kernels launched back to back on one stream:
 //  * `thin_split`: the work is (column tile, split) items — 256 columns of
@@ -102,146 +111,6 @@ template <> __device__ __forceinline__ float from_f<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-// BM x BN tile per block, TM x TN outputs per thread: thread t owns rows
-// t / TPR + RG * i and columns t % TPR + TPR * j, where TPR = BN / TN
-// threads share a row group and RG = BM / TM row groups cover the tile.
-template <typename T, int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__(kThreads)
-matmul_abft_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                   const float* __restrict__ br, T* __restrict__ C,
-                   float* __restrict__ block_sums,
-                   float* __restrict__ extra, int M, int N, int K,
-                   int trans_b) {
-  constexpr int TPR = BN / TN;
-  constexpr int RG = BM / TM;
-  static_assert(TPR * RG == kThreads, "tile does not match the block");
-  constexpr int A_PER = (BM * kBK + kThreads - 1) / kThreads;
-  constexpr int B_PER = (kBK * BN) / kThreads;
-
-  __shared__ float As[kBK][BM + 1];
-  __shared__ float Bs[kBK][BN + 1];
-  __shared__ float brs[kBK];
-  __shared__ float red[kWarps];
-
-  const int t = threadIdx.x;
-  const int ni = blockIdx.x, mi = blockIdx.y;
-  const int m0 = mi * BM, n0 = ni * BN;
-  const int tm = t / TPR, tn = t % TPR;
-  const bool with_extra = (br != nullptr) && ni == 0;
-
-  float ra[A_PER], rb[B_PER];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int e = 0; e < A_PER; ++e) {
-      const int idx = t + e * kThreads;
-      const int m = idx / kBK, kk = idx % kBK;
-      float val = 0.f;
-      if (idx < BM * kBK && m0 + m < M && k0 + kk < K)
-        val = to_f(A[(size_t)(m0 + m) * K + k0 + kk]);
-      ra[e] = val;
-    }
-#pragma unroll
-    for (int e = 0; e < B_PER; ++e) {
-      const int idx = t + e * kThreads;
-      float val = 0.f;
-      if (trans_b) {          // B^T [N, K]: consecutive threads walk k
-        const int n = idx / kBK, kk = idx % kBK;
-        if (n0 + n < N && k0 + kk < K)
-          val = to_f(B[(size_t)(n0 + n) * K + k0 + kk]);
-      } else {                // B [K, N]: consecutive threads walk n
-        const int kk = idx / BN, n = idx % BN;
-        if (n0 + n < N && k0 + kk < K)
-          val = to_f(B[(size_t)(k0 + kk) * N + n0 + n]);
-      }
-      rb[e] = val;
-    }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int e = 0; e < A_PER; ++e) {
-      const int idx = t + e * kThreads;
-      if (idx < BM * kBK) As[idx % kBK][idx / kBK] = ra[e];
-    }
-#pragma unroll
-    for (int e = 0; e < B_PER; ++e) {
-      const int idx = t + e * kThreads;
-      if (trans_b) Bs[idx % kBK][idx / kBK] = rb[e];
-      else Bs[idx / BN][idx % BN] = rb[e];
-    }
-  };
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  float ex = 0.f;
-
-  load(0);
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    __syncthreads();                 // the previous step's tiles are read
-    store();
-    if (with_extra && t < kBK)
-      brs[t] = (k0 + t < K) ? br[k0 + t] : 0.f;
-    __syncthreads();
-    if (k0 + kBK < K) load(k0 + kBK);   // in flight while this step runs
-
-    float part[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) part[i][j] = 0.f;
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][tm + RG * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tn + TPR * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
-
-    if (with_extra && t < BM) {
-      float p = 0.f;
-#pragma unroll 8
-      for (int kk = 0; kk < kBK; ++kk) p = fmaf(As[kk][t], brs[kk], p);
-      ex = __fadd_rn(ex, p);
-    }
-  }
-
-  // epilogue: C in the operand dtype, the tile's f32 sum, the extra column
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + tm + RG * i;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tn + TPR * j;
-      s += acc[i][j];                // out-of-range entries are exactly 0
-      if (m < M && n < N) C[(size_t)m * N + n] = from_f<T>(acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    s += __shfl_down_sync(0xffffffffu, s, off);
-  if ((t & 31) == 0) red[t >> 5] = s;
-  __syncthreads();
-  if (t == 0) {
-    float tot = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) tot += red[w];
-    block_sums[(size_t)mi * gridDim.x + ni] = tot;
-  }
-  if (with_extra && t < BM && m0 + t < M) extra[m0 + t] = ex;
 }
 
 // ---------------------------------------------------------------------------
@@ -608,6 +477,323 @@ int launch_thin(const T* a, const T* b, const float* br, T* c, float* sums,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The wide path (M > 16)
+// ---------------------------------------------------------------------------
+
+constexpr int kWideM = 128;     // rows of one block's C tile
+constexpr int kWideN = 128;     // columns of one block's C tile
+constexpr int kWideSumM = 64;   // rows of one block_sums tile (x 128 columns)
+
+// 4 consecutive elements of a shared-memory row as floats: one 16-byte load
+// (f32) or one 8-byte load (bf16, widened: element 2i is the low half).
+__device__ __forceinline__ void load4(const float* p, float* f) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* f) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  f[0] = __uint_as_float(u.x << 16);
+  f[1] = __uint_as_float(u.x & 0xffff0000u);
+  f[2] = __uint_as_float(u.y << 16);
+  f[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+// 4 consecutive elements of C: one 16-byte store (f32), one 8-byte (bf16)
+__device__ __forceinline__ void store4(float* p, const float* f) {
+  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* f) {
+  unsigned h[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    h[j] = __bfloat16_as_ushort(__float2bfloat16_rn(f[j]));
+  *reinterpret_cast<uint2*>(p) = make_uint2(h[0] | (h[1] << 16),
+                                            h[2] | (h[3] << 16));
+}
+
+// One ring stage in shared memory, raw operand elements: A's [BM][32] slice
+// as it lies in device memory (m-major; rows of 32 + V elements: 16-byte
+// aligned, and 4 consecutive rows fall on distinct banks), B's [32][128]
+// slice as it lies (B^T: [128][32 + V], as A), and b_r's 32 values (f32).
+template <typename T, int BM, bool TRANS> struct WideStage {
+  static constexpr int V = Piece<T>::V;
+  static constexpr int LDK = kBK + V;       // a k-contiguous row
+  static constexpr int A_ELEMS = BM * LDK;
+  static constexpr int B_ELEMS = TRANS ? kWideN * LDK : kBK * kWideN;
+  static constexpr int BYTES = (A_ELEMS + B_ELEMS) * (int)sizeof(T) +
+                               kBK * (int)sizeof(float);
+};
+
+template <typename T, int BM, bool TRANS>
+constexpr int wide_smem_bytes() {
+  return kStages * WideStage<T, BM, TRANS>::BYTES;
+}
+
+// One block per BM x 128 tile of C (blockIdx.y, blockIdx.x), walking all of
+// K in 32-wide chunks through a kStages-deep cp.async ring (the thin
+// path's depth: a fourth stage measured no faster), one
+// __syncthreads a chunk.  Thread t of warp w, lane l owns rows ty + 16 i
+// (i < BM / 16; ty = 4 (w / 2) + l / 8) and columns 4 tx + j, 64 + 4 tx + j
+// (j < 4; tx = 8 (w % 2) + l % 8): per 4 k it reads each of its rows' 4 A
+// values with one 16-byte load — the 8 lanes of a row share the address, the
+// warp's 4 rows fall on distinct banks — and per k its 8 B values with two,
+// the warp's 8 column groups one contiguous 128-byte line; then BM / 2 FFMA
+// per k per 16-byte load.  Each chunk is summed apart in `part`, k in
+// order, and added to `acc` in chunk order.  B^T (tests only at M > 16)
+// reads its columns with scalar loads.  Rows i < 4 are C rows 0-63 of the
+// tile, rows i >= 4 rows 64-127: each half's f32 sum is one block_sums
+// entry (per thread i then j, a warp shuffle tree, then warp by warp).  The
+// ni == 0 blocks also sum A @ b_r, one row a thread, in the same chunks.
+template <typename T, int BM, bool TRANS>
+__global__ void __launch_bounds__(kThreads, 1)
+wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
+            const float* __restrict__ br, T* __restrict__ C,
+            float* __restrict__ block_sums, float* __restrict__ extra,
+            int M, int N, int K) {
+  using St = WideStage<T, BM, TRANS>;
+  constexpr int V = St::V;
+  constexpr int LDK = St::LDK;
+  constexpr int TM = BM / 16;                       // rows a thread
+  constexpr int HALVES = BM / kWideSumM;            // block_sums rows a block
+  constexpr int AP = BM * (kBK / V) / kThreads;     // A pieces a thread copies
+  constexpr int BP = kBK * kWideN / V / kThreads;   // B pieces a thread copies
+  static_assert(BM % kWideSumM == 0 && TM % HALVES == 0, "tile vs sum tile");
+  static_assert(AP * kThreads == BM * (kBK / V), "A slice vs block");
+  static_assert(BP * kThreads == kBK * kWideN / V, "B slice vs block");
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  __shared__ float red[HALVES][kWarps];
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int tx = (warp & 1) * 8 + (lane & 7);
+  const int ty = (warp >> 1) * 4 + (lane >> 3);
+  const int ni = blockIdx.x, mi = blockIdx.y;
+  const int m0 = mi * BM, n0 = ni * kWideN;
+  const bool with_extra = br != nullptr && ni == 0;
+  // every row of the operand starts 16-byte aligned (the bases are: the
+  // wrapper checks it), so pieces are whole or wholly outside
+  const bool vec_a = K % V == 0;
+  const bool vec_b = TRANS ? vec_a : (N % V == 0);
+
+  auto stage_a = [&](int st) {
+    return reinterpret_cast<T*>(wide_smem + st * St::BYTES);
+  };
+  auto stage_b = [&](int st) { return stage_a(st) + St::A_ELEMS; };
+  auto stage_br = [&](int st) {
+    return reinterpret_cast<float*>(stage_b(st) + St::B_ELEMS);
+  };
+  // one 16-byte piece: cp.async when rows are aligned, else element by
+  // element (the stage is not read before a later barrier)
+  auto piece = [&](T* dst, const T* base, const T* src, int valid, bool vec) {
+    if (vec) {
+      cp_async16(dst, valid ? src : base, valid * (int)sizeof(T));
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) dst[j] = j < valid ? src[j] : from_f<T>(0.f);
+    }
+  };
+  // A block with every row and column inside the operands (and rows that
+  // start 16-byte aligned) copies its whole chunks from pointers set up
+  // here, with no bounds arithmetic per piece: thread t copies piece
+  // t % (32 / V) of A's rows t / (32 / V) + AR e and piece t % (128 / V)
+  // of B's rows t / (128 / V) + BR e
+  const bool interior = !TRANS && vec_a && vec_b && m0 + BM <= M &&
+                        n0 + kWideN <= N;
+  constexpr int AR = kThreads / (kBK / V);
+  constexpr int BR = kThreads / (kWideN / V);
+  const T* ga = A + (size_t)(m0 + t / (kBK / V)) * K + (t % (kBK / V)) * V;
+  const T* gb = B + (size_t)(t / (kWideN / V)) * N + n0 +
+                (t % (kWideN / V)) * V;
+  const int sa = (t / (kBK / V)) * LDK + (t % (kBK / V)) * V;
+  const int sb = (t / (kWideN / V)) * kWideN + (t % (kWideN / V)) * V;
+  // copy chunk [k0, k0 + 32) into stage st
+  auto fetch = [&](int st, int k0) {
+    if (interior && k0 + kBK <= K) {
+#pragma unroll
+      for (int e = 0; e < AP; ++e)
+        cp_async16(stage_a(st) + sa + e * AR * LDK,
+                   ga + (size_t)e * AR * K + k0, 16);
+#pragma unroll
+      for (int e = 0; e < BP; ++e)
+        cp_async16(stage_b(st) + sb + e * BR * kWideN,
+                   gb + (size_t)(k0 + e * BR) * N, 16);
+      if (with_extra && t < kBK / 4)
+        cp_async16(stage_br(st) + 4 * t, br + k0 + 4 * t, 16);
+      return;
+    }
+    T* as = stage_a(st);
+#pragma unroll
+    for (int e = 0; e < AP; ++e) {
+      const int idx = t + e * kThreads;
+      const int r = idx / (kBK / V), col = (idx % (kBK / V)) * V;
+      const int valid = m0 + r < M ? max(0, min(K - (k0 + col), V)) : 0;
+      piece(as + r * LDK + col, A, A + (size_t)(m0 + r) * K + k0 + col, valid,
+            vec_a);
+    }
+    T* bs = stage_b(st);
+#pragma unroll
+    for (int e = 0; e < BP; ++e) {
+      const int idx = t + e * kThreads;
+      if constexpr (TRANS) {
+        const int r = idx / (kBK / V), col = (idx % (kBK / V)) * V;
+        const int valid = n0 + r < N ? max(0, min(K - (k0 + col), V)) : 0;
+        piece(bs + r * LDK + col, B, B + (size_t)(n0 + r) * K + k0 + col,
+              valid, vec_b);
+      } else {
+        const int r = idx / (kWideN / V), col = (idx % (kWideN / V)) * V;
+        const int valid = k0 + r < K ? max(0, min(N - (n0 + col), V)) : 0;
+        piece(bs + r * kWideN + col, B, B + (size_t)(k0 + r) * N + n0 + col,
+              valid, vec_b);
+      }
+    }
+    if (with_extra && t < kBK / 4) {
+      const int k = k0 + 4 * t;
+      const int valid = max(0, min(K - k, 4));
+      cp_async16(stage_br(st) + 4 * t, valid ? br + k : br, 4 * valid);
+    }
+  };
+
+  const int chunks = (K + kBK - 1) / kBK;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < chunks) fetch(s, s * kBK);
+    cp_async_commit();               // one group per chunk, empty or not
+  }
+
+  float acc[TM][8];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  float ex = 0.f;
+
+  for (int c = 0; c < chunks; ++c) {
+    const int st = c % kStages;
+    cp_async_wait<kStages - 2>();  // this thread's copies of chunk c
+    __syncthreads();                   // everyone's; chunk c - 1 is read
+    const int next = c + kStages - 1;
+    if (next < chunks) fetch(next % kStages, next * kBK);
+    cp_async_commit();
+
+    const T* as = stage_a(st);
+    const T* bs = stage_b(st);
+    float part[TM][8];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part[i][j] = 0.f;
+#pragma unroll
+    for (int kq = 0; kq < kBK; kq += 4) {
+      float a[TM][4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) load4(as + (ty + 16 * i) * LDK + kq, a[i]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float b[8];
+        if constexpr (TRANS) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            b[j] = to_f(bs[(4 * tx + j) * LDK + kq + kk]);
+            b[4 + j] = to_f(bs[(64 + 4 * tx + j) * LDK + kq + kk]);
+          }
+        } else {
+          load4(bs + (kq + kk) * kWideN + 4 * tx, b);
+          load4(bs + (kq + kk) * kWideN + 64 + 4 * tx, b + 4);
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            part[i][j] = fmaf(a[i][kk], b[j], part[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
+
+    if (with_extra && t < BM) {
+      const float* brs = stage_br(st);
+      float p = 0.f;
+#pragma unroll
+      for (int kq = 0; kq < kBK; kq += 4) {
+        float a4[4];
+        load4(as + t * LDK + kq, a4);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) p = fmaf(a4[kk], brs[kq + kk], p);
+      }
+      ex = __fadd_rn(ex, p);
+    }
+  }
+  cp_async_wait<0>();                // no copy outlives the block
+
+  // C in the operand dtype, 4 elements a store where every row of C starts
+  // aligned (N a multiple of 4); the tile's edge element by element
+  const bool vec_c = N % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + 64 * h + 4 * tx;
+      T* dst = C + (size_t)m * N + n;
+      if (vec_c && n + 4 <= N) {
+        store4(dst, &acc[i][4 * h]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n + j < N) dst[j] = from_f<T>(acc[i][4 * h + j]);
+      }
+    }
+  }
+  // the f32 sum of each 64-row half (out-of-range entries are exactly 0)
+#pragma unroll
+  for (int hf = 0; hf < HALVES; ++hf) {
+    float s = 0.f;
+#pragma unroll
+    for (int i = hf * (TM / HALVES); i < (hf + 1) * (TM / HALVES); ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s += acc[i][j];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_down_sync(0xffffffffu, s, off);
+    if (lane == 0) red[hf][warp] = s;
+  }
+  __syncthreads();
+  if (t < HALVES && (mi * HALVES + t) * kWideSumM < M) {
+    float tot = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) tot += red[t][w];
+    block_sums[(size_t)(mi * HALVES + t) * gridDim.x + ni] = tot;
+  }
+  if (with_extra && t < BM && m0 + t < M) extra[m0 + t] = ex;
+}
+
+// Launch one wide_kernel instantiation; its dynamic shared memory limit is
+// raised once, at the first launch, and a refusal is returned (then, and
+// at every later launch).
+template <typename T, int BM, bool TRANS>
+int launch_wide(const T* a, const T* b, const float* br, T* c, float* sums,
+                float* extra, int m, int n, int k, cudaStream_t stream) {
+  constexpr int bytes = wide_smem_bytes<T, BM, TRANS>();
+  static const cudaError_t attr = [] {
+    auto* fn = wide_kernel<T, BM, TRANS>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        wide_smem_bytes<T, BM, TRANS>());
+    if (err != cudaSuccess) cudaGetLastError();   // not left for a later call
+    return err;
+  }();
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((n + kWideN - 1) / kWideN, (m + BM - 1) / BM);
+  wide_kernel<T, BM, TRANS><<<grid, kThreads, bytes, stream>>>(
+      a, b, br, c, sums, extra, m, n, k);
+  return (int)cudaGetLastError();
+}
+
 // f(std::integral_constant<int, MT>{}) with MT the compile-time row count
 // the thin path uses for m rows.
 template <typename F> int with_rows(int m, F&& f) {
@@ -629,13 +815,14 @@ int launch_typed(const void* a, const void* b, const float* br, void* c,
           static_cast<const T*>(a), static_cast<const T*>(b), br,
           static_cast<T*>(c), sums, extra, ws, m, n, k, trans_b, stream);
     });
-  } else {
-    dim3 grid((n + 127) / 128, (m + 63) / 64);
-    matmul_abft_kernel<T, 64, 128, 4, 8><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(a), static_cast<const T*>(b), br,
-        static_cast<T*>(c), sums, extra, m, n, k, trans_b);
   }
-  return (int)cudaGetLastError();
+  auto ta = static_cast<const T*>(a);
+  auto tb = static_cast<const T*>(b);
+  auto tc = static_cast<T*>(c);
+  return trans_b ? launch_wide<T, kWideM, true>(ta, tb, br, tc, sums, extra,
+                                                m, n, k, stream)
+                 : launch_wide<T, kWideM, false>(ta, tb, br, tc, sums, extra,
+                                                 m, n, k, stream);
 }
 
 template <typename T> int thin_smem_typed(int m, int trans_b) {
@@ -649,11 +836,25 @@ template <typename T> int thin_smem_typed(int m, int trans_b) {
 }  // namespace
 
 // The C tile `block_sums` is taken over for an M-row product (rows, then
-// columns): the block's tile when M > 16, 64 columns over all 16 rows
-// otherwise; analysis/vmem.py `matmul_tile` states the same and the wrapper
-// checks it.
-extern "C" int matmul_abft_tile_m(int m) { return m <= kSmallM ? kSmallM : 64; }
-extern "C" int matmul_abft_tile_n(int m) { return m <= kSmallM ? kSumN : 128; }
+// columns): 64 x 128 when M > 16 (each half of a block's 128 x 128 tile),
+// 64 columns over all 16 rows otherwise; analysis/vmem.py `matmul_tile`
+// states the same and the wrapper checks it.
+extern "C" int matmul_abft_tile_m(int m) {
+  return m <= kSmallM ? kSmallM : kWideSumM;
+}
+extern "C" int matmul_abft_tile_n(int m) {
+  return m <= kSmallM ? kSumN : kWideN;
+}
+
+// The C tile one block of the wide path owns (0 when M <= 16, which takes
+// the thin path); analysis/vmem.py `MATMUL_WIDE_TILE` states the same and
+// the wrapper checks it.
+extern "C" int matmul_abft_wide_tile_m(int m) {
+  return m <= kSmallM ? 0 : kWideM;
+}
+extern "C" int matmul_abft_wide_tile_n(int m) {
+  return m <= kSmallM ? 0 : kWideN;
+}
 
 // K columns of one split (a multiple of 32) and the number of splits S of an
 // M x K @ K x N product; analysis/vmem.py `matmul_split_k` / `matmul_splits`
@@ -673,6 +874,18 @@ extern "C" int matmul_abft_thin_smem_bytes(int m, int dtype, int trans_b) {
   if (m <= 0 || m > kSmallM) return 0;
   return dtype == 0 ? thin_smem_typed<float>(m, trans_b)
                     : thin_smem_typed<__nv_bfloat16>(m, trans_b);
+}
+
+// Dynamic shared memory of one wide-path block for an M-row product (M > 16,
+// else 0; dtype as for the launch): the cp.async ring; analysis/vmem.py
+// `matmul_wide_smem_bytes` states the same and the wrapper checks it.
+extern "C" int matmul_abft_wide_smem_bytes(int m, int dtype, int trans_b) {
+  if (m <= kSmallM) return 0;
+  if (dtype == 0)
+    return trans_b ? wide_smem_bytes<float, kWideM, true>()
+                   : wide_smem_bytes<float, kWideM, false>();
+  return trans_b ? wide_smem_bytes<__nv_bfloat16, kWideM, true>()
+                 : wide_smem_bytes<__nv_bfloat16, kWideM, false>();
 }
 
 // Launch on `stream` (two kernels when M <= 16, one otherwise); allocates

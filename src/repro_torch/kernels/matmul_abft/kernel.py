@@ -30,8 +30,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.analysis.vmem import (MATMUL_BLOCK_K, MATMUL_SMALL_M,
-                                      matmul_split_k, matmul_splits,
-                                      matmul_thin_smem_bytes, matmul_tile)
+                                      MATMUL_WIDE_TILE, matmul_split_k,
+                                      matmul_splits, matmul_thin_smem_bytes,
+                                      matmul_tile, matmul_wide_smem_bytes)
 
 Tensor = torch.Tensor
 DTYPES = (torch.float32, torch.bfloat16)
@@ -100,20 +101,26 @@ matmul_abft_plain.calls = 0
 def _agreed_with_library(lib, what: str, m: int, n: int, k: int, a: Tensor,
                          trans_b: bool) -> tuple:
     """(tile_m, tile_n, splits) of an ``m x k @ k x n`` product as
-    ``analysis.vmem`` states them (and the thin path's shared memory for
-    ``a``'s dtype); raises when the library disagrees."""
+    ``analysis.vmem`` states them (and, for ``a``'s dtype, the thin path's
+    shared memory, or the wide path's block tile and shared memory); raises
+    when the library disagrees."""
     tm, tn = matmul_tile(m)
-    smem = matmul_thin_smem_bytes(m, a.element_size(), trans_b) \
-        if m <= MATMUL_SMALL_M else 0
-    ours = (tm, tn, matmul_splits(m, n, k), matmul_split_k(m, n, k), smem)
+    dt, item = DTYPES.index(a.dtype), a.element_size()
+    thin = m <= MATMUL_SMALL_M
+    ours = (tm, tn, matmul_splits(m, n, k), matmul_split_k(m, n, k),
+            matmul_thin_smem_bytes(m, item, trans_b) if thin else 0,
+            *((0, 0) if thin else MATMUL_WIDE_TILE),
+            0 if thin else matmul_wide_smem_bytes(item, trans_b))
     theirs = (lib.matmul_abft_tile_m(m), lib.matmul_abft_tile_n(m),
               lib.matmul_abft_splits(m, n, k),
               lib.matmul_abft_split_k(m, n, k),
-              lib.matmul_abft_thin_smem_bytes(m, DTYPES.index(a.dtype),
-                                              int(trans_b)))
+              lib.matmul_abft_thin_smem_bytes(m, dt, int(trans_b)),
+              lib.matmul_abft_wide_tile_m(m), lib.matmul_abft_wide_tile_n(m),
+              lib.matmul_abft_wide_smem_bytes(m, dt, int(trans_b)))
     if ours != theirs:
         raise RuntimeError(f"{what}: analysis.vmem models (tile_m, tile_n, "
-                           f"splits, split_k, thin smem bytes) = {ours} for "
+                           f"splits, split_k, thin smem bytes, wide tile_m, "
+                           f"wide tile_n, wide smem bytes) = {ours} for "
                            f"M={m} N={n} K={k}, the library {theirs}")
     return ours[:3]
 

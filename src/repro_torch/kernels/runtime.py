@@ -59,6 +59,9 @@ _SIGNATURES = {
     "matmul_abft_splits": [_I, _I, _I],
     "matmul_abft_split_k": [_I, _I, _I],
     "matmul_abft_thin_smem_bytes": [_I, _I, _I],
+    "matmul_abft_wide_tile_m": [_I],
+    "matmul_abft_wide_tile_n": [_I],
+    "matmul_abft_wide_smem_bytes": [_I, _I, _I],
     "matmul_abft_launch": [_P] * 7 + [_I] * 5 + [_P],
     "flash_checksum_smem_bytes": [_I],
     "flash_checksum_max_dh": [],

@@ -67,8 +67,14 @@ DTYPES = [(torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)]
 # matmul_abft
 # ---------------------------------------------------------------------------
 
+# M > 16: the wide path's 128-row blocks, one row past one block (129) and
+# one row short of two (255), with K and N not multiples of 4 (the scalar
+# tail of the cp.async ring) and N past one 128-column tile
+WIDE_EDGES = [(129, 70, 130), (255, 99, 131)]
+
+
 @pytest.mark.parametrize("m,k,n", [(128, 128, 128), (200, 100, 72),
-                                   (2, 256, 136)])
+                                   (2, 256, 136)] + WIDE_EDGES)
 @pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
 def test_matmul_abft_matches_the_jax_op(m, k, n, dtypes):
     tdt, jdt = dtypes
@@ -83,7 +89,7 @@ def test_matmul_abft_matches_the_jax_op(m, k, n, dtypes):
     assert not bool(tchk.flag(tabft.ABFTConfig(threshold=0.2)))
 
 
-@pytest.mark.parametrize("m,k,n", [(40, 24, 16), (3, 70, 130)])
+@pytest.mark.parametrize("m,k,n", [(40, 24, 16), (3, 70, 130)] + WIDE_EDGES)
 @pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
 def test_matmul_abft_plain_against_the_dense_oracle(m, k, n, dtypes):
     """Raw outputs of the plain version (the kernel's function) against the
@@ -416,8 +422,11 @@ def test_cuda_checked_op_kernels_match_plain_versions(dtype):
     dev = torch.device("cuda")
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     runtime.reset_counts()
+    # the wide path at its block edges (B and B^T) and at a prefill width
+    # (gemma-2b's q/o: M 1024, K 2048, N 2048)
     shapes = [(2, 2048, 300, True), (200, 100, 72, False),
-              (1024, 256, 384, False)] + THIN
+              (1024, 256, 384, False), (1024, 2048, 2048, False)] + THIN + [
+        (m, k, n, trans) for m, k, n in WIDE_EDGES for trans in (False, True)]
     for m, k, n, trans in shapes:
         a = _t(_np(m, (m, k)), dtype).to(dev)
         b = _t(_np(n, (n, k) if trans else (k, n), k ** -0.5), dtype).to(dev)

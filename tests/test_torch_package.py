@@ -261,11 +261,21 @@ def test_shared_memory_model_is_one_object_everywhere():
     assert vmem.flash_smem_bytes(256) == 140_288
     assert vmem.flash_smem_bytes(256) <= vmem.FUSED_SMEM_BUDGET
     # M <= 16: the thin split-K path's sum tile, 64 columns over all 16
-    # rows; M > 16: the 64 x 128 tile one block owns
+    # rows; M > 16: 64 x 128, each half of the 128 x 128 tile one block owns
     assert vmem.matmul_tile(2) == (16, 64) and vmem.matmul_tile(1024) == \
         (64, 128)
     assert vmem.matmul_tile(vmem.MATMUL_SMALL_M) == (16, 64)
     assert vmem.matmul_tile(vmem.MATMUL_SMALL_M + 1) == (64, 128)
+    # the wide path's block tile is a whole number of sum tiles, and its
+    # cp.async ring (3 stages of A's and B's slices and b_r) fits one block
+    (bm, bn), (sm, sn) = vmem.MATMUL_WIDE_TILE, vmem.matmul_tile(1024)
+    assert (bm, bn) == (128, 128) and bm % sm == 0 and bn % sn == 0
+    assert vmem.matmul_wide_smem_bytes(4, False) == 104_832
+    assert vmem.matmul_wide_smem_bytes(4, True) == 110_976
+    assert vmem.matmul_wide_smem_bytes(2, False) == 55_680
+    assert vmem.matmul_wide_smem_bytes(2, True) == 61_824
+    assert max(vmem.matmul_wide_smem_bytes(i, t) for i in (2, 4)
+               for t in (False, True)) <= vmem.FUSED_SMEM_BUDGET
     # the thin path's cp.async ring: 3 stages of B's chunk, A's slice and
     # b_r; two blocks fit an SM at gemma's head (f32, transposed, M = 2)
     assert vmem.matmul_thin_smem_bytes(2, 4, True) == 111_936
@@ -276,27 +286,49 @@ def test_shared_memory_model_is_one_object_everywhere():
 
 
 def test_matmul_wrapper_refuses_a_library_that_splits_otherwise():
-    """The B4 wrapper holds the library's tile, split count, split width
-    and thin-path shared memory against ``analysis.vmem`` — the plain
-    version's association follows vmem, so a library that splits K
-    otherwise must not launch."""
+    """The B4 wrapper holds the library's tile, split count, split width,
+    thin-path shared memory, and the wide path's block tile and shared
+    memory against ``analysis.vmem`` — the plain version's association
+    follows vmem, so a library that splits K otherwise must not launch, nor
+    one whose wide block owns another tile or asks for other bytes."""
     import types
 
-    def lib_with(splits):
+    def lib_with(splits=vmem.matmul_splits, wide_tile=(128, 128),
+                 wide_smem=vmem.matmul_wide_smem_bytes):
+        small = vmem.MATMUL_SMALL_M
         return types.SimpleNamespace(
             matmul_abft_tile_m=lambda m: vmem.matmul_tile(m)[0],
             matmul_abft_tile_n=lambda m: vmem.matmul_tile(m)[1],
             matmul_abft_splits=splits,
             matmul_abft_split_k=vmem.matmul_split_k,
             matmul_abft_thin_smem_bytes=lambda m, dt, tb:
-                vmem.matmul_thin_smem_bytes(m, 4, bool(tb)))
+                vmem.matmul_thin_smem_bytes(m, 4 // (1 + dt), bool(tb))
+                if m <= small else 0,
+            matmul_abft_wide_tile_m=lambda m: 0 if m <= small
+                else wide_tile[0],
+            matmul_abft_wide_tile_n=lambda m: 0 if m <= small
+                else wide_tile[1],
+            matmul_abft_wide_smem_bytes=lambda m, dt, tb: 0 if m <= small
+                else wide_smem(4 // (1 + dt), bool(tb)))
     a = torch.ones(2, 2048)
     assert mm_kernel._agreed_with_library(
-        lib_with(vmem.matmul_splits), "probe", 2, 2048, 16384, a, False) \
-        == (16, 64, 64)
+        lib_with(), "probe", 2, 2048, 16384, a, False) == (16, 64, 64)
     with pytest.raises(RuntimeError, match="splits"):
         mm_kernel._agreed_with_library(lib_with(lambda m, n, k: 1), "probe",
                                        2, 2048, 16384, a, False)
+    # M > 16: the wide path, f32 and bf16, B and B^T
+    for dtype in (torch.float32, torch.bfloat16):
+        wide = torch.ones(1024, 2048, dtype=dtype)
+        for tb in (False, True):
+            assert mm_kernel._agreed_with_library(
+                lib_with(), "probe", 1024, 2048, 16384, wide, tb) == \
+                (64, 128, 1)
+        for other in (lib_with(wide_tile=(64, 128)),
+                      lib_with(wide_smem=lambda item, tb:
+                               vmem.matmul_wide_smem_bytes(item, tb) - 128)):
+            with pytest.raises(RuntimeError, match="wide"):
+                mm_kernel._agreed_with_library(other, "probe", 1024, 2048,
+                                               16384, wide, False)
 
 
 def test_checked_op_wrappers_refuse_what_the_kernels_do_not_take():
