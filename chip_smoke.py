@@ -5,7 +5,9 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version on the card (and the
-whole-network kernel bit for bit against a chain of single-layer launches),
+whole-network kernel bit for bit against a chain of single-layer launches;
+``spmm_abft`` also at every tile shape and G it serves, a second run and a
+gathered sub-system of stripes bit for bit the full launch's),
 and drives the port's main paths — guarded packed block-ELL GCN serving
 (two-pass, fused-layer and whole-network), the stripe/slot repair tiers and
 the streaming server — at the published widths of Cora's 2-layer GCN
@@ -243,21 +245,27 @@ def make_params(torch, dims=None, seed=0):
     return init_gcn(torch.Generator().manual_seed(seed), dims, device="cuda")
 
 
-def bsr_library_ms(torch, cols, vals, xx):
-    """Time one ``torch.sparse`` BSR product of the same tiles against
-    ``[x | x_r]`` — the yardstick only; nothing in the port calls it.
-    Returns (ms | None, note)."""
+def bsr_library_ms(torch, cols, vals, xx, all_tiles=False):
+    """Time one ``torch.sparse`` BSR product of the tiles against ``[x |
+    x_r]`` — the yardstick only; nothing in the port calls it.  By default
+    the BSR operand keeps the non-zero tiles (1090 of the served batch's
+    3456: about 71 MB read); ``all_tiles`` keeps every stored tile, padding
+    included, as B1 multiplies them (229 MB).  Returns (ms | None, note)."""
     try:
         nbm, width, bm, bk = vals.shape
-        mask = vals.abs().sum(dim=(2, 3)) > 0
+        mask = torch.ones((nbm, width), dtype=torch.bool, device=vals.device)\
+            if all_tiles else vals.abs().sum(dim=(2, 3)) > 0
         crow = torch.zeros(nbm + 1, dtype=torch.int64, device=vals.device)
         crow[1:] = mask.sum(dim=1).cumsum(0)
         bsr = torch.sparse_bsr_tensor(crow, cols[mask].long(), vals[mask],
                                       size=(nbm * bm, xx.shape[0]))
         y = bsr @ xx
         torch.cuda.synchronize()
+        what = "every stored tile" if all_tiles else "the non-zero tiles"
         return time_ms(lambda: bsr @ xx), \
-            f"torch.sparse BSR @ [x | x_r], f32, out {tuple(y.shape)}"
+            f"torch.sparse BSR @ [x | x_r] over {what} " \
+            f"({int(mask.sum())} of {nbm * width}), f32, out " \
+            f"{tuple(y.shape)}"
     except Exception as exc:  # the yardstick may not exist in this build
         return None, f"BSR product unavailable: {type(exc).__name__}: {exc}"
 
@@ -270,12 +278,40 @@ def check_spmm(torch, cols, vals, x, xr, tag):
     worst = 0.0
     for inject in (None, (nbm // 2, width // 2, 3.0), (0, width - 1, -2.0)):
         got = spmm_abft_kernel(cols, vals, x, xr, inject=inject)
+        again = spmm_abft_kernel(cols, vals, x, xr, inject=inject)
         torch.cuda.synchronize()
         want = spmm_abft_plain(cols, vals, x, xr, inject=inject)
-        for name, g_, w_ in zip(("out", "stripe_sums", "extra"), got, want):
+        for name, g_, a_, w_ in zip(("out", "stripe_sums", "extra"), got,
+                                    again, want):
             worst = max(worst, assert_close(f"spmm_abft[{tag}] {name} "
                                             f"inject={inject}", g_, w_))
+            if not torch.equal(g_, a_):
+                raise AssertionError(f"spmm_abft[{tag}] {name} inject="
+                                     f"{inject}: a second run differs")
     return worst
+
+
+def check_spmm_subsystem(torch, bell, cols, vals, x, xr, tag):
+    """The surgical repair's replay: a launch on ``gather_stripe_system`` of
+    three scattered stripes must give those stripes of the full launch bit
+    for bit (out, stripe_sums, extra).  Returns the stripes."""
+    from repro_torch.engine.localize import gather_stripe_system
+    from repro_torch.kernels.spmm_abft.kernel import spmm_abft_kernel
+    from repro_torch.kernels.spmm_abft.ops import device_block_ell
+    nbm, _width, bm, _bk = vals.shape
+    stripes = sorted({1 % nbm, nbm // 2, nbm - 2 if nbm > 2 else 0})
+    sc, sv = device_block_ell(gather_stripe_system(bell, stripes), "cuda")
+    full = spmm_abft_kernel(cols, vals, x, xr)
+    sub = spmm_abft_kernel(sc, sv, x, xr)
+    idx = torch.tensor(stripes, device="cuda")
+    rows = (idx[:, None] * bm + torch.arange(bm, device="cuda")).reshape(-1)
+    for name, f_, s_ in zip(("out", "stripe_sums", "extra"), full, sub):
+        want = f_[idx] if name == "stripe_sums" else f_[rows]
+        if not torch.equal(s_, want):
+            raise AssertionError(f"spmm_abft[{tag}] sub-system {stripes} "
+                                 f"{name}: not bit for bit the full launch's "
+                                 f"(max abs diff {max_err(s_, want):.3e})")
+    return stripes
 
 
 def check_fused(torch, cols, vals, h, w, wr, tag):
@@ -434,11 +470,63 @@ def network_entry(torch, cols, vals, h0, wps, wrps, segments, n_slots,
         bytes=n_bytes, flops=n_ops)
 
 
+def layer_operands(torch, cols, vals, h0, layers):
+    """Each layer's operands as the main path hands them to the kernels:
+    (H, x = H W padded to the register-tile quantum, x_r = H w_r, W and w_r
+    padded for the fused kernel); the next H from the plain version."""
+    from repro_torch.analysis.vmem import _lanes
+    from repro_torch.kernels.gcn_fused.ops import _pad_weights
+    from repro_torch.kernels.spmm_abft.kernel import spmm_abft_plain
+    from repro_torch.kernels.spmm_abft.ops import pad_features
+    h, per_layer = h0, []
+    for layer in layers:
+        w, w_r = layer["w"], layer["w_r"]
+        x = pad_features(h @ w, _lanes(w.shape[1])).contiguous()
+        xr = (h @ w_r)[:, None].contiguous()
+        wp, wrp = _pad_weights(w, w_r, 128)
+        per_layer.append((h.contiguous(), x, xr, wp, wrp))
+        h = torch.relu(spmm_abft_plain(cols, vals, x, xr)[0][:, :w.shape[1]])
+    return per_layer
+
+
+def spmm_timing(torch, cols, vals, x, xr) -> dict:
+    """B1 at one launch shape: its time, the plain version's, both BSR
+    yardsticks, the bound (every input read once, every output written once
+    over the card's memory rate; the stored tiles' multiply-adds, the check
+    column's included, over the f32 peak) and the rate at which it moves
+    those bytes."""
+    from repro_torch.kernels.spmm_abft.kernel import (spmm_abft_kernel,
+                                                      spmm_abft_plain)
+    nbm, width, bm, bk = vals.shape
+    gp = x.shape[1]
+    # `ms` is every kernel's yardstick (10 launches); the window opens on an
+    # idle card, so it also holds the host's first dispatch, which 50
+    # launches (`ms_50`) spread thinner; device_ms replays a CUDA graph, the
+    # kernel's own time
+    ms = time_ms(lambda: spmm_abft_kernel(cols, vals, x, xr))
+    ms_50 = time_ms(lambda: spmm_abft_kernel(cols, vals, x, xr), reps=50)
+    dev_ms = device_ms(lambda: spmm_abft_kernel(cols, vals, x, xr), reps=20)
+    plain_ms = time_ms(lambda: spmm_abft_plain(cols, vals, x, xr),
+                       warm=1, reps=3)
+    xx = torch.cat([x, xr], dim=1).contiguous()
+    lib_ms, lib_note = bsr_library_ms(torch, cols, vals, xx)
+    all_ms, all_note = bsr_library_ms(torch, cols, vals, xx, all_tiles=True)
+    n_bytes = nbytes(cols, vals, x, xr) + 4 * (nbm * bm * gp + nbm + nbm * bm)
+    n_ops = 2 * nbm * width * bm * bk * (gp + 1)
+    t_b, t_o = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_F32_FLOPS * 1e3
+    return dict(ms=ms, ms_50=ms_50, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations",
+                gb_per_s=n_bytes / ms / 1e6, library_ms=lib_ms,
+                library_note=lib_note, library_all_tiles_ms=all_ms,
+                library_all_tiles_note=all_note, bytes=n_bytes, flops=n_ops,
+                shape=dict(nbm=nbm, width=width, bm=bm, bk=bk, g=gp))
+
+
 def phase_kernels(torch, batches, params):
     """Hold every kernel against its plain version at the main path's
     shapes (both layers of the Cora-width packed batch; the whole network),
     and at block 32; time them at the layer-0 shapes (the network whole)."""
-    from repro_torch.analysis.vmem import _lanes
     from repro_torch.core.abft import ABFTConfig
     from repro_torch.engine import fold_w_r
     from repro_torch.engine.streaming import packed_step_args
@@ -448,9 +536,7 @@ def phase_kernels(torch, batches, params):
                                                    _pad_weights,
                                                    schedule_bytes_fused,
                                                    schedule_bytes_twopass)
-    from repro_torch.kernels.spmm_abft.kernel import (spmm_abft_kernel,
-                                                      spmm_abft_plain)
-    from repro_torch.kernels.spmm_abft.ops import pad_features
+    from repro_torch.kernels.spmm_abft.kernel import spmm_abft_kernel
 
     cfg = ABFTConfig(mode="fused")
     layers = fold_w_r(params, cfg)["layers"]
@@ -461,17 +547,7 @@ def phase_kernels(torch, batches, params):
     nnz_tiles = int((vals.abs().sum(dim=(2, 3)) > 0).sum())
     entries = {}
 
-    # operands of both layers, as the main path hands them to the kernels
-    h = h0
-    per_layer = []
-    for ell, layer in enumerate(layers):
-        w, w_r = layer["w"], layer["w_r"]
-        gp = _lanes(w.shape[1])
-        x = pad_features(h @ w, gp).contiguous()
-        xr = (h @ w_r)[:, None].contiguous()
-        wp, wrp = _pad_weights(w, w_r, 128)
-        per_layer.append((h.contiguous(), x, xr, wp, wrp))
-        h = torch.relu(spmm_abft_plain(cols, vals, x, xr)[0][:, :w.shape[1]])
+    per_layer = layer_operands(torch, cols, vals, h0, layers)
 
     spmm_err = max(check_spmm(torch, cols, vals, x, xr, f"layer{ell}")
                    for ell, (_, x, xr, _, _) in enumerate(per_layer))
@@ -492,33 +568,42 @@ def phase_kernels(torch, batches, params):
             raise AssertionError(f"{name}: clean corner divergence {rel:.3e} "
                                  f"over {CORNER_RTOL}")
 
-    # ---- timing at the layer-0 shapes (the dominant launch of each path)
+    # the surgical repair's replay: gathered stripes bit for bit
+    from repro_torch.kernels import runtime
+    sub_stripes = {"layer0": check_spmm_subsystem(
+        torch, pb.bell, cols, vals, per_layer[0][1], per_layer[0][2],
+        "layer0")}
+
+    # ---- timing at the layer-0 shapes (the dominant launch of each path);
+    # B1 also at layer 1 and at block 32, with its registers and spills
     h_, x, xr, wp, wrp = per_layer[0]
     f, gp = wp.shape
     f_model, g_model = layers[0]["w"].shape
-    ms = time_ms(lambda: spmm_abft_kernel(cols, vals, x, xr))
-    plain_ms = time_ms(lambda: spmm_abft_plain(cols, vals, x, xr),
-                       warm=1, reps=3)
-    lib_ms, lib_note = bsr_library_ms(torch, cols, vals,
-                                      torch.cat([x, xr], dim=1).contiguous())
     outs = nbm * bm * gp * 4 + nbm * 4 + nbm * bm * 4
-    b_bytes = nbytes(cols, vals, x, xr) + outs
     b_ops = 2 * tiles * bm * bk * (gp + 1)
-    t_b, t_o = b_bytes / PEAK_BYTES_PER_S * 1e3, b_ops / PEAK_F32_FLOPS * 1e3
+    h1, x1, xr1, wp1, wrp1 = per_layer[1]
+    b1_shapes = {"layer0": spmm_timing(torch, cols, vals, x, xr),
+                 "layer1": spmm_timing(torch, cols, vals, x1, xr1)}
+    b1 = b1_shapes["layer0"]
     entries["spmm_abft"] = dict(
         name="spmm_abft", route="cuda",
         source="src/repro_torch/kernels/csrc/spmm_abft.cu",
         replaces="src/repro/kernels/spmm_abft/kernel.py:75",
-        max_abs_err=spmm_err, max_rel_corner=rels["spmm_abft"], ms=ms,
-        plain_ms=plain_ms, bound_ms=max(t_b, t_o),
-        bound_by="bytes" if t_b >= t_o else "operations",
-        library_ms=lib_ms, library_note=lib_note,
+        max_abs_err=spmm_err, max_rel_corner=rels["spmm_abft"],
+        **{k: b1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "library_note",
+                                "library_all_tiles_ms",
+                                "library_all_tiles_note", "gb_per_s",
+                                "ms_50", "device_ms")},
+        layer1_ms=b1_shapes["layer1"]["ms"],
         # the schedule model prices the whole two-pass layer: the
         # combination and eq.-5 products before this launch, and the launch
         **schedule_entry(schedule_bytes_twopass(pb.bell, f_model, g_model)),
         shape=dict(nbm=nbm, width=width, bm=bm, bk=bk, g=gp,
                    stored_tiles=tiles, nonzero_tiles=nnz_tiles),
-        bytes=b_bytes, flops=b_ops)
+        bytes=b1["bytes"], flops=b1["flops"], shapes=b1_shapes,
+        ptxas={k: v for k, v in ptxas_summary(
+            runtime.last_build_log).items() if "spmm" in k})
 
     ms = time_ms(lambda: gcn_fused_kernel(cols, vals, h_, wp, wrp), reps=5)
     plain_ms = time_ms(lambda: gcn_fused_plain(cols, vals, h_, wp, wrp),
@@ -545,10 +630,7 @@ def phase_kernels(torch, batches, params):
         bytes=f_bytes, flops=f_ops,
         recompute_flops=2 * tiles * bk * f * (gp + 1) + b_ops)
 
-    # layer-1 launch times (narrow F) for the record
-    h1, x1, xr1, wp1, wrp1 = per_layer[1]
-    entries["spmm_abft"]["layer1_ms"] = time_ms(
-        lambda: spmm_abft_kernel(cols, vals, x1, xr1))
+    # layer-1 launch time (narrow F) for the record
     entries["gcn_fused"]["layer1_ms"] = time_ms(
         lambda: gcn_fused_kernel(cols, vals, h1, wp1, wrp1))
 
@@ -571,6 +653,10 @@ def phase_kernels(torch, batches, params):
     sxr = (sh @ sp["w_r"])[:, None].contiguous()
     e32 = (check_spmm(torch, sc, sv, sx, sxr, "block32"),
            check_fused(torch, sc, sv, sh, swp, swrp, "block32"))
+    sub_stripes["block32"] = check_spmm_subsystem(torch, small.bell, sc, sv,
+                                                  sx, sxr, "block32")
+    entries["spmm_abft"]["shapes"]["block32"] = spmm_timing(torch, sc, sv, sx,
+                                                            sxr)
     sl = fold_w_r(make_params(torch, (16, 16, 7), seed=1), cfg)["layers"]
     e32 += (check_network(torch, sc, sv, sh, *_network_weights(
         [la["w"] for la in sl], [la["w_r"] for la in sl], 128), "block32"),)
@@ -587,6 +673,29 @@ def phase_kernels(torch, batches, params):
     sx72, sxr72 = rand(sv.shape[0] * 32, 72), rand(sv.shape[0] * 32, 1)
     odd["spmm_abft block32 G=72"] = check_spmm(torch, sc, sv, sx72, sxr72,
                                                "block32-G72")
+    odd["spmm_abft block32 G=8"] = check_spmm(
+        torch, sc, sv, sx72[:, :8].contiguous(), sxr72, "block32-G8")
+    # one stripe (a one-stripe repair), and one slot per stripe
+    odd["spmm_abft block128 one stripe"] = check_spmm(
+        torch, cols[:1].contiguous(), vals[:1].contiguous(), x, xr,
+        "block128-nbm1")
+    odd["spmm_abft block128 width 1"] = check_spmm(
+        torch, cols[:, :1].contiguous(), vals[:, :1].contiguous(), x, xr,
+        "block128-width1")
+    # block 16 (chunks of 16 k-columns read through the 64-byte swizzle, the
+    # serving CLI's default block), and tall blocks cut into row slices
+    # (192: 2 slices x 3 k-parts, 256: 2 x 4, one cluster of 6 and of 8)
+    for blk in (16, 192, 256):
+        tb = make_packed_batches(synth_graph_stream(16, seed=1), 8,
+                                 block=blk, stripe_multiple=4,
+                                 width_multiple=4)[0]
+        tc, tv, _tg, _th = packed_step_args(tb, "cuda")
+        for g in (8, 16, 72):
+            tx, txr = rand(tv.shape[0] * blk, g), rand(tv.shape[0] * blk, 1)
+            odd[f"spmm_abft block{blk} G={g}"] = check_spmm(
+                torch, tc, tv, tx, txr, f"block{blk}-G{g}")
+        sub_stripes[f"block{blk}"] = check_spmm_subsystem(
+            torch, tb.bell, tc, tv, tx, txr, f"block{blk}")
     w24, wr24 = rand(16, 24) * 0.2, rand(16, 1) * 0.2
     odd["gcn_fused block32 G=24"] = check_fused(torch, sc, sv, sh, w24, wr24,
                                                 "block32-G24")
@@ -603,6 +712,7 @@ def phase_kernels(torch, batches, params):
                                          network_vs_b2_chain="bitwise"),
          block32_max_abs_err=dict(spmm_abft=e32[0], gcn_fused=e32[1],
                                   gcn_network=e32[2]),
+         spmm_subsystem_bitwise=sub_stripes,
          other_shapes_max_abs_err=odd,
          kernels=list(entries.values()))
     return entries
@@ -752,7 +862,11 @@ def phase_fault(torch, batches, params):
     """Accumulator upsets at layer 0 and layer 1.  Two-pass and fused-layer
     at graph granularity: exactly the graph that owns the stripe flags, the
     per-graph retry clears it, and the repaired logits equal the clean
-    run's.  The whole-network path at graph, stripe and slot granularity:
+    run's.  Two-pass at stripe granularity: exactly the owner and the hit
+    stripe flag, the stripe tier alone repairs it by replaying the stripe
+    through spmm_abft against the stashed X, within ``REPAIR_ATOL`` of the
+    clean logits (the downstream refresh of X is a product of another
+    shape, so not bit for bit), from fewer rows than a per-graph retry.  The whole-network path at graph, stripe and slot granularity:
     exactly the owner flags (and, finer, exactly the hit stripe / slot),
     the matching tier repairs it and re-verifies clean, and the stripe and
     slot tiers' logits are bit for bit the clean run's, from fewer rows
@@ -807,6 +921,59 @@ def phase_fault(torch, batches, params):
 
     n_layers = len(params["layers"])
     per_graph_rows = int(pb.n_nodes[owner]) * n_layers
+    # the two-pass path at stripe granularity: the stripe tier replays the
+    # hit stripes through spmm_abft against the stashed X
+    clean_runner = PackedRunner(folded, cfg, 128, device="cuda")
+    clean, _ = clean_runner.step_for(pb)(*clean_runner.args_for(pb))
+    for layer in (0, 1):
+        runner = PackedRunner(folded, cfg, 128, granularity="stripe",
+                              inject=(layer, stripe, 1, 50.0), device="cuda")
+        step, args = runner.step_for(pb), runner.args_for(pb)
+        _, raw = step(*args)
+        tag = f"fault two-pass stripe layer={layer}"
+        first = host(raw["abft_graph_flags"])
+        if first.tolist() != [g == owner for g in range(pb.n_slots)]:
+            raise AssertionError(f"{tag}: flags {first.tolist()}, owner "
+                                 f"{owner}")
+        got = [tuple(int(v) for v in ix)
+               for ix in np.argwhere(host(raw["abft_stripe_flags"]))]
+        if got != [(layer, stripe)]:
+            raise AssertionError(f"{tag}: abft_stripe_flags at {got}, want "
+                                 f"{[(layer, stripe)]}")
+        guard = ABFTGuard()
+        runtime.reset_counts()
+        out, metrics = guard.run_step_graphs(
+            step, runner.retry_fn(pb), *args,
+            stripe_retry_fn=runner.stripe_retry_fn(pb))
+        torch.cuda.synchronize()
+        repair_launches = runtime.launch_counts()
+        final = host(metrics["abft_graph_flags"])
+        tiers = guard.repair_tiers()
+        if final.any() or tiers["stripe"] < 1 or guard.flags != 1 or any(
+                tiers[t] for t in ("slot", "graph", "restore")):
+            raise AssertionError(f"{tag}: final flags {final.tolist()}, "
+                                 f"tiers {tiers}")
+        err = assert_close(f"{tag} repaired vs clean", out, clean,
+                           atol=REPAIR_ATOL, rtol=0.0)
+        if guard.recomputed_rows >= per_graph_rows:
+            raise AssertionError(f"{tag}: {guard.recomputed_rows} rows "
+                                 f"recomputed, per-graph retry "
+                                 f"{per_graph_rows}")
+        if repair_launches["spmm_abft"] < 1:
+            raise AssertionError(f"{tag}: the stripe tier launched "
+                                 f"{repair_launches}, no spmm_abft replay")
+        cases.append(dict(fused_layer=False, granularity="stripe",
+                          layer=layer, stripe=stripe, owner_graph=owner,
+                          flagged=first.tolist(), stripe_flags=got,
+                          repair_tiers={t: tiers[t] for t in
+                                        ("slot", "stripe", "graph")},
+                          recomputed_rows=guard.recomputed_rows,
+                          per_graph_retry_rows=per_graph_rows,
+                          repair_launches=repair_launches,
+                          final_flags=final.tolist(),
+                          repaired_bitwise=bool(torch.equal(out, clean)),
+                          repaired_max_abs_err=err))
+
     clean_runner = PackedRunner(folded, cfg, 128, fused_network=True,
                                 device="cuda")
     clean, _ = clean_runner.step_for(pb)(*clean_runner.args_for(pb))

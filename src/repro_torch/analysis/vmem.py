@@ -19,7 +19,7 @@ statistics) and the kernel wrappers (the launches), so they cannot drift.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 # Dynamic shared memory one block can use on sm_90: 227 KB of the SM's
 # 256 KB (the rest stays with L1 and the CUDA runtime).  ``--vmem-budget`` /
@@ -49,29 +49,146 @@ def _lanes(n: int, block_g: int = 128) -> int:
     return -(-n // G_QUANTUM) * G_QUANTUM
 
 
-def spmm_smem_bytes(g: int, bm: int, bk: int, *, itemsize: int = 4) -> int:
-    """Dynamic shared memory of one ``spmm_abft`` block: the accumulator
-    [bm, gp], the gathered X tile [bk, gp], the check column's accumulator
-    [bm] and tile [bk], the reduction scratch, and the S tile with one
-    padding float per row (bank-conflict-free row reads)."""
+def stripe_smem_bytes(g: int, bm: int, bk: int, *, itemsize: int = 4) -> int:
+    """The stripe working set of one ``gcn_fused`` / ``gcn_network`` block,
+    on which :func:`fused_vmem_bytes` builds: the accumulator [bm, gp], the
+    X tile [bk, gp], the check column's accumulator [bm] and tile [bk], the
+    reduction scratch, and the S tile with one padding float per row
+    (bank-conflict-free row reads).  (Until its redesign ``spmm_abft`` held
+    the same set; its ring is in :func:`spmm_plan`.)"""
     gp = _lanes(g)
     return itemsize * (bm * gp + bk * gp + bm + bk + _REDUCE_SCRATCH
                        + bm * (bk + 1))
+
+
+# spmm_abft (kernels/csrc/spmm_abft.cu): a block owns at most this many rows
+# of one stripe and at least this many k-columns of each of its slots; a
+# stripe's blocks (at most SPMM_MAX_CLUSTER: one portable thread-block
+# cluster) add their partial tiles and sums in rank order.
+SPMM_SLICE_ROWS = 128
+SPMM_PART_K = 64
+SPMM_MAX_CLUSTER = 8
+# stages of its TMA ring (fewer when a wide G would not fit); a stage holds
+# 32 k-columns of a slot (16, 8 or 4 where the block's part has no 32)
+SPMM_STAGES = 3
+# k-groups fill a block up to this many warps
+SPMM_TARGET_WARPS = 4
+# most columns a thread holds (16 where G allows it, else 8), and most
+# threads a block (128 registers a thread)
+SPMM_MAX_COLS = 16
+SPMM_MAX_THREADS = 512
+# the block's and its warps' partial sums and the stages' mbarriers, then
+# the ring from the next 1024-byte boundary (the 128-byte swizzle's atom;
+# each stage is rounded up to it too)
+SPMM_HEADER_BYTES = 256
+SPMM_ALIGN = 1024
+
+
+class SpmmPlan(NamedTuple):
+    """How ``spmm_abft`` cuts a stripe: ``slices`` x ``parts`` blocks, each
+    owning ``rows`` rows and ``kb`` k-columns of every slot, of
+    ``threads`` threads; a thread holds ``rt`` rows x ``cw`` columns
+    (``units`` of them make a k-group of ``span`` threads), the block's
+    k-columns are split over ``groups`` k-groups, and they stream through a
+    ``stages``-deep ring in chunks of ``kc`` — S box [rows, kc], X chunk
+    [kc, gp], x_r chunk [kc], rounded to 1024 bytes — in ``smem`` bytes of
+    dynamic shared memory: the header, alignment room, then ``stages``
+    chunks, which after the sweep hold the k-groups' partials and then the
+    block's partial tile."""
+    slices: int
+    parts: int
+    rows: int
+    kb: int
+    rt: int
+    cw: int
+    units: int
+    span: int
+    groups: int
+    threads: int
+    kc: int
+    stages: int
+    smem: int
+
+
+def spmm_parts(bk: int, slices: int) -> int:
+    """k-parts each slot of a ``bk``-column block is cut into: the most, up
+    to bk / SPMM_PART_K and the cluster's room beside ``slices``, that cut
+    bk into whole 4-wide k-vectors."""
+    n = min(bk // SPMM_PART_K, SPMM_MAX_CLUSTER // slices)
+    while n > 1 and bk % (4 * n):
+        n -= 1
+    return max(n, 1)
+
+
+def _spmm_tile(rows: int, gp: int, kc: int) -> Optional[tuple]:
+    """(rt, cw, units, span, groups, threads) of a block of ``rows`` rows:
+    16 columns a thread where G allows it and the block stays within
+    :data:`SPMM_MAX_THREADS`, else 8; None when no tile fits."""
+    for cw in ((16, 8) if SPMM_MAX_COLS == 16 and gp % 16 == 0 else (8,)):
+        # the most rows a thread holds while a k-group still fills 16 lanes
+        rt = next((r for r in (4, 2) if rows % r == 0
+                   and (rows // r) * (gp // cw) >= 16), 1)
+        units = (rows // rt) * (gp // cw)
+        # two k-groups share a warp when a group needs at most 16 lanes
+        span = 16 if units <= 16 else 32 * -(-units // 32)
+        groups = max(1, min(32 * SPMM_TARGET_WARPS // span, kc // 4))
+        threads = 32 * -(-groups * span // 32)
+        if threads <= SPMM_MAX_THREADS:
+            return rt, cw, units, span, groups, threads
+    return None
+
+
+def spmm_plan(g: int, bm: int, bk: int) -> Optional[SpmmPlan]:
+    """The launch plan of ``spmm_abft`` for a [bm, bk] block and G = ``g``
+    output columns (padded to :data:`G_QUANTUM`), or None when the kernel
+    does not take the shape: row slices (the fewest, from bm /
+    SPMM_SLICE_ROWS up, whose rows a block's tile covers) times k-parts,
+    one cluster a stripe.  A pure function of the block shape and G — never
+    of the stripe count — so a stripe's bits do not depend on the launch it
+    is part of.  The kernel library exports the same plan and the wrapper
+    asserts that the two agree."""
+    gp = _lanes(g)
+    if bm < 1 or bk < 4 or bk % 4:
+        return None
+    for slices in range(-(-bm // SPMM_SLICE_ROWS), SPMM_MAX_CLUSTER + 1):
+        if bm % slices:
+            continue
+        rows, parts = bm // slices, spmm_parts(bk, slices)
+        kb = bk // parts
+        kc = 32
+        while kb % kc:
+            kc //= 2
+        tile = _spmm_tile(rows, gp, kc)
+        if tile is not None:
+            break
+    else:
+        return None
+    rt, cw, units, span, groups, threads = tile
+    atom = SPMM_ALIGN // 4
+    stage = -(-(rows * kc + kc * gp + kc) // atom) * atom
+    # after the sweep: the k-groups' partials, then the block's tile
+    red = max((groups - 1) * units * (cw + 1) * rt, rows * (gp + 1))
+    for stages in range(SPMM_STAGES, 1, -1):
+        smem = SPMM_HEADER_BYTES + SPMM_ALIGN + 4 * max(stages * stage, red)
+        if smem <= FUSED_SMEM_BUDGET:
+            return SpmmPlan(slices, parts, rows, kb, rt, cw, units, span,
+                            groups, threads, kc, stages, smem)
+    return None
 
 
 def fused_vmem_bytes(f: int, g: int, bm: int, bk: int, *,
                      block_g: int = 128, itemsize: int = 4) -> int:
     """Dynamic shared memory of one ``gcn_fused`` block.
 
-    What ``spmm_abft`` holds, plus the staging of the on-the-fly
-    combination: the kernel walks the input-feature axis in
+    The stripe working set (:func:`stripe_smem_bytes`), plus the staging
+    of the on-the-fly combination: the kernel walks the input-feature axis in
     :data:`F_CHUNK` columns, so per step it holds an H chunk
     [bk, F_CHUNK + 1] and the matching W rows [F_CHUNK, gp] and w_r rows
     [F_CHUNK]; the recomputed x tile IS the [bk, gp] X-tile buffer.  ``W``
     is streamed, not resident, so the figure does not grow with ``f``.
     """
     gp = _lanes(g, block_g)
-    return spmm_smem_bytes(g, bm, bk, itemsize=itemsize) + itemsize * (
+    return stripe_smem_bytes(g, bm, bk, itemsize=itemsize) + itemsize * (
         F_CHUNK * gp + F_CHUNK + bk * (F_CHUNK + 1))
 
 

@@ -1,5 +1,5 @@
-// Building blocks shared by the block-ELL aggregation kernels
-// (spmm_abft.cu, gcn_fused.cu, gcn_network.cu).
+// Building blocks shared by the fused block-ELL aggregation kernels
+// (gcn_fused.cu, gcn_network.cu).
 //
 // One thread block owns one row-stripe of the block-ELL matrix and walks
 // the stripe's ell-slots in order.  Everything a stripe accumulates lives in

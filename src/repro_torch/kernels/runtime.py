@@ -44,11 +44,14 @@ _F = ctypes.c_float
 # to a 32-bit int.
 _SIGNATURES = {
     "spmm_abft_smem_bytes": [_I, _I, _I],
+    "spmm_abft_slice_rows": [_I, _I, _I],
+    "spmm_abft_parts": [_I, _I, _I],
+    "spmm_abft_threads": [_I, _I, _I],
+    "spmm_abft_stages": [_I, _I, _I],
     "spmm_abft_launch": [_P] * 7 + [_I] * 7 + [_F, _P],
     "gcn_fused_smem_bytes": [_I, _I, _I],
     "gcn_fused_f_chunk": [],
     "gcn_fused_supported": [_I, _I, _I],
-    "abft_block_threads": [],
     "gcn_fused_launch": [_P] * 10 + [_I] * 10 + [_F, _P],
     "gcn_network_max_layers": [],
     "gcn_network_supported": [_P, _I, _I, _I],

@@ -22,8 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.analysis.vmem import (BLOCK_THREADS, FUSED_SMEM_BUDGET,
-                                        G_QUANTUM, spmm_smem_bytes)
+from repro_torch.analysis.vmem import G_QUANTUM, SpmmPlan, spmm_plan
 
 Tensor = torch.Tensor
 Inject = Optional[Tuple[int, int, float]]
@@ -70,6 +69,24 @@ def spmm_abft_plain(block_cols: Tensor, values: Tensor, x: Tensor,
 spmm_abft_plain.calls = 0
 
 
+def _agreed_with_library(lib, what: str, plan: SpmmPlan, g: int, bm: int,
+                         bk: int) -> None:
+    """Raise unless the kernel library plans the launch as ``analysis.vmem``
+    does: the rows of a block, the k-parts of a slot, a block's threads,
+    its ring's stages and its shared memory."""
+    ours = (plan.rows, plan.parts, plan.threads, plan.stages, plan.smem)
+    theirs = (lib.spmm_abft_slice_rows(bm, bk, g),
+              lib.spmm_abft_parts(bm, bk, g),
+              lib.spmm_abft_threads(bm, bk, g),
+              lib.spmm_abft_stages(bm, bk, g),
+              lib.spmm_abft_smem_bytes(bm, bk, g))
+    if ours != theirs:
+        raise RuntimeError(f"{what}: analysis.vmem plans (block rows, "
+                           f"k-parts, threads, stages, smem bytes) = {ours} "
+                           f"for block ({bm}, {bk}) x G={g}, the library "
+                           f"{theirs}")
+
+
 def spmm_abft_kernel(block_cols: Tensor, values: Tensor, x: Tensor,
                      xr: Tensor, *, inject: Inject = None
                      ) -> Tuple[Tensor, Tensor, Tensor]:
@@ -91,22 +108,18 @@ def spmm_abft_kernel(block_cols: Tensor, values: Tensor, x: Tensor,
     nbm, width, bm, bk, k, g = _check_shapes(block_cols, values, x, xr)
     runtime.require_cuda_operands(what, cols=block_cols, vals=values, x=x,
                                   xr=xr)
-    if g % G_QUANTUM or bk % 4 or bm % 2:
+    if g % G_QUANTUM or bk % 4:
         raise ValueError(f"{what}: needs G % {G_QUANTUM} == 0 (got {g}; pad "
-                         f"through ops.py), block_k % 4 == 0 (got {bk}) and "
-                         f"an even block_m (got {bm})")
+                         f"through ops.py) and block_k % 4 == 0 (got {bk})")
+    plan = spmm_plan(g, bm, bk)
+    if plan is None:
+        raise ValueError(f"{what}: block ({bm}, {bk}) x G={g} is not a shape "
+                         f"the kernel takes (a stripe cut into at most 8 "
+                         f"blocks, a block's register tiles within 512 "
+                         f"threads and its copy ring within one block's "
+                         f"shared memory; analysis.vmem.spmm_plan)")
     lib = runtime.load_library()
-    smem = spmm_smem_bytes(g, bm, bk)
-    if smem != lib.spmm_abft_smem_bytes(bm, bk, g) \
-            or BLOCK_THREADS != lib.abft_block_threads():
-        raise RuntimeError(f"{what}: analysis.vmem models {smem} B of shared "
-                           f"memory and {BLOCK_THREADS} threads, the library "
-                           f"{lib.spmm_abft_smem_bytes(bm, bk, g)} B and "
-                           f"{lib.abft_block_threads()}")
-    if smem > FUSED_SMEM_BUDGET:
-        raise ValueError(f"{what}: block ({bm}, {bk}) x G={g} needs {smem} B "
-                         f"of shared memory, over the {FUSED_SMEM_BUDGET} B "
-                         f"one block may use")
+    _agreed_with_library(lib, what, plan, g, bm, bk)
     dev = values.device
     out = torch.empty((nbm * bm, g), dtype=torch.float32, device=dev)
     sums = torch.empty((nbm, 1), dtype=torch.float32, device=dev)

@@ -336,6 +336,46 @@ def test_cuda_kernels_match_plain_versions():
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
     assert tsk.spmm_abft_kernel.launches == n0 + 2
+    # B1's other shapes: G = 72, 128-row blocks (2 k-parts a stripe, one
+    # cluster), a one-stripe system, 16-row blocks (chunks of 16 k-columns
+    # through the 64-byte swizzle), tall blocks cut into row slices (192: 2
+    # slices x 3 k-parts, 256: 2 x 4); a second run bit for bit
+    big = _packed(block=128, feat=21)
+    bc, bv = _t(big.bell.block_cols).to(dev), _t(big.bell.values).to(dev)
+    more = {b: _packed(block=b, feat=21) for b in (16, 192, 256)}
+    dev_more = {b: (_t(p_.bell.block_cols).to(dev),
+                    _t(p_.bell.values).to(dev)) for b, p_ in more.items()}
+    for c_, v_ in ((cols, vals), (bc, bv), (bc[:1].contiguous(),
+                                            bv[:1].contiguous()),
+                   *dev_more.values()):
+        k = (int(c_.max()) + 1) * v_.shape[3]      # rows the tiles reach
+        for g in (8, 16, 72):
+            xg = _t(r.normal(size=(k, g)).astype(np.float32)).to(dev)
+            xrg = _t(r.normal(size=(k, 1)).astype(np.float32)).to(dev)
+            got = tsk.spmm_abft_kernel(c_, v_, xg, xrg, inject=(0, 0, 1.5))
+            again = tsk.spmm_abft_kernel(c_, v_, xg, xrg, inject=(0, 0, 1.5))
+            want = tsk.spmm_abft_plain(c_, v_, xg, xrg, inject=(0, 0, 1.5))
+            for a, a2, b in zip(got, again, want):
+                torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+                assert torch.equal(a, a2)
+    # the surgical repair's replay: a gathered sub-system of scattered
+    # stripes equals those stripes of the full launch bit for bit
+    from repro_torch.engine.localize import gather_stripe_system
+    for p_, c_, v_ in ((pb, cols, vals), (big, bc, bv),
+                       *((more[b], *dev_more[b]) for b in more)):
+        nbm, bm = v_.shape[0], v_.shape[2]
+        idx = sorted({0, nbm // 2, nbm - 1})
+        sub = gather_stripe_system(p_.bell, idx)
+        k = nbm * v_.shape[3]
+        xg = _t(r.normal(size=(k, 16)).astype(np.float32)).to(dev)
+        xrg = _t(r.normal(size=(k, 1)).astype(np.float32)).to(dev)
+        full = tsk.spmm_abft_kernel(c_, v_, xg, xrg)
+        part = tsk.spmm_abft_kernel(_t(sub.block_cols).to(dev),
+                                    _t(sub.values).to(dev), xg, xrg)
+        rows = torch.cat([torch.arange(i * bm, (i + 1) * bm) for i in idx])
+        assert torch.equal(part[0], full[0][rows.to(dev)])
+        assert torch.equal(part[1], full[1][torch.tensor(idx, device=dev)])
+        assert torch.equal(part[2], full[2][rows.to(dev)])
     for kw in (dict(), dict(with_check=False),
                dict(with_slots=True, inject=(2, 1, -1.0))):
         got = tfk.gcn_fused_kernel(cols, vals, h, w, wr, **kw)

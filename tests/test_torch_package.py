@@ -242,7 +242,9 @@ def test_shared_memory_model_is_one_object_everywhere():
     assert not vmem.fused_tile_supported(16, 7, 8)          # odd block_m
     assert not vmem.fused_layer_fits(16, 72, 128, 128)
     assert vmem.BLOCK_THREADS == 512 and vmem.G_QUANTUM == 8
-    assert vmem.spmm_smem_bytes(16, 128, 128) == 83_584
+    # the stripe working set the fused kernels build on (spmm_smem_bytes
+    # until spmm_abft's redesign gave it a ring of its own)
+    assert vmem.stripe_smem_bytes(16, 128, 128) == 83_584
     assert vmem._lanes(7) == vmem._lanes(7, 128) == 8
     assert vmem.network_vmem_bytes([16, 16, 7], 32, 256) > \
         vmem.network_vmem_bytes([16, 7], 32, 256)
@@ -283,6 +285,76 @@ def test_shared_memory_model_is_one_object_everywhere():
     assert vmem.matmul_thin_smem_bytes(16, 4, True) <= vmem.FUSED_SMEM_BUDGET
     assert vmem.matmul_thin_smem_bytes(1, 2, False) == \
         vmem.matmul_thin_smem_bytes(2, 2, False) - 3 * 40 * 2
+
+
+def test_spmm_ring_plan_pins():
+    """spmm_abft's launch plan: a stripe of 128 rows cut into 2 blocks of
+    64 k-columns of every slot (one cluster), a 3-stage TMA ring of 32-wide
+    chunks rounded to the 1024-byte swizzle atom, 4 x 16 register tiles at
+    G = 16 in 128-thread blocks (3 an SM), 4 x 8 at G = 8; narrower chunks
+    where a part has no 32 columns, row slices where a tall block needs
+    them; and the shapes it refuses."""
+    plan = vmem.spmm_plan(16, 128, 128)
+    assert plan == vmem.SpmmPlan(slices=1, parts=2, rows=128, kb=64, rt=4,
+                                 cw=16, units=32, span=32, groups=4,
+                                 threads=128, kc=32, stages=3, smem=59_648)
+    assert 3 * (plan.smem + 1024) <= 233_472      # 228 KB an SM
+    assert vmem.spmm_plan(8, 128, 128)[:6] == (1, 2, 128, 64, 4, 8)
+    assert vmem.spmm_plan(8, 128, 128).smem == 56_576
+    assert vmem.spmm_plan(7, 128, 128).smem == 56_576     # pads to 8
+    # block 32: one block a stripe
+    assert vmem.spmm_plan(16, 32, 32)[:6] == (1, 1, 32, 32, 2, 16)
+    assert vmem.spmm_plan(16, 32, 32).smem == 22_784
+    # wide G: more threads, 8 columns a thread where G % 16 != 0
+    wide = vmem.spmm_plan(72, 128, 128)
+    assert (wide.cw, wide.threads, wide.groups) == (8, 288, 1)
+    assert vmem.spmm_plan(144, 128, 128)[:6] == (1, 2, 128, 64, 4, 16)
+    assert vmem.spmm_plan(16, 256, 256)[:4] == (2, 4, 128, 64)
+    assert vmem.spmm_plan(16, 40, 40).kc == 8      # 40 = 5 chunks of 8
+    assert vmem.spmm_plan(16, 1024, 4)[:3] == (8, 1, 128)
+    assert vmem.spmm_plan(16, 2048, 4) is None    # 16 slices: no cluster
+    assert vmem.spmm_plan(16, 128, 6) is None     # bk % 4
+    assert vmem.spmm_plan(1024, 32, 32) is None   # the ring outgrows a block
+    assert vmem.spmm_parts(128, 1) == 2 and vmem.spmm_parts(256, 1) == 4
+    assert vmem.spmm_parts(256, 4) == 2 and vmem.spmm_parts(192, 1) == 3
+    assert vmem.spmm_parts(32, 1) == vmem.spmm_parts(12, 1) == 1
+    for g, bm, bk in ((8, 8, 8), (16, 128, 128), (72, 32, 32), (24, 16, 16),
+                      (160, 128, 128), (16, 96, 96), (16, 256, 256),
+                      (16, 40, 40)):
+        p = vmem.spmm_plan(g, bm, bk)
+        assert p.slices * p.rows == bm and p.parts * p.kb == bk
+        assert p.slices * p.parts <= vmem.SPMM_MAX_CLUSTER
+        assert p.kb % p.kc == 0 and p.kc in (4, 8, 16, 32)
+        assert p.threads % 32 == 0 and p.threads <= vmem.SPMM_MAX_THREADS
+        assert p.smem <= vmem.FUSED_SMEM_BUDGET
+        assert p.units == (p.rows // p.rt) * (vmem._lanes(g) // p.cw)
+
+
+def test_spmm_wrapper_refuses_a_library_that_plans_otherwise():
+    """The B1 wrapper holds the library's block rows, k-parts, threads,
+    stages and shared memory against ``analysis.vmem.spmm_plan``: a library
+    that cuts the stripe otherwise would give other bits than the plan says
+    (the k-parts and k-groups set the association), so it must not
+    launch."""
+    import types
+
+    def lib_with(**other):
+        def q(field):
+            if field in other:
+                return lambda bm, bk, g: other[field]
+            return lambda bm, bk, g: getattr(vmem.spmm_plan(g, bm, bk),
+                                             field)
+        return types.SimpleNamespace(
+            spmm_abft_slice_rows=q("rows"), spmm_abft_parts=q("parts"),
+            spmm_abft_threads=q("threads"), spmm_abft_stages=q("stages"),
+            spmm_abft_smem_bytes=q("smem"))
+    plan = vmem.spmm_plan(16, 128, 128)
+    spmm_kernel._agreed_with_library(lib_with(), "probe", plan, 16, 128, 128)
+    for other in (dict(rows=64), dict(parts=4), dict(threads=256),
+                  dict(stages=4), dict(smem=plan.smem + 16)):
+        with pytest.raises(RuntimeError, match="analysis.vmem plans"):
+            spmm_kernel._agreed_with_library(lib_with(**other), "probe",
+                                             plan, 16, 128, 128)
 
 
 def test_matmul_wrapper_refuses_a_library_that_splits_otherwise():

@@ -15,16 +15,14 @@ warm-up launches).  Every variant keeps the association, so its C must equal
 the base's bit for bit, which the script checks — except the ``diag_*``
 variants, which drop work to show where the time goes and compute wrong
 results.  Prints one JSON object per run and variant, then the card's name
-and power limit.
+and power limit (the harness: ``tools/_variants.py``).
 """
 from __future__ import annotations
 
-import json
 import os
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
+
+import _variants
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc",
@@ -207,75 +205,22 @@ int main(int argc, char** argv) {
 """
 
 
-def variant_source(name: str) -> str:
-    text = Path(SOURCE).read_text()
-    for old, new in VARIANTS[name]:
-        if old not in text:
-            raise SystemExit(f"{name}: text to replace not found:\n{old}")
-        text = text.replace(old, new, 1)
-    shapes = ", ".join("{%d, %d, %d}" % s for s in SHAPES)
-    return text + MAIN.replace("SHAPES", shapes)
-
-
-def build(name: str) -> dict:
-    src = os.path.join(OUT, name + ".cu")
-    exe = os.path.join(OUT, name)
-    Path(src).write_text(variant_source(name))
-    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    done = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                           "-std=c++17", "-O3", "-Xptxas", "-v", "-o", exe,
-                           src], stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    if done.returncode != 0:
-        raise SystemExit(f"{name}: nvcc failed\n{done.stdout}")
-    # registers of the f32, B (not B^T) instance
+def parse_registers(log: str):
+    """Registers of the f32, B (not B^T) instance."""
     regs, entry = None, False
-    for line in done.stdout.splitlines():
+    for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = "wide_kernelIfLi" in line and "ELb0E" in line
         elif entry and "Used" in line:
             regs = int(line.split("Used")[1].split()[0])
             entry = False
-    return dict(variant=name, registers=regs)
+    return regs
 
 
 def main() -> int:
-    names = sys.argv[1:] or list(VARIANTS)
-    if "base" not in names:
-        names = ["base"] + names
-    os.makedirs(OUT, exist_ok=True)
-    with ThreadPoolExecutor(len(names)) as pool:
-        regs = {r["variant"]: r["registers"]
-                for r in pool.map(build, names)}
-    for run in (1, 2):
-        for name in names:
-            out = subprocess.run([os.path.join(OUT, name),
-                                  os.path.join(OUT, "c_" + name)],
-                                 stdout=subprocess.PIPE, text=True,
-                                 check=True).stdout
-            times = {}
-            for line in out.split("\n"):
-                if line.strip():
-                    m, k, n, ms, err = line.split()
-                    if int(err):
-                        raise SystemExit(f"{name}: CUDA error {err}")
-                    times[f"{m}x{k}x{n}"] = float(ms)
-            same = None
-            if not name.startswith("diag_"):
-                same = all(
-                    Path(OUT, f"c_{name}_{m}_{k}_{n}.bin").read_bytes() ==
-                    Path(OUT, f"c_base_{m}_{k}_{n}.bin").read_bytes()
-                    for m, k, n in SHAPES)
-                if not same:
-                    raise SystemExit(f"{name}: C differs from the base's")
-            print(json.dumps(dict(run=run, variant=name,
-                                  registers=regs[name], ms=times,
-                                  c_equals_base=same)), flush=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], stdout=subprocess.PIPE,
-                         text=True).stdout.strip())
-    return 0
+    return _variants.run(sys.argv[1:], source=SOURCE, variants=VARIANTS,
+                         main=MAIN, shapes=SHAPES, out=OUT,
+                         parse_registers=parse_registers)
 
 
 if __name__ == "__main__":
