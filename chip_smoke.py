@@ -97,6 +97,21 @@ def time_ms(fn, warm: int = 2, reps: int = 10) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def host_ms(fn, reps: int = 50) -> float:
+    """Mean host milliseconds of one call of ``fn()``: the Python and CUDA
+    launch work that dispatches it, with no synchronise inside the window
+    (the launch queue takes the kernels)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
+
+
 def device_ms(fn, reps: int = 10, cold: bool = False) -> float:
     """Mean device milliseconds of ``fn()`` replayed from a CUDA graph, so
     no host dispatch sits between the launches.  ``cold``: the 50 MB L2
@@ -1367,25 +1382,47 @@ def flash_bound(torch, b, t, s, h, kh, dh, dtype):
         n_bytes, n_ops
 
 
+def sdpa_ms(torch, q, k, v, backends):
+    """Milliseconds of one causal ``scaled_dot_product_attention`` call on
+    the first of ``backends`` (``SDPBackend`` names) that takes the operands
+    (q, k, v in its [B, H, T, d] layout), timed as every kernel is — the
+    yardstick only; nothing in the port calls it.  Returns (ms, backend) or
+    (None, why each backend refused)."""
+    import torch.nn.functional as F
+    refused = []
+    for name in backends:
+        try:
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                F.scaled_dot_product_attention(q, k, v, is_causal=True)
+                torch.cuda.synchronize()
+                return time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True)), name
+        except Exception as exc:  # the backend refuses these operands
+            why = str(exc).splitlines()[0][:160] if str(exc) else ""
+            refused.append(f"{name}: {type(exc).__name__}: {why}")
+    return None, "; ".join(refused)
+
+
 def sdpa_library_ms(torch, q, k, v, vr):
-    """One ``scaled_dot_product_attention`` call computing o and o_extra
-    together (vr as an extra value column) — the yardstick only; nothing in
-    the port calls it.  Returns (ms | None, note)."""
-    try:
-        import torch.nn.functional as F
-        h = q.shape[2]
-        g = h // k.shape[2]
-        qt = q.transpose(1, 2).contiguous()
-        kt = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
-        vv = torch.cat([v.repeat_interleave(g, dim=2), vr[..., None]],
-                       dim=-1).transpose(1, 2).contiguous()
-        F.scaled_dot_product_attention(qt, kt, vv, is_causal=True)
-        torch.cuda.synchronize()
-        return time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vv, is_causal=True), reps=5), \
-            "F.scaled_dot_product_attention(q, k, [v | vr], is_causal=True)"
-    except Exception as exc:  # the yardstick may not exist in this build
-        return None, f"SDPA unavailable: {type(exc).__name__}: {exc}"
+    """SDPA yardsticks of a ``flash_checksum`` launch: o and o_extra
+    together (vr as an extra value column, 257 wide at dh 256) on the
+    memory-efficient backend, else the math one; and o alone (v, dh wide)
+    on the memory-efficient backend.  Returns a dict of both times and the
+    backend that served each (or why none did)."""
+    h = q.shape[2]
+    g = h // k.shape[2]
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(g, dim=2)
+    vv = torch.cat([vt, vr[..., None]], dim=-1).transpose(1, 2).contiguous()
+    ms, backend = sdpa_ms(torch, qt, kt, vv, ("EFFICIENT_ATTENTION", "MATH"))
+    o_ms, o_backend = sdpa_ms(torch, qt, kt, vt.transpose(1, 2).contiguous(),
+                              ("EFFICIENT_ATTENTION",))
+    return dict(library_ms=ms, library_backend=backend,
+                library_note="F.scaled_dot_product_attention(q, k, [v | vr], "
+                             "is_causal=True)",
+                library_o_only_ms=o_ms, library_o_only_backend=o_backend)
 
 
 def check_flash_shape(torch, b, t, s, h, kh, dh, dtype, gen, timed):
@@ -1419,6 +1456,9 @@ def check_flash_shape(torch, b, t, s, h, kh, dh, dtype, gen, timed):
     o_bare, ex_bare = flash_checksum_kernel(q, k, v, None)
     if ex_bare is not None or not torch.equal(o_bare, got[0]):
         raise AssertionError(f"{tag}: o without the carried column differs")
+    again = flash_checksum_kernel(q, k, v, vr)
+    if not all(torch.equal(x, y) for x, y in zip(again, got)):
+        raise AssertionError(f"{tag}: a second run differs")
     o, ex = got
     wo_t = wo.to(dtype)
     out, _ = matmul_abft(o.reshape(b * t, h * dh), wo_t, with_check=False)
@@ -1439,17 +1479,23 @@ def check_flash_shape(torch, b, t, s, h, kh, dh, dtype, gen, timed):
                              f"only {div}")
     entry = dict(b=b, t=t, s=s, h=h, kh=kh, dh=dh, dtype=str(dtype),
                  max_abs_err=worst, max_rel_corner=rel,
-                 corrupted_divergence=div)
+                 corrupted_divergence=div, repeat_bitwise=True)
     if timed:
         bound, by, n_bytes, n_ops = flash_bound(torch, b, t, s, h, kh, dh,
                                                 dtype)
-        lib_ms, lib_note = sdpa_library_ms(torch, q, k, v, vr)
+
+        def kern():
+            return flash_checksum_kernel(q, k, v, vr)
+        # one yardstick with B1's: 10 launches after 2 warm-up ones, 50, and
+        # the device's own time from a CUDA graph; and the wrapper's host
+        # dispatch, which bounds the eager times from below
         entry.update(
-            ms=time_ms(lambda: flash_checksum_kernel(q, k, v, vr), reps=5),
+            ms=time_ms(kern), ms_50=time_ms(kern, reps=50),
+            device_ms=device_ms(kern), host_dispatch_ms=host_ms(kern),
             plain_ms=time_ms(lambda: flash_checksum_plain(q, k, v, vr),
                              warm=1, reps=2),
-            library_ms=lib_ms, library_note=lib_note,
-            bound_ms=bound, bound_by=by, bytes=n_bytes, flops=n_ops)
+            bound_ms=bound, bound_by=by, bytes=n_bytes, flops=n_ops,
+            **sdpa_library_ms(torch, q, k, v, vr))
     return entry
 
 
@@ -1457,7 +1503,8 @@ def phase_lm_kernels(torch):
     """Hold matmul_abft and flash_checksum against their plain versions at
     every launch shape of the LM run, in float32 (timed) and bfloat16, plus
     ragged and GQA shapes; returns the two kernels-line entries."""
-    from repro_torch.analysis.vmem import flash_smem_bytes
+    from repro_torch.analysis.vmem import (flash_blocks_per_sm,
+                                           flash_smem_bytes)
     from repro_torch.kernels import runtime
     cfg = lm_config()
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1491,7 +1538,7 @@ def phase_lm_kernels(torch):
                                      torch.bfloat16, gen, False)] + [
         check_flash_shape(torch, *shape, dt, gen, False)
         for shape in ((1, 100, 100, 4, 2, 64), (2, 128, 256, 4, 2, 64),
-                      (1, 70, 70, 4, 4, 16))
+                      (1, 70, 70, 4, 4, 16), (1, 33, 50, 2, 2, 70))
         for dt in (torch.float32, torch.bfloat16)]
 
     def step_ms(key, step):
@@ -1510,6 +1557,8 @@ def phase_lm_kernels(torch):
                   if "thin_split" in name or "thin_reduce" in name}
     wide_ptxas = {name: v for name, v in ptxas.items()
                   if "wide_kernel" in name}
+    flash_ptxas = {name: v for name, v in ptxas.items()
+                   if "flash_checksum_kernel" in name}
     # each prefill product's share of the prefill's B4 time
     prefill = [dict(m=e["m"], k=e["k"], n=e["n"], items=e["items"],
                     launches=e["launches_per_step"]["prefill"], ms=e["ms"],
@@ -1540,14 +1589,25 @@ def phase_lm_kernels(torch):
             bound_by=flash_main["bound_by"],
             library_ms=flash_main["library_ms"],
             library_note=flash_main["library_note"],
+            library_backend=flash_main["library_backend"],
+            library_o_only_ms=flash_main["library_o_only_ms"],
+            ms_50=flash_main["ms_50"], device_ms=flash_main["device_ms"],
+            host_dispatch_ms=flash_main["host_dispatch_ms"],
+            per_prefill_ms=cfg.n_layers * flash_main["ms"],
             smem_bytes=flash_smem_bytes(dh),
+            blocks_per_sm=flash_blocks_per_sm(dh),
             shape=dict(b=b, t=t, s=t, h=h, kh=kh, dh=dh))}
     emit("lm_kernels", tolerance=dict(f32=OUT_ATOL, bf16=BF16_TOL,
                                       corner_rtol=CORNER_RTOL),
          matmul_f32=per_shape, matmul_bf16=bf16, matmul_ragged=ragged,
          flash_f32=flash_main, flash_other=flash_other, per_step=per_step,
          prefill_shapes=prefill, thin_ptxas=thin_ptxas,
-         wide_ptxas=wide_ptxas, kernels=list(entries.values()))
+         wide_ptxas=wide_ptxas, flash_ptxas=flash_ptxas,
+         kernels=list(entries.values()))
+    spills = {name: v for name, v in flash_ptxas.items()
+              if v.get("spill_stores") and "Li256E" in name}
+    if spills:
+        raise AssertionError(f"flash_checksum spills at dh 256: {spills}")
     return entries
 
 

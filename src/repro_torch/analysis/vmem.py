@@ -360,20 +360,59 @@ def matmul_thin_smem_bytes(m: int, itemsize: int, trans_b: bool) -> int:
     return MATMUL_STAGES * ((b + a) * itemsize + 4 * MATMUL_BLOCK_K)
 
 
-# flash_checksum: 64 query rows per block, key blocks of 32, head_dim up to
-# 256.  The TPU kernel's 128 x 128 blocks do not fit: at dh = 256 in f32 a
-# 128-row q tile alone is 128 KB of the 227 KB a block may use.
-FLASH_BLOCK_Q = 64
+# flash_checksum: a block of 128 threads owns 32 query rows of one (batch,
+# head) and walks its part of their key blocks of 32 in order; the head dim
+# is a compile-time tile of 64, 128 or 256 (columns past dh are zero).
+# 105,216 B at dh = 256 in f32: two blocks an SM.  (The TPU kernel's 128 x 128 blocks do not fit: at dh = 256
+# in f32 a 128-row q tile alone is 128 KB of the 227 KB a block may use.)
+FLASH_BLOCK_Q = 32
 FLASH_BLOCK_K = 32
+FLASH_THREADS = 128
 FLASH_MAX_DH = 256
+# a query tile's key blocks are split into FLASH_PARTS parts, one block of a
+# cluster each, folded in part order (the longest block of gemma-2b's
+# prefill walks 8 key blocks, not 16)
+FLASH_PARTS = 2
+# shared memory of one SM on sm_90 (228 KB), the 1 KB each resident block
+# reserves included
+SM_SMEM_BYTES = 233_472
+
+
+def flash_head_tile(dh: int) -> int:
+    """The kernel's compile-time head-dim tile for ``dh`` (the library's
+    ``flash_checksum_head_tile``)."""
+    return next(w for w in (64, 128, 256) if dh <= w)
+
+
+def flash_key_blocks(qt: int, s: int, causal: bool = True) -> int:
+    """Key blocks that query tile ``qt`` walks over ``s`` keys (those
+    wholly above its diagonal skipped under the causal mask)."""
+    last = min(s, (qt + 1) * FLASH_BLOCK_Q) if causal else s
+    return -(-last // FLASH_BLOCK_K)
+
+
+def flash_part_start(qt: int, s: int, causal: bool, p: int) -> int:
+    """First key block of part ``p`` of query tile ``qt`` (``p`` =
+    FLASH_PARTS: the end): the parts split the tile's key blocks evenly,
+    the earlier parts taking the extra ones (the library's
+    ``flash_checksum_part_start``)."""
+    return -(-(p * flash_key_blocks(qt, s, causal)) // FLASH_PARTS)
 
 
 def flash_smem_bytes(dh: int, *, itemsize: int = 4) -> int:
     """Dynamic shared memory of one ``flash_checksum`` block: the q tile
-    [64, dh + 1] and the k tile [32, dh + 1] (one padding float per row:
-    conflict-free score reads), the v tile [32, dh], the probabilities
-    [64, 33], the carried column's key block [32] and one float per query
-    row (the rescale factor, then the final sum).  140,288 B at dh = 256."""
-    bq, bk = FLASH_BLOCK_Q, FLASH_BLOCK_K
-    return itemsize * (bq * (dh + 1) + bk * (dh + 1) + bk * dh
-                       + bq * (bk + 1) + bk + bq)
+    [32, w + pad] and the k tile [32, w + pad] (w the head tile, pad 32
+    bytes a row: conflict-free 16-byte score reads) and the v tile [32, w],
+    in the operands' dtype; then f32: p transposed [32, 32 + 4], the
+    carried column's key block [32] and one float per query row (the
+    rescale factor, then the final sum).  105,216 B at dh = 256 in f32
+    (the library's ``flash_checksum_smem_bytes`` states the f32 figure)."""
+    w, bq, bk = flash_head_tile(dh), FLASH_BLOCK_Q, FLASH_BLOCK_K
+    return (bq + bk) * (w * itemsize + 32) + bk * w * itemsize \
+        + 4 * (bk * (bq + 4) + bk + bq)
+
+
+def flash_blocks_per_sm(dh: int, *, itemsize: int = 4) -> int:
+    """Blocks of ``flash_checksum`` that one SM's shared memory holds (each
+    also takes the 1 KB the card reserves a block)."""
+    return SM_SMEM_BYTES // (flash_smem_bytes(dh, itemsize=itemsize) + 1024)

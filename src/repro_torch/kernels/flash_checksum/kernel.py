@@ -20,8 +20,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.analysis.vmem import (FLASH_BLOCK_K, FLASH_MAX_DH,
-                                        FUSED_SMEM_BUDGET, flash_smem_bytes)
+from repro_torch.analysis.vmem import (FLASH_BLOCK_K, FLASH_BLOCK_Q,
+                                        FLASH_MAX_DH, FLASH_PARTS,
+                                        FUSED_SMEM_BUDGET, flash_head_tile,
+                                        flash_part_start, flash_smem_bytes)
 
 Tensor = torch.Tensor
 DTYPES = (torch.float32, torch.bfloat16)
@@ -51,12 +53,16 @@ def _check_shapes(q: Tensor, k: Tensor, v: Tensor, vr: Optional[Tensor]):
 def flash_checksum_plain(q: Tensor, k: Tensor, v: Tensor,
                          vr: Optional[Tensor] = None, *, causal: bool = True
                          ) -> Tuple[Tensor, Optional[Tensor]]:
-    """Plain PyTorch version of :func:`flash_checksum_kernel`: the same
-    online softmax over key blocks of the kernel's width, in order, with
-    p cast to v's dtype before both products and ``acc * corr + p @ v``
-    associated as the kernel does.  A key block that lies wholly above a
-    query row's diagonal changes nothing (p = 0, corr = 1), so processing
-    it equals the kernel's skip."""
+    """Plain PyTorch version of :func:`flash_checksum_kernel`, in the
+    kernel's association: each query tile's key blocks (of the kernel's
+    width) are cut into the kernel's parts (``analysis.vmem``
+    ``flash_part_start``); each part runs the online softmax over its
+    blocks in order, with p cast to v's dtype before both products and
+    ``acc * corr + p @ v``; then the parts are folded in part order,
+    ``m = max(m, m_p)``, ``acc = acc * e^(m_old - m) + acc_p * e^(m_p - m)``
+    and l and ex alike.  A key block that lies wholly above a query row's
+    diagonal, or in another part, changes nothing (p = 0, corr = 1), so
+    processing it equals the kernel's skip."""
     flash_checksum_plain.calls += 1
     b, t, h, dh, s, kh = _check_shapes(q, k, v, vr)
     g = h // kh
@@ -66,29 +72,49 @@ def flash_checksum_plain(q: Tensor, k: Tensor, v: Tensor,
     qf = q.to(f32)
     ke = k.repeat_interleave(g, dim=2).to(f32)
     ve = v.repeat_interleave(g, dim=2)
-    m = torch.full((b, t, h), NEG, dtype=f32, device=dev)
-    l = torch.zeros((b, t, h), dtype=f32, device=dev)
-    acc = torch.zeros((b, t, h, dh), dtype=f32, device=dev)
-    ex = torch.zeros((b, t, h), dtype=f32, device=dev)
     qpos = torch.arange(t, device=dev)[:, None]
-    for k0 in range(0, s, FLASH_BLOCK_K):
+    # [t, parts + 1]: the key blocks of each row's parts
+    n_qt = -(-t // FLASH_BLOCK_Q)
+    starts = torch.tensor([[flash_part_start(i, s, causal, p)
+                            for p in range(FLASH_PARTS + 1)]
+                           for i in range(n_qt)], device=dev)
+    starts = starts[torch.arange(t, device=dev) // FLASH_BLOCK_Q]
+    parts = [dict(m=torch.full((b, t, h), NEG, dtype=f32, device=dev),
+                  l=torch.zeros((b, t, h), dtype=f32, device=dev),
+                  acc=torch.zeros((b, t, h, dh), dtype=f32, device=dev),
+                  ex=torch.zeros((b, t, h), dtype=f32, device=dev))
+             for _ in range(FLASH_PARTS)]
+    for kb, k0 in enumerate(range(0, s, FLASH_BLOCK_K)):
         k1 = min(k0 + FLASH_BLOCK_K, s)
         sc = torch.einsum("bthd,bchd->bthc", qf, ke[:, k0:k1]) * scale
         kpos = torch.arange(k0, k1, device=dev)[None, :]
         valid = (kpos <= qpos) if causal else torch.ones_like(kpos <= qpos)
-        valid = valid[None, :, None, :]
-        sc = torch.where(valid, sc, torch.full_like(sc, NEG))
-        m_new = torch.maximum(m, sc.amax(dim=-1))
-        p = torch.where(valid, torch.exp(sc - m_new[..., None]),
-                        torch.zeros_like(sc))
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        pr = p.to(v.dtype).to(f32)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bthc,bchd->bthd", pr, ve[:, k0:k1].to(f32))
-        if vr is not None:
-            ex = ex * corr + torch.einsum("bthc,bch->bth", pr,
-                                          vr[:, k0:k1].to(f32))
+        vb = ve[:, k0:k1].to(f32)
+        for p, st in enumerate(parts):
+            mine = (starts[:, p] <= kb) & (kb < starts[:, p + 1])
+            if not bool(mine.any()):
+                continue
+            ok = (valid & mine[:, None])[None, :, None, :]
+            sp = torch.where(ok, sc, torch.full_like(sc, NEG))
+            m_new = torch.maximum(st["m"], sp.amax(dim=-1))
+            pp = torch.where(ok, torch.exp(sp - m_new[..., None]),
+                             torch.zeros_like(sp))
+            corr = torch.exp(st["m"] - m_new)
+            st["l"] = st["l"] * corr + pp.sum(dim=-1)
+            pr = pp.to(v.dtype).to(f32)
+            st["acc"] = st["acc"] * corr[..., None] + torch.einsum(
+                "bthc,bchd->bthd", pr, vb)
+            if vr is not None:
+                st["ex"] = st["ex"] * corr + torch.einsum(
+                    "bthc,bch->bth", pr, vr[:, k0:k1].to(f32))
+            st["m"] = m_new
+    m, l, acc, ex = (parts[0][x] for x in ("m", "l", "acc", "ex"))
+    for st in parts[1:]:
+        m_new = torch.maximum(m, st["m"])
+        c0, cp = torch.exp(m - m_new), torch.exp(st["m"] - m_new)
+        l = l * c0 + st["l"] * cp
+        ex = ex * c0 + st["ex"] * cp
+        acc = acc * c0[..., None] + st["acc"] * cp[..., None]
         m = m_new
     lsafe = torch.clamp(l, min=1e-30)
     o = (acc / lsafe[..., None]).to(q.dtype)
@@ -96,6 +122,34 @@ def flash_checksum_plain(q: Tensor, k: Tensor, v: Tensor,
 
 
 flash_checksum_plain.calls = 0
+
+
+def _agreed_with_library(lib, what: str, dh: int, t: int = 1, s: int = 1,
+                         causal: bool = True) -> None:
+    """Hold the library's head-dim limit, cut (query rows a block, keys a
+    step and key parts — the plain version's —, the head-dim tile, the
+    parts of the first and last query tiles of a launch over ``t`` queries
+    and ``s`` keys) and shared memory against ``analysis.vmem``; raise on
+    any difference."""
+    if dh > FLASH_MAX_DH or FLASH_MAX_DH != lib.flash_checksum_max_dh():
+        raise ValueError(f"{what}: head_dim {dh} over the kernel's "
+                         f"{lib.flash_checksum_max_dh()} (analysis.vmem "
+                         f"models {FLASH_MAX_DH})")
+    smem = flash_smem_bytes(dh)
+    tiles = sorted({0, (t - 1) // FLASH_BLOCK_Q})
+    cut = (FLASH_BLOCK_Q, FLASH_BLOCK_K, FLASH_PARTS, flash_head_tile(dh),
+           [flash_part_start(i, s, causal, p) for i in tiles
+            for p in range(FLASH_PARTS + 1)])
+    lib_cut = (lib.flash_checksum_block_q(), lib.flash_checksum_block_k(),
+               lib.flash_checksum_parts(), lib.flash_checksum_head_tile(dh),
+               [lib.flash_checksum_part_start(i, s, int(causal), p)
+                for i in tiles for p in range(lib.flash_checksum_parts() + 1)])
+    lib_smem = lib.flash_checksum_smem_bytes(dh)
+    if smem != lib_smem or smem > FUSED_SMEM_BUDGET or cut != lib_cut:
+        raise RuntimeError(f"{what}: analysis.vmem models {smem} B of shared "
+                           f"memory and (query rows, keys, parts, head tile, "
+                           f"part starts) {cut}, the library {lib_smem} B "
+                           f"and {lib_cut} (budget {FUSED_SMEM_BUDGET} B)")
 
 
 def flash_checksum_kernel(q: Tensor, k: Tensor, v: Tensor,
@@ -117,16 +171,7 @@ def flash_checksum_kernel(q: Tensor, k: Tensor, v: Tensor,
     ops = dict(q=q, k=k, v=v) if vr is None else dict(q=q, k=k, v=v, vr=vr)
     runtime.require_cuda_operands(what, allow=DTYPES, **ops)
     lib = runtime.load_library()
-    smem = flash_smem_bytes(dh)
-    if dh > FLASH_MAX_DH or FLASH_MAX_DH != lib.flash_checksum_max_dh():
-        raise ValueError(f"{what}: head_dim {dh} over the kernel's "
-                         f"{lib.flash_checksum_max_dh()} (analysis.vmem "
-                         f"models {FLASH_MAX_DH})")
-    if smem != lib.flash_checksum_smem_bytes(dh) or smem > FUSED_SMEM_BUDGET:
-        raise RuntimeError(f"{what}: analysis.vmem models {smem} B of shared "
-                           f"memory, the library "
-                           f"{lib.flash_checksum_smem_bytes(dh)} B (budget "
-                           f"{FUSED_SMEM_BUDGET} B)")
+    _agreed_with_library(lib, what, dh, t, s, causal)
     dev = q.device
     o = torch.empty_like(q)
     o_extra = None if vr is None else torch.empty((b, t, h),

@@ -68,6 +68,11 @@ _SIGNATURES = {
     "matmul_abft_launch": [_P] * 7 + [_I] * 5 + [_P],
     "flash_checksum_smem_bytes": [_I],
     "flash_checksum_max_dh": [],
+    "flash_checksum_block_q": [],
+    "flash_checksum_block_k": [],
+    "flash_checksum_head_tile": [_I],
+    "flash_checksum_parts": [],
+    "flash_checksum_part_start": [_I, _I, _I, _I],
     "flash_checksum_launch": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
 }
 

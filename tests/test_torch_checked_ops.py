@@ -233,6 +233,7 @@ def test_matmul_abft_kernel_op_conforms():
     (2, 4, 2, 128, 256, 64),     # GQA, T < S
     (1, 4, 1, 128, 128, 32),     # MQA
     (1, 2, 2, 100, 128, 64),     # q padding path on the JAX side
+    (1, 2, 1, 160, 160, 32),     # a query tile of 5 key blocks: parts 3 + 2
 ])
 @pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
 def test_flash_checksum_matches_the_jax_op(b, h, kh, t, s, dh, dtypes):
@@ -440,14 +441,30 @@ def test_cuda_checked_op_kernels_match_plain_versions(dtype):
         assert all(torch.equal(g, h) for g, h in zip(got, again))
         assert torch.equal(tmk.matmul_abft_kernel(a, b, None,
                                                   trans_b=trans)[0], got[0])
-    q = _t(_np(1, (2, 100, 4, 64)), dtype).to(dev)
-    kk, v = (_t(_np(s, (2, 100, 2, 64)), dtype).to(dev) for s in (2, 3))
-    vr = _t(_np(4, (2, 100, 4)), dtype).to(dev)
-    got = tfk.flash_checksum_kernel(q, kk, v, vr)
-    want = tfk.flash_checksum_plain(q, kk, v, vr)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g.float(), w.float(), atol=2 * tol,
-                                   rtol=2 * tol)
-    assert torch.equal(tfk.flash_checksum_kernel(q, kk, v, None)[0], got[0])
+    # flash: GQA, gemma-2b's served prefill (MQA, dh 256), T < S, ragged T
+    # with a narrow dh, and a dh whose rows are not whole 16-byte pieces
+    flash_shapes = [(2, 100, 100, 4, 2, 64), (2, 512, 512, 8, 1, 256),
+                    (2, 128, 256, 4, 2, 64), (1, 70, 70, 4, 4, 16),
+                    (1, 33, 50, 2, 2, 70)]
+    for b, t, s, h, kh, dh in flash_shapes:
+        q = _t(_np(1, (b, t, h, dh)), dtype).to(dev)
+        kk, v = (_t(_np(x, (b, s, kh, dh)), dtype).to(dev) for x in (2, 3))
+        vr = _t(_np(4, (b, s, h)), dtype).to(dev)
+        got = tfk.flash_checksum_kernel(q, kk, v, vr)
+        want = tfk.flash_checksum_plain(q, kk, v, vr)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.float(), w.float(), atol=2 * tol,
+                                       rtol=2 * tol)
+        assert torch.equal(tfk.flash_checksum_kernel(q, kk, v, None)[0],
+                           got[0])
+        again = tfk.flash_checksum_kernel(q, kk, v, vr)
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
     assert runtime.launch_counts()["matmul_abft"] == 3 * len(shapes)
-    assert runtime.launch_counts()["flash_checksum"] == 2
+    assert runtime.launch_counts()["flash_checksum"] == 3 * len(flash_shapes)
+    # the library's cut is the one analysis.vmem models
+    lib = runtime.load_library()
+    assert (lib.flash_checksum_block_q(), lib.flash_checksum_block_k()) == \
+        (vmem.FLASH_BLOCK_Q, vmem.FLASH_BLOCK_K)
+    for dh in (16, 64, 70, 128, 256):
+        assert lib.flash_checksum_head_tile(dh) == vmem.flash_head_tile(dh)
+        assert lib.flash_checksum_smem_bytes(dh) == vmem.flash_smem_bytes(dh)

@@ -260,8 +260,9 @@ def test_shared_memory_model_is_one_object_everywhere():
     assert vmem.fused_network_fits(deep[:-1], 32, 256)
     assert not vmem.fused_network_fits(deep, 32, 256)
     # the checked-op kernels: the launcher's figures, stated here too
-    assert vmem.flash_smem_bytes(256) == 140_288
+    assert vmem.flash_smem_bytes(256) == 105_216
     assert vmem.flash_smem_bytes(256) <= vmem.FUSED_SMEM_BUDGET
+    assert 2 * (vmem.flash_smem_bytes(256) + 1024) <= vmem.SM_SMEM_BYTES
     # M <= 16: the thin split-K path's sum tile, 64 columns over all 16
     # rows; M > 16: 64 x 128, each half of the 128 x 128 tile one block owns
     assert vmem.matmul_tile(2) == (16, 64) and vmem.matmul_tile(1024) == \
@@ -401,6 +402,79 @@ def test_matmul_wrapper_refuses_a_library_that_splits_otherwise():
             with pytest.raises(RuntimeError, match="wide"):
                 mm_kernel._agreed_with_library(other, "probe", 1024, 2048,
                                                16384, wide, False)
+
+
+def test_flash_cut_pins():
+    """flash_checksum's cut: 32 query rows a block of 128 threads, key
+    blocks of 32 (the plain version's) split into 2 parts a query tile (one
+    cluster of 2 blocks), the head dim in a compile-time tile of 64, 128 or
+    256; 105,216 B of shared memory at dh 256 in f32 — two blocks an SM;
+    bfloat16 tiles take half the q, k and v bytes."""
+    assert (vmem.FLASH_BLOCK_Q, vmem.FLASH_BLOCK_K, vmem.FLASH_THREADS,
+            vmem.FLASH_MAX_DH) == (32, 32, 128, 256)
+    assert [vmem.flash_head_tile(d) for d in (1, 16, 64, 65, 70, 128, 129,
+                                              256)] == \
+        [64, 64, 64, 128, 128, 128, 256, 256]
+    assert vmem.flash_smem_bytes(256) == 105_216
+    assert vmem.flash_smem_bytes(256, itemsize=2) == 56_064
+    assert vmem.flash_smem_bytes(64) == vmem.flash_smem_bytes(16) == 31_488
+    assert vmem.flash_smem_bytes(70) == vmem.flash_smem_bytes(128) == 56_064
+    assert vmem.flash_blocks_per_sm(256) == 2
+    assert vmem.flash_blocks_per_sm(256, itemsize=2) == 4
+    # the key parts: query tile qt of gemma-2b's prefill (T = S = 512)
+    # walks qt + 1 key blocks, cut into 2 parts, the first taking the odd
+    # one; the longest part is 8 key blocks, not 16
+    assert vmem.FLASH_PARTS == 2
+    assert [vmem.flash_key_blocks(i, 512) for i in (0, 1, 7, 15)] == \
+        [1, 2, 8, 16]
+    assert [vmem.flash_part_start(15, 512, True, p) for p in (0, 1, 2)] == \
+        [0, 8, 16]
+    assert [vmem.flash_part_start(0, 512, True, p) for p in (0, 1, 2)] == \
+        [0, 1, 1]
+    assert [vmem.flash_part_start(2, 512, True, p) for p in (0, 1, 2)] == \
+        [0, 2, 3]
+    # T < S, and no mask: every tile walks every key block
+    assert vmem.flash_key_blocks(3, 256) == 4
+    assert vmem.flash_key_blocks(0, 100, causal=False) == 4
+    assert vmem.flash_part_start(0, 100, False, 1) == 2
+    blocks = vmem.FLASH_PARTS * 2 * 8 * -(-512 // vmem.FLASH_BLOCK_Q)
+    steps = 2 * 8 * sum(vmem.flash_key_blocks(i, 512) for i in range(16))
+    assert (blocks, steps) == (512, 2176)
+    assert max(vmem.flash_part_start(i, 512, True, p + 1)
+               - vmem.flash_part_start(i, 512, True, p)
+               for i in range(16) for p in range(2)) == 8
+
+
+def test_flash_wrapper_refuses_a_library_that_cuts_otherwise():
+    """The B5 wrapper holds the library's cut and shared memory against
+    ``analysis.vmem``: the plain version's key blocks follow vmem, so a
+    library that steps through keys otherwise must not launch, nor one
+    that asks for other bytes or another head tile."""
+    import types
+
+    def lib_with(**other):
+        fields = dict(max_dh=lambda: vmem.FLASH_MAX_DH,
+                      block_q=lambda: vmem.FLASH_BLOCK_Q,
+                      block_k=lambda: vmem.FLASH_BLOCK_K,
+                      parts=lambda: vmem.FLASH_PARTS,
+                      head_tile=vmem.flash_head_tile,
+                      part_start=lambda i, s, c, p: vmem.flash_part_start(
+                          i, s, bool(c), p),
+                      smem_bytes=vmem.flash_smem_bytes)
+        fields.update(other)
+        return types.SimpleNamespace(**{f"flash_checksum_{k}": f
+                                        for k, f in fields.items()})
+    for dh in (16, 64, 70, 256):
+        flash_kernel._agreed_with_library(lib_with(), "probe", dh, 512, 512)
+    for other in (dict(block_q=lambda: 64), dict(block_k=lambda: 64),
+                  dict(parts=lambda: 1), dict(head_tile=lambda dh: 128),
+                  dict(part_start=lambda i, s, c, p: p * (i + 1)),
+                  dict(smem_bytes=lambda dh: vmem.flash_smem_bytes(dh) + 16)):
+        with pytest.raises(RuntimeError, match="analysis.vmem models"):
+            flash_kernel._agreed_with_library(lib_with(**other), "probe",
+                                              256, 512, 512)
+    with pytest.raises(ValueError, match="head_dim 257"):
+        flash_kernel._agreed_with_library(lib_with(), "probe", 257)
 
 
 def test_checked_op_wrappers_refuse_what_the_kernels_do_not_take():

@@ -13,22 +13,18 @@ layer 0 (G 16) and layer 1 (G 8).  For each root and layer: ``ms`` as
 warm-up ones, CUDA events), ``ms_50`` (50 launches), ``device_ms`` (20
 launches replayed from a CUDA graph: no host dispatch between them) and
 the largest difference from the plain version.  Prints one JSON object per
-root, then the card's name and power limit.
+root, then the card's name and power limit (the harness: ``tools/_ab.py``).
 """
 from __future__ import annotations
 
-import json
 import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import _ab
 
 
 def measure(root: str) -> dict:
-    sys.path.insert(0, ROOT)
-    import chip_smoke as cs                 # puts ROOT/src on the path
-    sys.path.insert(0, os.path.join(os.path.abspath(root), "src"))
+    cs = _ab.chip_smoke(root)
     import torch
     from repro_torch.core.abft import ABFTConfig
     from repro_torch.engine import fold_w_r
@@ -53,18 +49,5 @@ def measure(root: str) -> dict:
     return res
 
 
-def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        print(json.dumps(measure(sys.argv[2])), flush=True)
-        return 0
-    for root in sys.argv[1:] or ["."]:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
-                        root], check=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], stdout=subprocess.PIPE,
-                         text=True).stdout.strip())
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_ab.main(__file__, measure))
