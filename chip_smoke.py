@@ -208,28 +208,51 @@ def phase_env(torch) -> str:
 
 
 def ptxas_summary(log: str) -> dict:
-    """Registers, stack and spills of every kernel entry in a ``ptxas -v``
-    log, keyed by the (mangled) entry name."""
+    """Registers, stack and spills of every function in a ``ptxas -v``
+    log, keyed by the (mangled) name: registers for kernel entries, stack
+    and spills for entries and for the never-inlined device functions they
+    call."""
     import re
-    out, name = {}, None
+    out, entry, cur = {}, None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name = m.group(1)
-            out[name] = {}
+            entry = cur = m.group(1)
+            out.setdefault(entry, {})
             continue
-        if name is None:
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1)
+            out.setdefault(cur, {})
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
-        if m:
-            out[name].update(stack=int(m.group(1)),
-                             spill_stores=int(m.group(2)),
-                             spill_loads=int(m.group(3)))
+        if m and cur is not None:
+            out[cur].update(stack=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out[name]["registers"] = int(m.group(1))
+        if m and entry is not None:
+            out[entry]["registers"] = int(m.group(1))
     return out
+
+
+def fused_ptxas() -> dict:
+    """ptxas -v of the fused kernels (B2's combine and sweep kernels, B3,
+    and the never-inlined phases they share), from this run's build."""
+    from repro_torch.kernels import runtime
+    return {name: v for name, v in ptxas_summary(
+        runtime.last_build_log).items()
+        if any(k in name for k in ("combine_", "sweep_", "gcn_network"))}
+
+
+def graph_timing(launch) -> dict:
+    """A kernel's three times: ``ms`` (10 back-to-back launches after 2
+    warm-up ones, CUDA events: every kernel's yardstick), ``ms_50`` (50
+    launches) and ``device_ms`` (20 launches replayed from a CUDA graph: no
+    host dispatch between them)."""
+    return dict(ms=time_ms(launch), ms_50=time_ms(launch, reps=50),
+                device_ms=device_ms(launch, reps=20))
 
 
 def phase_build() -> None:
@@ -329,8 +352,35 @@ def check_spmm_subsystem(torch, bell, cols, vals, x, xr, tag):
     return stripes
 
 
+def check_fused_subsystem(torch, bell, cols, vals, h, w, wr, tag):
+    """The surgical repair's replay of a fused layer: a gcn_fused launch on
+    ``gather_stripe_system`` of three scattered stripes (the full H, so the
+    combination recomputes every row) must give those stripes of the full
+    launch bit for bit (out, stripe sums, extra, slot telescopes).
+    Returns the stripes."""
+    from repro_torch.engine.localize import gather_stripe_system
+    from repro_torch.kernels.gcn_fused.kernel import gcn_fused_kernel
+    from repro_torch.kernels.spmm_abft.ops import device_block_ell
+    nbm, _width, bm, _bk = vals.shape
+    stripes = sorted({1 % nbm, nbm // 2, nbm - 2 if nbm > 2 else 0})
+    sc, sv = device_block_ell(gather_stripe_system(bell, stripes), "cuda")
+    full = gcn_fused_kernel(cols, vals, h, w, wr, with_slots=True)
+    sub = gcn_fused_kernel(sc, sv, h, w, wr, with_slots=True)
+    idx = torch.tensor(stripes, device="cuda")
+    rows = (idx[:, None] * bm + torch.arange(bm, device="cuda")).reshape(-1)
+    for name, f_, s_ in zip(("out", "stripe_sums", "extra", "slot_acts",
+                             "slot_preds"), full, sub):
+        want = f_[rows] if name in ("out", "extra") else f_[idx]
+        if not torch.equal(s_, want):
+            raise AssertionError(f"gcn_fused[{tag}] sub-system {stripes} "
+                                 f"{name}: not bit for bit the full launch's "
+                                 f"(max abs diff {max_err(s_, want):.3e})")
+    return stripes
+
+
 def check_fused(torch, cols, vals, h, w, wr, tag):
-    """gcn_fused kernel vs plain: clean, injected, unchecked, telescopes."""
+    """gcn_fused kernel vs plain: clean, injected, unchecked, telescopes;
+    a second run bit for bit."""
     from repro_torch.kernels.gcn_fused.kernel import (gcn_fused_kernel,
                                                       gcn_fused_plain)
     nbm, width = cols.shape
@@ -341,14 +391,18 @@ def check_fused(torch, cols, vals, h, w, wr, tag):
              dict(with_slots=True, inject=(1, 0, -2.0))]
     for kw in cases:
         got = gcn_fused_kernel(cols, vals, h, w, wr, **kw)
+        again = gcn_fused_kernel(cols, vals, h, w, wr, **kw)
         torch.cuda.synchronize()
         want = gcn_fused_plain(cols, vals, h, w, wr, **kw)
         if len(got) != len(want):
             raise AssertionError(f"gcn_fused[{tag}] {kw}: {len(got)} outputs "
                                  f"vs {len(want)}")
-        for name, g_, w_ in zip(names, got, want):
+        for name, g_, a_, w_ in zip(names, got, again, want):
             worst = max(worst, assert_close(f"gcn_fused[{tag}] {name} {kw}",
                                             g_, w_))
+            if not torch.equal(g_, a_):
+                raise AssertionError(f"gcn_fused[{tag}] {name} {kw}: a "
+                                     f"second run differs")
         if kw.get("with_check") is False and float(got[2].abs().max()) != 0.0:
             raise AssertionError(f"gcn_fused[{tag}]: with_check=False left "
                                  f"extra non-zero")
@@ -380,8 +434,8 @@ def b2_chain(torch, cols, vals, h0, wps, wrps, dims, inject=None,
 def check_network(torch, cols, vals, h0, wps, wrps, tag):
     """gcn_network kernel vs plain (clean, injected at the first and the
     last layer, unchecked, stashing), and bit for bit vs the B2 chain on
-    the same operands; returns the max abs error against the plain
-    version."""
+    the same operands and vs a second run; returns the max abs error
+    against the plain version."""
     from repro_torch.kernels.gcn_fused.kernel import (_check_network_shapes,
                                                       gcn_network_kernel,
                                                       gcn_network_plain)
@@ -395,11 +449,15 @@ def check_network(torch, cols, vals, h0, wps, wrps, tag):
              dict(with_check=False), dict(stash_acts=True)]
     for kw in cases:
         got = gcn_network_kernel(cols, vals, h0, wps, wrps, **kw)
+        again = gcn_network_kernel(cols, vals, h0, wps, wrps, **kw)
         torch.cuda.synchronize()
         want = gcn_network_plain(cols, vals, h0, wps, wrps, **kw)
-        for name, g_, w_ in zip(names, got[:3], want[:3]):
+        for name, g_, a_, w_ in zip(names, got[:3], again[:3], want[:3]):
             worst = max(worst, assert_close(
                 f"gcn_network[{tag}] {name} {kw}", g_, w_))
+            if not torch.equal(g_, a_):
+                raise AssertionError(f"gcn_network[{tag}] {name} {kw}: a "
+                                     f"second run differs")
         if kw.get("stash_acts"):
             if got[3] is None or len(got[3]) != last:
                 raise AssertionError(f"gcn_network[{tag}] {kw}: stash "
@@ -455,8 +513,7 @@ def network_entry(torch, cols, vals, h0, wps, wrps, segments, n_slots,
     if not rel <= CORNER_RTOL:
         raise AssertionError(f"gcn_network: clean corner divergence "
                              f"{rel:.3e} over {CORNER_RTOL}")
-    ms = time_ms(lambda: gcn_network_kernel(cols, vals, h0, wps, wrps),
-                 reps=5)
+    b3 = graph_timing(lambda: gcn_network_kernel(cols, vals, h0, wps, wrps))
     chain_ms = time_ms(lambda: b2_chain(torch, cols, vals, h0, wps, wrps,
                                         dims), reps=5)
     plain_ms = time_ms(lambda: gcn_network_plain(cols, vals, h0, wps, wrps),
@@ -473,7 +530,8 @@ def network_entry(torch, cols, vals, h0, wps, wrps, segments, n_slots,
         name="gcn_network", route="cuda",
         source="src/repro_torch/kernels/csrc/gcn_network.cu",
         replaces="src/repro/kernels/gcn_fused/kernel.py:256",
-        max_abs_err=err, max_rel_corner=rel, ms=ms, plain_ms=plain_ms,
+        max_abs_err=err, max_rel_corner=rel, ms=b3["ms"], ms_50=b3["ms_50"],
+        device_ms=b3["device_ms"], plain_ms=plain_ms,
         bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o
         else "operations", library_ms=None,
         library_note="no single PyTorch call computes an L-layer GCN with "
@@ -482,7 +540,9 @@ def network_entry(torch, cols, vals, h0, wps, wrps, segments, n_slots,
         **schedule_entry(schedule_bytes_network(bell, dims)),
         grid=gcn_network_kernel.last_grid, dims=dims,
         shape=dict(nbm=nbm, width=width, bm=bm, bk=bk, stored_tiles=tiles),
-        bytes=n_bytes, flops=n_ops)
+        bytes=n_bytes, flops=n_ops,
+        ptxas={k: v for k, v in fused_ptxas().items()
+               if "gcn_network" in k})
 
 
 def layer_operands(torch, cols, vals, h0, layers):
@@ -545,7 +605,9 @@ def phase_kernels(torch, batches, params):
     from repro_torch.core.abft import ABFTConfig
     from repro_torch.engine import fold_w_r
     from repro_torch.engine.streaming import packed_step_args
-    from repro_torch.kernels.gcn_fused.kernel import (gcn_fused_kernel,
+    from repro_torch.analysis.vmem import fused_plan
+    from repro_torch.kernels.gcn_fused.kernel import (gcn_fused_combine,
+                                                      gcn_fused_kernel,
                                                       gcn_fused_plain)
     from repro_torch.kernels.gcn_fused.ops import (_network_weights,
                                                    _pad_weights,
@@ -620,20 +682,34 @@ def phase_kernels(torch, batches, params):
         ptxas={k: v for k, v in ptxas_summary(
             runtime.last_build_log).items() if "spmm" in k})
 
-    ms = time_ms(lambda: gcn_fused_kernel(cols, vals, h_, wp, wrp), reps=5)
+    b2 = graph_timing(lambda: gcn_fused_kernel(cols, vals, h_, wp, wrp))
+    b2_l1 = graph_timing(lambda: gcn_fused_kernel(cols, vals, h1, wp1, wrp1))
+    # phase A alone (the combination into the workspace), both layers; its
+    # X and x_r against the plain products
+    combine = {}
+    for ell, (hh, ww, wwr) in enumerate(((h_, wp, wrp), (h1, wp1, wrp1))):
+        xa, xra = gcn_fused_combine(hh, ww, wwr, block=(bm, bk))
+        combine[f"layer{ell}"] = dict(
+            device_ms=device_ms(lambda: gcn_fused_combine(
+                hh, ww, wwr, block=(bm, bk)), reps=20),
+            x_max_abs_err=assert_close(f"gcn_fused_combine[layer{ell}] x",
+                                       xa, hh @ ww),
+            xr_max_abs_err=assert_close(
+                f"gcn_fused_combine[layer{ell}] x_r", xra, hh @ wwr),
+            bound_ms=nbytes(hh, ww, wwr, xa, xra) / PEAK_BYTES_PER_S * 1e3)
     plain_ms = time_ms(lambda: gcn_fused_plain(cols, vals, h_, wp, wrp),
                        warm=1, reps=2)
     f_bytes = nbytes(cols, vals, h_, wp, wrp) + outs
     # least work for the same function: the combination once over the rows,
-    # then the aggregation per stored tile (the kernel recomputes the
-    # combination per tile: `recompute_flops`)
+    # then the aggregation per stored tile
     f_ops = 2 * h_.shape[0] * f * (gp + 1) + b_ops
     t_b, t_o = f_bytes / PEAK_BYTES_PER_S * 1e3, f_ops / PEAK_F32_FLOPS * 1e3
     entries["gcn_fused"] = dict(
         name="gcn_fused", route="cuda",
         source="src/repro_torch/kernels/csrc/gcn_fused.cu",
         replaces="src/repro/kernels/gcn_fused/kernel.py:105",
-        max_abs_err=fused_err, max_rel_corner=rels["gcn_fused"], ms=ms,
+        max_abs_err=fused_err, max_rel_corner=rels["gcn_fused"],
+        ms=b2["ms"], ms_50=b2["ms_50"], device_ms=b2["device_ms"],
         plain_ms=plain_ms, bound_ms=max(t_b, t_o),
         bound_by="bytes" if t_b >= t_o else "operations",
         library_ms=None,
@@ -642,12 +718,10 @@ def phase_kernels(torch, batches, params):
         **schedule_entry(schedule_bytes_fused(pb.bell, f_model, g_model)),
         shape=dict(nbm=nbm, width=width, bm=bm, bk=bk, f=f, g=gp,
                    stored_tiles=tiles, nonzero_tiles=nnz_tiles),
-        bytes=f_bytes, flops=f_ops,
-        recompute_flops=2 * tiles * bk * f * (gp + 1) + b_ops)
-
-    # layer-1 launch time (narrow F) for the record
-    entries["gcn_fused"]["layer1_ms"] = time_ms(
-        lambda: gcn_fused_kernel(cols, vals, h1, wp1, wrp1))
+        bytes=f_bytes, flops=f_ops, layer1=b2_l1, combine=combine,
+        plan=fused_plan(gp, bm, bk).library_fields(),
+        ptxas={k: v for k, v in fused_ptxas().items()
+               if "gcn_network" not in k})
 
     # ---- B3: the whole network in one launch, at the same packed shape
     wps, wrps = _network_weights([layer["w"] for layer in layers],
@@ -682,6 +756,13 @@ def phase_kernels(torch, batches, params):
     def rand(*shape):
         return torch.randn(*shape, generator=r).to("cuda")
     odd = {}
+    # the fused layer's replay of gathered stripes, bit for bit, at blocks
+    # 128, 32 and (below) 16
+    fused_sub = {
+        "block128": check_fused_subsystem(torch, pb.bell, cols, vals, h_, wp,
+                                          wrp, "block128"),
+        "block32": check_fused_subsystem(torch, small.bell, sc, sv, sh, swp,
+                                         swrp, "block32")}
     x72, xr72 = rand(vals.shape[0] * bk, 72), rand(vals.shape[0] * bk, 1)
     odd["spmm_abft block128 G=72"] = check_spmm(torch, cols, vals, x72, xr72,
                                                 "block128-G72")
@@ -711,6 +792,13 @@ def phase_kernels(torch, batches, params):
                 torch, tc, tv, tx, txr, f"block{blk}-G{g}")
         sub_stripes[f"block{blk}"] = check_spmm_subsystem(
             torch, tb.bell, tc, tv, tx, txr, f"block{blk}")
+        if blk == 16:
+            w16 = rand(_th.shape[1], 16) * 0.2
+            wr16 = rand(_th.shape[1], 1) * 0.2
+            odd["gcn_fused block16 G=16"] = check_fused(
+                torch, tc, tv, _th, w16, wr16, "block16-G16")
+            fused_sub["block16"] = check_fused_subsystem(
+                torch, tb.bell, tc, tv, _th, w16, wr16, "block16")
     w24, wr24 = rand(16, 24) * 0.2, rand(16, 1) * 0.2
     odd["gcn_fused block32 G=24"] = check_fused(torch, sc, sv, sh, w24, wr24,
                                                 "block32-G24")
@@ -722,14 +810,22 @@ def phase_kernels(torch, batches, params):
     odd["gcn_network block32 16-24-64-7"] = check_network(
         torch, sc, sv, sh, [rand(f, g) * 0.2 for f, g in deep],
         [rand(f, 1) * 0.2 for f, _ in deep], "block32-3layer")
+    fused_spills = {name: v for name, v in fused_ptxas().items()
+                    if v.get("spill_stores") or v.get("spill_loads")}
     emit("kernel_checks", tolerance=dict(atol=OUT_ATOL, rtol=OUT_RTOL,
                                          corner_rtol=CORNER_RTOL,
                                          network_vs_b2_chain="bitwise"),
          block32_max_abs_err=dict(spmm_abft=e32[0], gcn_fused=e32[1],
                                   gcn_network=e32[2]),
          spmm_subsystem_bitwise=sub_stripes,
+         fused_subsystem_bitwise=fused_sub,
+         network_vs_b2_chain_bitwise=["cora (block 128)", "block32",
+                                      "block32-3layer"],
+         second_run_bitwise=["spmm_abft", "gcn_fused", "gcn_network"],
          other_shapes_max_abs_err=odd,
          kernels=list(entries.values()))
+    if fused_spills:
+        raise AssertionError(f"gcn_fused / gcn_network spill: {fused_spills}")
     return entries
 
 

@@ -26,17 +26,35 @@ from typing import NamedTuple, Optional, Sequence
 # ``vmem_budget=`` override it.
 FUSED_SMEM_BUDGET = 232_448
 
-# The CUDA kernels give each thread a 2-row x 8-column register tile, so the
+# The fused kernels' register tiles are 8 or 16 columns wide, so the
 # output-feature axis pads to a multiple of 8 floats.  (The reference pads it
 # to ``block_g`` = 128 lanes, a TPU register shape; ``block_g`` is accepted
 # everywhere for parity of the call and does not change the padding here.)
 G_QUANTUM = 8
-# threads of one kernel block
-BLOCK_THREADS = 512
-# Feature-axis chunk the fused kernel walks while forming x = h_tile @ W.
-F_CHUNK = 32
-# floats reserved for the block-wide reduction scratch
-_REDUCE_SCRATCH = 32
+# The fused kernels (kernels/csrc/{abft_tile,fused_tile}.cuh): threads of a
+# block, and stages of their cp.async ring.
+FUSED_THREADS = 256
+FUSED_STAGES = 4
+# The combination (phase A): an item owns COMBINE_ROWS rows of H and at most
+# COMBINE_COLS columns of X, and streams F in chunks of F_CHUNK features.
+COMBINE_ROWS = 64
+COMBINE_COLS = 64
+F_CHUNK = 64
+# The sweep (phase B): a stage holds at most SWEEP_CHUNK k-columns of a
+# slot; a block owns a row slice of at most SLICE_ROWS rows of a stripe.
+SWEEP_CHUNK = 32
+SLICE_ROWS = 128
+# columns of X (or of acc) one thread holds
+FUSED_COLS = 8
+# floats before the ring: the slot telescopes' double buffer, the block
+# sum's warp partials, the last-slice flag and the sweep's mbarriers; the
+# ring starts at the next FUSED_ALIGN-byte boundary (the TMA swizzle atom)
+FUSED_HEADER_FLOATS = 64
+FUSED_ALIGN = 1024
+# The fused kernels' shape contract: at most this many 2 x 8 pieces in a
+# [bk, gp] X tile — the bound of the first port's per-tile design, kept so
+# that the engine routes the same layers to these kernels.
+FUSED_MAX_X_PIECES = 512
 # Most layers the whole-network kernel's launcher takes (its per-layer
 # parameter struct has this many entries; a deeper model takes the
 # per-layer ladder).
@@ -47,18 +65,6 @@ def _lanes(n: int, block_g: int = 128) -> int:
     """Output-feature width as the kernels see it: ``n`` rounded up to the
     register-tile quantum.  ``block_g`` is ignored (see :data:`G_QUANTUM`)."""
     return -(-n // G_QUANTUM) * G_QUANTUM
-
-
-def stripe_smem_bytes(g: int, bm: int, bk: int, *, itemsize: int = 4) -> int:
-    """The stripe working set of one ``gcn_fused`` / ``gcn_network`` block,
-    on which :func:`fused_vmem_bytes` builds: the accumulator [bm, gp], the
-    X tile [bk, gp], the check column's accumulator [bm] and tile [bk], the
-    reduction scratch, and the S tile with one padding float per row
-    (bank-conflict-free row reads).  (Until its redesign ``spmm_abft`` held
-    the same set; its ring is in :func:`spmm_plan`.)"""
-    gp = _lanes(g)
-    return itemsize * (bm * gp + bk * gp + bm + bk + _REDUCE_SCRATCH
-                       + bm * (bk + 1))
 
 
 # spmm_abft (kernels/csrc/spmm_abft.cu): a block owns at most this many rows
@@ -176,47 +182,188 @@ def spmm_plan(g: int, bm: int, bk: int) -> Optional[SpmmPlan]:
     return None
 
 
+class FusedTile(NamedTuple):
+    """How one product of the fused kernels, [rows, nc] += [rows, kc] @
+    [kc, nc] a stage, is cut over a block: a thread holds ``rt`` rows x
+    :data:`FUSED_COLS` columns (``units`` of them), the stage's k-vectors
+    are dealt out to ``groups`` k-groups of ``span`` threads, added in
+    group order at the end.  The groups set the association of every
+    sum."""
+    rows: int
+    nc: int
+    kc: int
+    rt: int
+    rpos: int
+    units: int
+    span: int
+    groups: int
+
+
+def _fused_tile(rows: int, nc: int, kc: int) -> Optional[FusedTile]:
+    """``make_tile`` of ``abft_tile.cuh``: 4 rows a thread where that still
+    leaves a warp of units, else 2; None when the units outgrow a block."""
+    cbs = nc // FUSED_COLS
+    rt = 4 if rows % 4 == 0 and (rows // 4) * cbs >= 32 else 2
+    if rows < 2 or rows % rt:
+        return None
+    rpos = rows // rt
+    units = rpos * cbs
+    span = 16 if units <= 16 else 32 * -(-units // 32)
+    if span > FUSED_THREADS:
+        return None
+    groups = min(FUSED_THREADS // span, kc // 4)
+    return FusedTile(rows, nc, kc, rt, rpos, units, span, groups)
+
+
+def _stage_floats(t: FusedTile) -> int:
+    """One combination stage: the H chunk [rows, kc + 4] (4 floats of
+    padding a row), W's rows [kc, nc] and w_r's chunk [kc]."""
+    return t.rows * (t.kc + 4) + t.kc * t.nc + t.kc
+
+
+def _box_stage_floats(t: FusedTile) -> int:
+    """One sweep stage: the S box [rows, kc] as TMA lands it (swizzled, no
+    padding), X's rows [kc, nc] and x_r's [kc], rounded up to the 1024-byte
+    atom."""
+    atom = FUSED_ALIGN // 4
+    return -(-(t.rows * t.kc + t.kc * t.nc + t.kc) // atom) * atom
+
+
+def _fold_floats(t: FusedTile) -> int:
+    """The k-groups' partial tiles that the fold writes (groups 1..)."""
+    return (t.groups - 1) * t.units * t.rt * (FUSED_COLS + 1)
+
+
+class FusedPlan(NamedTuple):
+    """The cut of one fused layer (``make_plan`` of ``fused_tile.cuh``).
+    Phase A, the combination X = H W: items of COMBINE_ROWS rows x ``ct``
+    columns (``col_tiles`` of them across gp), the ``combine`` tile.  Phase
+    B, the aggregation: a stripe cut into ``slices`` row slices of
+    ``sweep.rows`` rows, one block each, the ``sweep`` tile.  ``smem``: the
+    dynamic shared memory of a block (the header, then the larger ring or
+    fold)."""
+    ct: int
+    col_tiles: int
+    combine: FusedTile
+    sweep: FusedTile
+    slices: int
+    smem: int
+
+    def library_fields(self) -> tuple:
+        """The figures the library's ``gcn_fused_plan`` exports, in its
+        order."""
+        a, b = self.combine, self.sweep
+        return (self.ct, self.col_tiles, a.rt, a.units, a.groups, b.rows,
+                b.kc, b.rt, b.units, b.groups, self.slices, self.smem)
+
+
+def fused_plan(g: int, bm: int, bk: int, *,
+               block_g: int = 128) -> Optional[FusedPlan]:
+    """The launch plan of ``gcn_fused`` / ``gcn_network`` for a [bm, bk]
+    block and G = ``g`` output columns (padded to :data:`G_QUANTUM`), or
+    None when the kernels do not take the shape.  A pure function of the
+    block shape and G: F only moves where the chunks' zero fill starts, and
+    neither the stripe count nor the rows of H nor the grid enter, so the
+    single-layer and the network kernel, a gathered stripe sub-system and a
+    second run follow one association.  The combination's cut depends on G
+    alone.  The kernel library exports the same plan and the wrappers
+    assert that the two agree."""
+    gp = _lanes(g, block_g)
+    if bm < 2 or bm % 2 or bk < 4 or bk % 4 or \
+            (bk // 2) * (gp // 8) > FUSED_MAX_X_PIECES:
+        return None
+    ct = next(c for c in range(COMBINE_COLS, 0, -8) if gp % c == 0)
+    combine = _fused_tile(COMBINE_ROWS, ct, F_CHUNK)
+    kc = SWEEP_CHUNK
+    while bk % kc:
+        kc //= 2
+    for s in range(-(-bm // SLICE_ROWS), bm // 2 + 1):
+        if bm % s == 0 and (bm // s) % 2 == 0:
+            sweep = _fused_tile(bm // s, gp, kc)
+            if sweep is not None:
+                break
+    else:
+        return None
+    floats = max(FUSED_STAGES * _stage_floats(combine),
+                 FUSED_STAGES * _box_stage_floats(sweep),
+                 _fold_floats(combine), _fold_floats(sweep))
+    smem = 4 * FUSED_HEADER_FLOATS + FUSED_ALIGN + 4 * floats
+    if smem > FUSED_SMEM_BUDGET:
+        return None
+    return FusedPlan(ct, gp // ct, combine, sweep, s, smem)
+
+
+def combine_items(g: int, rows: int) -> int:
+    """Blocks of the combination over ``rows`` rows of H: row tiles of
+    COMBINE_ROWS times the column tiles of gp."""
+    gp = _lanes(g)
+    ct = next(c for c in range(COMBINE_COLS, 0, -8) if gp % c == 0)
+    return -(-rows // COMBINE_ROWS) * (gp // ct)
+
+
+def fused_workspace_bytes(g: int, rows: int, *, itemsize: int = 4) -> int:
+    """The device workspace a fused layer's wrapper allocates: X [rows, gp]
+    and x_r [rows], f32 — 1,253,376 B at Cora's served batch (18,432 rows,
+    G = 16), which stays in the 50 MB L2 between the two phases."""
+    return itemsize * rows * (_lanes(g) + 1)
+
+
+def slice_part_floats(nbm: int, width: int, slices: int) -> int:
+    """The sweep's scratch of slice sums: per (stripe, slice) block its
+    running Σ acc and Σ ex after each slot and its Σ out, which the
+    stripe's last slice adds in slice order."""
+    return nbm * slices * (2 * width + 1)
+
+
+def network_workspace_bytes(dims: Sequence[int], rows: int, *,
+                            itemsize: int = 4) -> int:
+    """The whole-network kernel's one workspace, reused by every layer: the
+    widest layer's :func:`fused_workspace_bytes`."""
+    return max(fused_workspace_bytes(g, rows, itemsize=itemsize)
+               for g in dims[1:])
+
+
 def fused_vmem_bytes(f: int, g: int, bm: int, bk: int, *,
                      block_g: int = 128, itemsize: int = 4) -> int:
-    """Dynamic shared memory of one ``gcn_fused`` block.
-
-    The stripe working set (:func:`stripe_smem_bytes`), plus the staging
-    of the on-the-fly combination: the kernel walks the input-feature axis in
-    :data:`F_CHUNK` columns, so per step it holds an H chunk
-    [bk, F_CHUNK + 1] and the matching W rows [F_CHUNK, gp] and w_r rows
-    [F_CHUNK]; the recomputed x tile IS the [bk, gp] X-tile buffer.  ``W``
-    is streamed, not resident, so the figure does not grow with ``f``.
-    """
-    gp = _lanes(g, block_g)
-    return stripe_smem_bytes(g, bm, bk, itemsize=itemsize) + itemsize * (
-        F_CHUNK * gp + F_CHUNK + bk * (F_CHUNK + 1))
+    """Dynamic shared memory of one ``gcn_fused`` block (both of its
+    kernels launch with it): :func:`fused_plan`'s ``smem`` — 4 stages of
+    the larger phase's chunk (the combination's H chunk [64, 68], W rows
+    [64, ct], w_r [64]; the sweep's TMA box of S [rows, kc], X rows
+    [kc, gp], x_r [kc], to a 1024-byte atom), or the k-groups' fold where
+    that is larger, after a 256-byte header and 1024 bytes of alignment
+    room.  F does not enter (F is walked in chunks); 0 where
+    the kernels do not take the shape.  ``itemsize`` is kept for the
+    reference's call; the kernels are f32."""
+    del f, itemsize
+    plan = fused_plan(g, bm, bk, block_g=block_g)
+    return 0 if plan is None else plan.smem
 
 
 def fused_tile_supported(g: int, bm: int, bk: int, *,
                          block_g: int = 128) -> bool:
-    """The fused kernel keeps the recomputed x tile [bk, gp] in registers
-    while it walks F, one 2 x 8 register tile per thread at most; the block
-    edges must also split into row pairs and 16-byte groups."""
+    """The fused kernels' shape contract: an even block_m, block_k % 4 ==
+    0, and at most :data:`FUSED_MAX_X_PIECES` 2 x 8 pieces in a [bk, gp]
+    X tile."""
     gp = _lanes(g, block_g)
     return bm % 2 == 0 and bk % 4 == 0 and \
-        (bk // 2) * (gp // 8) <= BLOCK_THREADS
+        (bk // 2) * (gp // 8) <= FUSED_MAX_X_PIECES
 
 
 def fused_layer_fits(f: int, g: int, bm: int, bk: int, *,
                      block_g: int = 128,
                      budget: int = FUSED_SMEM_BUDGET) -> bool:
-    """True when the fused-layer kernel takes this layer: one block's shared
-    memory fits the budget and the x tile fits the block's register tiles —
-    the engine falls back to the two-pass kernel otherwise."""
+    """True when the fused-layer kernel takes this layer: the shape
+    contract holds and one block's shared memory fits the budget — the
+    engine falls back to the two-pass kernel otherwise."""
     return fused_tile_supported(g, bm, bk, block_g=block_g) and \
-        fused_vmem_bytes(f, g, bm, bk, block_g=block_g) <= budget
+        0 < fused_vmem_bytes(f, g, bm, bk, block_g=block_g) <= budget
 
 
 def network_vmem_bytes(dims: Sequence[int], bm: int, rows: int, *,
                        block_g: int = 128, itemsize: int = 4) -> int:
     """Dynamic shared memory of one ``gcn_network`` block: the largest
-    per-layer fused working set, ``fused_vmem_bytes(f_l, g_l, bm, bm)``
-    over the layers ``dims = [f_0, g_0 = f_1, ..., g_{L-1}]``.
+    per-layer figure, ``fused_vmem_bytes(f_l, g_l, bm, bm)`` over the layers
+    ``dims = [f_0, g_0 = f_1, ..., g_{L-1}]``.
 
     The port's design, not the TPU's: the TPU kernel kept two ping-pong
     activation buffers [rows, P] in one core's VMEM, which no Hopper block
@@ -236,10 +383,10 @@ def fused_network_fits(dims: Sequence[int], bm: int, rows: int, *,
     """True when the whole-network kernel takes this model and block shape:
     square blocks (``bk`` defaults to ``bm``; the activations are indexed
     by the same table on both axes), at most :data:`MAX_NETWORK_LAYERS`
-    layers (the launcher's parameter struct), every layer's output tile
-    within the register-tile condition (:func:`fused_tile_supported`), and
-    :func:`network_vmem_bytes` within the budget.  The engine runs the
-    per-layer ladder (fused layer, then two-pass) otherwise.
+    layers (the launcher's parameter struct), every layer within the shape
+    contract (:func:`fused_tile_supported`), and :func:`network_vmem_bytes`
+    within the budget.  The engine runs the per-layer ladder (fused layer,
+    then two-pass) otherwise.
 
     This is the port's own predicate: at Cora's widths [1433, 16, 7] and
     block 128 it holds, where the JAX package's (two [rows, P] activation
@@ -250,7 +397,7 @@ def fused_network_fits(dims: Sequence[int], bm: int, rows: int, *,
     return bm == bk and 1 <= n_layers <= MAX_NETWORK_LAYERS and \
         all(fused_tile_supported(g, bm, bk, block_g=block_g)
             for g in dims[1:]) and \
-        network_vmem_bytes(dims, bm, bm, block_g=block_g) <= budget
+        0 < network_vmem_bytes(dims, bm, bm, block_g=block_g) <= budget
 
 
 # ---------------------------------------------------------------------------

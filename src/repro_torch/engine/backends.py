@@ -366,9 +366,10 @@ class BlockEllBackend(AggregationBackend):
         return bk
 
     def layer(self, h, w, cfg, *, w_r=None):
-        """Single-pass fused layer (``kernels/gcn_fused``): the combination
-        H W is recomputed tile-by-tile inside the aggregation sweep, so X
-        never touches device memory.  Falls back to the engine's two-pass
+        """Fused layer (``kernels/gcn_fused``): one call runs the
+        combination H W once per row into a workspace that stays in L2,
+        then the aggregation sweep with its check column, stripe sums and
+        slot telescopes.  Falls back to the engine's two-pass
         path (returns ``NotImplemented``) when the option is off or one
         block's shared-memory working set exceeds the budget.
         """

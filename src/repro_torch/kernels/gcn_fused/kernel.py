@@ -1,26 +1,30 @@
-"""ONE GCN-ABFT layer in a single sweep, and a WHOLE network in one launch:
-the wrappers that launch the CUDA kernels, and their plain PyTorch versions.
+"""ONE GCN-ABFT layer, and a WHOLE network in one launch: the wrappers
+that launch the CUDA kernels, and their plain PyTorch versions.
 
 Replace the TPU kernels ``gcn_fused_kernel`` and ``gcn_network_kernel`` of
 the JAX package (``src/repro/kernels/gcn_fused/kernel.py``); the CUDA
 sources are ``kernels/csrc/gcn_fused.cu`` and ``kernels/csrc/
-gcn_network.cu`` (per-tile code shared in ``fused_tile.cuh``), which also
+gcn_network.cu`` (both phases shared in ``fused_tile.cuh``), which also
 say what bounds each kernel on a Hopper card and what its design does
 about it.
 
-``spmm_abft`` executes the aggregation half of a layer: X = H @ W is written
-to device memory first and the kernel reads X tiles back.  GCN output widths
-are tiny, so the combination can be recomputed on the fly *inside* the
-aggregation sweep and X never has to touch device memory:
+The TPU kernel recomputed the combination inside the aggregation sweep, so
+X never touched HBM.  On this card that recompute per stored tile cost 24
+times the multiply-adds and read H 24 times; the CUDA kernels instead run
+a layer in two phases:
 
-  per stored tile:  h    = H[cols[i,j]]          (bk, f)
-                    x    = h @ W                 (bk, g)  recomputed
-                    x_r  = h @ w_r               (bk, 1)  eq.-5 column
-                    acc += S_tile @ x;   ex += S_tile @ x_r
+  phase A, once per row:  X    = H @ W       (K, g)  into a workspace
+                          x_r  = H @ w_r     (K, 1)  eq.-5 column
+  phase B, per tile:      acc += S_tile @ X[cols[i,j]]
+                          ex  += S_tile @ x_r[cols[i,j]]
+
+The workspace ([K, gp] + [K] f32, ``analysis.vmem.fused_workspace_bytes``)
+is allocated here with ``torch.empty`` and stays in L2 between the phases.
 
 Check independence: x and x_r come from two *separate* products of the same
-operands, so an arithmetic fault in one side cannot cancel against the
-other — the same coverage as the two-pass path.
+operands, and ex from its own product with S, so an arithmetic fault in one
+side cannot cancel against the other — the same coverage as the two-pass
+path.
 
 ``inject`` is the CI fault-injection hook: a (stripe, slot, delta) triple
 that perturbs one accumulator element mid-sweep.  The delta reaches the
@@ -35,16 +39,19 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.analysis.vmem import (
-    BLOCK_THREADS,
-    F_CHUNK,
+    FUSED_MAX_X_PIECES,
     FUSED_SMEM_BUDGET,
     G_QUANTUM,
     MAX_NETWORK_LAYERS,
     _lanes,
     fused_network_fits,
+    fused_plan,
     fused_tile_supported,
     fused_vmem_bytes,
+    fused_workspace_bytes,
     network_vmem_bytes,
+    network_workspace_bytes,
+    slice_part_floats,
 )
 
 Tensor = torch.Tensor
@@ -125,6 +132,22 @@ def gcn_fused_plain(block_cols: Tensor, values: Tensor, h: Tensor, w: Tensor,
 gcn_fused_plain.calls = 0
 
 
+def _agreed_with_library(lib, what: str, g: int, bm: int, bk: int):
+    """The layer's ``analysis.vmem.fused_plan``; raises unless the kernel
+    library plans it the same: the combination's and the sweep's cuts (they
+    set the association of every sum) and the shared memory."""
+    plan = fused_plan(g, bm, bk)
+    ours = plan.library_fields() if plan is not None else None
+    buf = (ctypes.c_int * 12)()
+    ok = lib.gcn_fused_plan(bm, bk, g, ctypes.addressof(buf))
+    theirs = tuple(buf) if ok else None
+    if ours != theirs or (plan is not None and
+                          plan.smem != lib.gcn_fused_smem_bytes(bm, bk, g)):
+        raise RuntimeError(f"{what}: analysis.vmem plans {ours} for block "
+                           f"({bm}, {bk}) x G={g}, the library {theirs}")
+    return plan
+
+
 def gcn_fused_kernel(block_cols: Tensor, values: Tensor, h: Tensor,
                      w: Tensor, wr: Tensor, *, inject: Inject = None,
                      with_check: bool = True, with_slots: bool = False):
@@ -139,9 +162,10 @@ def gcn_fused_kernel(block_cols: Tensor, values: Tensor, h: Tensor,
     (slot_acts [nbm, width], slot_preds [nbm, width]) for slot-granular
     corners (``ops.slot_check_corners``).
 
-    Operands on a CUDA device launch the CUDA kernel (one launch, counted in
-    ``gcn_fused_kernel.launches``) or raise; only operands that lie on the
-    CPU take :func:`gcn_fused_plain`."""
+    Operands on a CUDA device launch the CUDA kernels — the combination,
+    then the sweep, in stream order from one C call, counted as one launch
+    in ``gcn_fused_kernel.launches`` — or raise; only operands that lie on
+    the CPU take :func:`gcn_fused_plain`."""
     if values.device.type == "cpu":
         return gcn_fused_plain(block_cols, values, h, w, wr, inject=inject,
                                with_check=with_check, with_slots=with_slots)
@@ -154,24 +178,23 @@ def gcn_fused_kernel(block_cols: Tensor, values: Tensor, h: Tensor,
     if g % G_QUANTUM or not fused_tile_supported(g, bm, bk):
         raise ValueError(f"{what}: needs G % {G_QUANTUM} == 0 (got {g}; pad "
                          f"through ops.py), an even block_m, block_k % 4 == 0 "
-                         f"and (block_k / 2) * (G / 8) <= {BLOCK_THREADS}; "
-                         f"got block ({bm}, {bk}) — "
+                         f"and (block_k / 2) * (G / 8) <= {FUSED_MAX_X_PIECES}"
+                         f"; got block ({bm}, {bk}) — "
                          f"analysis.vmem.fused_layer_fits says when a layer "
                          f"must take the two-pass kernel instead")
     lib = runtime.load_library()
+    plan = _agreed_with_library(lib, what, g, bm, bk)
     smem = fused_vmem_bytes(f, g, bm, bk)
-    if smem != lib.gcn_fused_smem_bytes(bm, bk, g) \
-            or F_CHUNK != lib.gcn_fused_f_chunk() \
-            or not lib.gcn_fused_supported(bm, bk, g):
-        raise RuntimeError(f"{what}: analysis.vmem models {smem} B of shared "
-                           f"memory at F_CHUNK={F_CHUNK}, the library "
-                           f"{lib.gcn_fused_smem_bytes(bm, bk, g)} B at "
-                           f"{lib.gcn_fused_f_chunk()}")
     if smem > FUSED_SMEM_BUDGET:
         raise ValueError(f"{what}: block ({bm}, {bk}) x G={g} needs {smem} B "
                          f"of shared memory, over the {FUSED_SMEM_BUDGET} B "
                          f"one block may use")
     dev = values.device
+    ws = torch.empty(fused_workspace_bytes(g, k) // 4, dtype=torch.float32,
+                     device=dev)
+    part = torch.empty(slice_part_floats(nbm, width, plan.slices),
+                       dtype=torch.float32, device=dev)
+    count = torch.zeros(nbm, dtype=torch.int32, device=dev)
     out = torch.empty((nbm * bm, g), dtype=torch.float32, device=dev)
     sums = torch.empty((nbm, 1), dtype=torch.float32, device=dev)
     extra = torch.empty((nbm * bm, 1), dtype=torch.float32, device=dev)
@@ -186,8 +209,9 @@ def gcn_fused_kernel(block_cols: Tensor, values: Tensor, h: Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.gcn_fused_launch(
             block_cols.data_ptr(), values.data_ptr(), h.data_ptr(),
-            w.data_ptr(), wr.data_ptr(), out.data_ptr(), sums.data_ptr(),
-            extra.data_ptr(), sa, sp, nbm, width, bm, bk, f, g,
+            w.data_ptr(), wr.data_ptr(), ws.data_ptr(), part.data_ptr(),
+            count.data_ptr(), out.data_ptr(), sums.data_ptr(),
+            extra.data_ptr(), sa, sp, nbm, width, bm, bk, k, f, g,
             int(bool(with_check)), int(bool(with_slots)), int(ii), int(jj),
             float(delta), stream)
     runtime.check_launch(code, what)
@@ -196,6 +220,49 @@ def gcn_fused_kernel(block_cols: Tensor, values: Tensor, h: Tensor,
 
 
 gcn_fused_kernel.launches = 0
+
+
+def gcn_fused_combine(h: Tensor, w: Tensor, wr: Tensor, *,
+                      block: Tuple[int, int] = (128, 128),
+                      with_check: bool = True) -> Tuple[Tensor, Tensor]:
+    """Phase A of :func:`gcn_fused_kernel` alone: X = H W [K, G] and x_r =
+    H w_r [K, 1] into a fresh workspace, by the same CUDA kernel and plan
+    (the plan of a ``block`` = (bm, bk) layer; the combination's cut
+    depends on G alone).  For measuring the phase and checking it
+    (``chip_smoke.py``, ``tools/fused_ab.py``); the serving path runs it
+    only inside :func:`gcn_fused_kernel`.  Operands on a CUDA device
+    launch the kernel (one launch, counted in
+    ``gcn_fused_combine.launches``) or raise; operands on the CPU take the
+    plain products."""
+    if h.device.type == "cpu":
+        return h.float() @ w.float(), h.float() @ wr.float()
+    from repro_torch.kernels import runtime
+
+    what = "gcn_fused_combine"
+    k, f = h.shape
+    g = w.shape[1]
+    bm, bk = block
+    runtime.require_cuda_operands(what, h=h, w=w, wr=wr)
+    if tuple(w.shape) != (f, g) or tuple(wr.shape) != (f, 1) or \
+            g % G_QUANTUM:
+        raise ValueError(f"{what}: h {tuple(h.shape)}, w {tuple(w.shape)}, "
+                         f"wr {tuple(wr.shape)}; need w [F, G], G % "
+                         f"{G_QUANTUM} == 0 and wr [F, 1]")
+    lib = runtime.load_library()
+    _agreed_with_library(lib, what, g, bm, bk)
+    ws = torch.empty(fused_workspace_bytes(g, k) // 4, dtype=torch.float32,
+                     device=h.device)
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        code = lib.gcn_fused_combine_launch(
+            h.data_ptr(), w.data_ptr(), wr.data_ptr(), ws.data_ptr(), bm,
+            bk, k, f, g, int(bool(with_check)), stream)
+    runtime.check_launch(code, what)
+    gcn_fused_combine.launches += 1
+    return ws[:k * g].view(k, g), ws[k * g:].view(k, 1)
+
+
+gcn_fused_combine.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -316,6 +383,8 @@ def gcn_network_kernel(block_cols: Tensor, values: Tensor, h0: Tensor,
                          f"analysis.vmem.fused_network_fits says when a "
                          f"model must take the per-layer ladder instead")
     lib = runtime.load_library()
+    for g in dims[1:]:
+        _agreed_with_library(lib, what, _lanes(g), bm, bk)
     c_dims = (ctypes.c_int * (n_layers + 1))(*dims)
     smem = network_vmem_bytes(dims, bm, nbm * bm)
     if smem != lib.gcn_network_smem_bytes(c_dims, n_layers, bm) \
@@ -333,7 +402,11 @@ def gcn_network_kernel(block_cols: Tensor, values: Tensor, h0: Tensor,
     tele_preds = torch.empty((n_layers, nbm, width), **f32)
     acts = [torch.empty((nbm * bm, dims[ell + 1]), **f32)
             for ell in range(n_layers - 1)]
-    barrier = torch.zeros(2, dtype=torch.int32, device=dev)
+    work = torch.empty(network_workspace_bytes(dims, nbm * bm) // 4, **f32)
+    slices = max(fused_plan(g, bm, bk).slices for g in dims[1:])
+    part = torch.empty(slice_part_floats(nbm, width, slices), **f32)
+    # the grid barrier's two words, then each stripe's slice count
+    barrier = torch.zeros(2 + nbm, dtype=torch.int32, device=dev)
     w_ptrs = (ctypes.c_void_p * n_layers)(*[w.data_ptr() for w in ws])
     wr_ptrs = (ctypes.c_void_p * n_layers)(*[wr.data_ptr() for wr in wrs])
     act_ptrs = (ctypes.c_void_p * max(n_layers - 1, 1))(
@@ -347,7 +420,8 @@ def gcn_network_kernel(block_cols: Tensor, values: Tensor, h0: Tensor,
             ctypes.addressof(w_ptrs), ctypes.addressof(wr_ptrs),
             ctypes.addressof(act_ptrs), ctypes.addressof(c_dims),
             out.data_ptr(), tele_acts.data_ptr(), tele_preds.data_ptr(),
-            barrier.data_ptr(), n_layers, nbm, width, bm, bk,
+            work.data_ptr(), part.data_ptr(), barrier.data_ptr(), n_layers,
+            nbm, width, bm, bk,
             int(bool(with_check)), int(il), int(ii), int(jj), float(delta),
             stream, ctypes.addressof(grid))
     runtime.check_launch(code, what)

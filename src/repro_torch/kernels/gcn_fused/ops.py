@@ -307,9 +307,9 @@ def gcn_network_layer(bell: BlockEll, h: Tensor, ws: Sequence[Tensor],
 # schedules ask for it: every stored tile (ELL padding tiles included —
 # both paths schedule them like real tiles) reads its S tile and its
 # operand tile, weights are read once, every output is written once.  The
-# models do not know the L2 cache: a W re-read per tile, or an activation
-# tile the previous layer just wrote, counts once or per tile as the
-# docstrings say.  They price a BlockEll layout, which analysis/vmem.py
+# models do not know the L2 cache: W's chunks re-read by every combine
+# item, the workspace read per stored tile, or an activation the previous
+# layer just wrote, count once or per tile as the docstrings say.  They price a BlockEll layout, which analysis/vmem.py
 # does not know, so they live here.
 # ---------------------------------------------------------------------------
 
@@ -334,27 +334,33 @@ def schedule_bytes_twopass(bell: BlockEll, f: int, g: int, *,
 
 def schedule_bytes_fused(bell: BlockEll, f: int, g: int, *,
                          itemsize: int = 4) -> int:
-    """One gcn_fused launch: per stored tile the S tile and one unpadded
-    H tile [bk, f]; the index table; W [f, gp] and w_r once (the kernel
-    streams them per tile from L2); out / stripe sums / extra.  X never
-    exists in device memory."""
+    """One gcn_fused launch, its two phases: the combination reads H
+    [k_pad, f] once (every row the kernel covers, as the wrapper pads it),
+    W [f, gp] and w_r once, and writes the workspace X [k_pad, gp] and x_r
+    [k_pad] once; the sweep reads per stored tile the S tile, one X tile
+    [bk, gp] and one x_r tile [bk] from the workspace; the index table;
+    out / stripe sums / extra."""
     gp = _lanes(g)
     nbm, width = bell.n_block_rows, bell.width
     bm, bk = bell.block_m, bell.block_k
     tiles = nbm * width
-    return itemsize * (tiles * (bm * bk + bk * f) + tiles + f * gp + f
-                       + nbm * bm * gp + nbm + nbm * bm)
+    k_pad = max(bell.padded_cols, bell.block_k)
+    combine = k_pad * f + f * gp + f + k_pad * gp + k_pad
+    sweep = tiles * (bm * bk + bk * gp + bk) + tiles
+    return itemsize * (combine + sweep + nbm * bm * gp + nbm + nbm * bm)
 
 
 def schedule_bytes_network(bell: BlockEll, dims: Sequence[int], *,
                            itemsize: int = 4) -> int:
-    """One gcn_network launch over layer widths ``dims``: per layer the S
-    tiles and the index table again, one H tile [bk, F_l] per stored tile
-    (h0 at layer 0, the previous layer's activations after — written once
-    [rows, F_{l+1}] and read back through L2), each layer's W [F_l, gp_l]
-    and w_r once, the slot telescopes, and the final logits [rows, gp]
-    once.  The activation buffers double as the repair stash, so stashing
-    adds nothing."""
+    """One gcn_network launch over layer widths ``dims``: per layer the
+    combination reads its input once ([rows, F_l]: h0 at layer 0, the
+    previous layer's activations after — written once [rows, F_{l+1}] and
+    read back through L2), W_l [F_l, gp_l] and w_r once, and writes the
+    workspace X [rows, gp_l] and x_r [rows] once; the sweep reads per
+    stored tile the S tile, one X tile [bk, gp_l] and one x_r tile [bk],
+    the index table again, writes the slot telescopes, and at the last
+    layer the logits [rows, gp] once.  The activation buffers double as the
+    repair stash, so stashing adds nothing."""
     nbm, width = bell.n_block_rows, bell.width
     bm, bk = bell.block_m, bell.block_k
     tiles = nbm * width
@@ -362,7 +368,8 @@ def schedule_bytes_network(bell: BlockEll, dims: Sequence[int], *,
     traffic = 0
     for ell, (f, g) in enumerate(zip(dims[:-1], dims[1:])):
         gp = _lanes(g)
-        traffic += (tiles * (bm * bk + bk * f) + tiles + f * gp + f
-                    + 2 * tiles)                       # telescopes
+        traffic += rows * f + f * gp + f + rows * gp + rows     # combine
+        traffic += (tiles * (bm * bk + bk * gp + bk) + tiles
+                    + 2 * tiles)                                # sweep
         traffic += rows * gp if ell == len(dims) - 2 else rows * g
     return itemsize * traffic

@@ -50,13 +50,13 @@ _SIGNATURES = {
     "spmm_abft_stages": [_I, _I, _I],
     "spmm_abft_launch": [_P] * 7 + [_I] * 7 + [_F, _P],
     "gcn_fused_smem_bytes": [_I, _I, _I],
-    "gcn_fused_f_chunk": [],
-    "gcn_fused_supported": [_I, _I, _I],
-    "gcn_fused_launch": [_P] * 10 + [_I] * 10 + [_F, _P],
+    "gcn_fused_plan": [_I, _I, _I, _P],
+    "gcn_fused_launch": [_P] * 13 + [_I] * 11 + [_F, _P],
+    "gcn_fused_combine_launch": [_P] * 4 + [_I] * 6 + [_P],
     "gcn_network_max_layers": [],
     "gcn_network_supported": [_P, _I, _I, _I],
     "gcn_network_smem_bytes": [_P, _I, _I],
-    "gcn_network_launch": [_P] * 11 + [_I] * 9 + [_F, _P, _P],
+    "gcn_network_launch": [_P] * 13 + [_I] * 9 + [_F, _P, _P],
     "matmul_abft_tile_m": [_I],
     "matmul_abft_tile_n": [_I],
     "matmul_abft_splits": [_I, _I, _I],

@@ -382,3 +382,55 @@ def test_cuda_kernels_match_plain_versions():
         want = tfk.gcn_fused_plain(cols, vals, h, w, wr, **kw)
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [5, 33, 1433])
+def test_cuda_fused_two_phases_match_plain(f):
+    """B2's two phases at ragged F (the combination's chunks of 32 zero-fill
+    the end), G 8 / 16 / 24, square blocks 16 / 32 / 128 and bk != bm, each
+    case with and without the check, with the inject hook and the slot
+    telescopes: within 1e-4 of the plain version, a second run bit for bit,
+    and a gathered stripe sub-system bit for bit the full launch's rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels have no "
+                    "interpret mode)")
+    from repro_torch.engine.localize import gather_stripe_system
+    dev = torch.device("cuda")
+    r = np.random.default_rng(f)
+    layouts = [_packed(block=b, feat=f).bell for b in (16, 32, 128)]
+    layouts.append(_problem(n=70, f=f, block=6, bk=8)["bell"])
+    for bell in layouts:
+        cols = _t(bell.block_cols).to(dev)
+        vals = _t(bell.values).to(dev)
+        nbm, width, bm, bk = vals.shape
+        k = max(bell.padded_cols, bk)
+        h = _t(r.normal(0, 0.5, (k, f)).astype(np.float32)).to(dev)
+        for g in (8, 16, 24):
+            w = _t(r.normal(0, 0.3, (f, g)).astype(np.float32)).to(dev)
+            wr = w.sum(1, keepdim=True).contiguous()
+            for kw in (dict(), dict(with_check=False),
+                       dict(inject=(nbm // 2, width // 2, 3.0)),
+                       dict(with_slots=True, inject=(0, 0, -2.0))):
+                got = tfk.gcn_fused_kernel(cols, vals, h, w, wr, **kw)
+                again = tfk.gcn_fused_kernel(cols, vals, h, w, wr, **kw)
+                want = tfk.gcn_fused_plain(cols, vals, h, w, wr, **kw)
+                assert len(got) == len(want)
+                for a, a2, b in zip(got, again, want):
+                    torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+                    assert torch.equal(a, a2)
+                if kw.get("with_check") is False:
+                    assert float(got[2].abs().max()) == 0.0
+            idx = sorted({0, nbm // 2, nbm - 1})
+            sub = gather_stripe_system(bell, idx)
+            full = tfk.gcn_fused_kernel(cols, vals, h, w, wr,
+                                        with_slots=True)
+            part = tfk.gcn_fused_kernel(_t(sub.block_cols).to(dev),
+                                        _t(sub.values).to(dev), h, w, wr,
+                                        with_slots=True)
+            rows = torch.cat([torch.arange(i * bm, (i + 1) * bm)
+                              for i in idx]).to(dev)
+            sel = torch.tensor(idx, device=dev)
+            for name, p_, f_ in zip(RAW, part, full):
+                want = f_[rows] if name in ("out", "extra") else f_[sel]
+                assert torch.equal(p_, want), name

@@ -229,22 +229,23 @@ def test_shared_memory_model_is_one_object_everywhere():
     assert streaming.fused_layer_fits is vmem.fused_layer_fits
     assert fused_kernel.fused_vmem_bytes is vmem.fused_vmem_bytes
     assert vmem.FUSED_SMEM_BUDGET == 232_448
-    # Cora's first layer at 128-blocks: W is streamed, so F does not count
+    # Cora's first layer at 128-blocks: F is streamed, so it does not count;
+    # the combination's 4-stage ring (H chunk [64, 68], W rows [64, 16],
+    # w_r [64]) after 256 header bytes and 1024 of alignment room
     cora = vmem.fused_vmem_bytes(1433, 16, 128, 128)
-    assert cora == vmem.fused_vmem_bytes(16, 16, 128, 128) == 102_656
+    assert cora == vmem.fused_vmem_bytes(16, 16, 128, 128) == 88_320
     assert vmem.fused_layer_fits(1433, 16, 128, 128)
-    assert not vmem.fused_layer_fits(1433, 16, 128, 128, budget=100_000)
+    assert not vmem.fused_layer_fits(1433, 16, 128, 128, budget=86_000)
     assert not vmem.fused_layer_fits(64, 256, 128, 128)     # wide G
-    # one 2 x 8 register tile per thread at most: (bk / 2) * (gp / 8) <= 512
+    # the shape contract: (bk / 2) * (gp / 8) <= 512 pieces of an X tile
     assert vmem.fused_tile_supported(64, 128, 128)
     assert not vmem.fused_tile_supported(65, 128, 128)
     assert vmem.fused_tile_supported(186, 32, 32)
     assert not vmem.fused_tile_supported(16, 7, 8)          # odd block_m
     assert not vmem.fused_layer_fits(16, 72, 128, 128)
-    assert vmem.BLOCK_THREADS == 512 and vmem.G_QUANTUM == 8
-    # the stripe working set the fused kernels build on (spmm_smem_bytes
-    # until spmm_abft's redesign gave it a ring of its own)
-    assert vmem.stripe_smem_bytes(16, 128, 128) == 83_584
+    assert vmem.FUSED_MAX_X_PIECES == 512 and vmem.G_QUANTUM == 8
+    assert vmem.FUSED_THREADS == 256 and vmem.FUSED_STAGES == 4
+    assert vmem.FUSED_COLS == 8
     assert vmem._lanes(7) == vmem._lanes(7, 128) == 8
     assert vmem.network_vmem_bytes([16, 16, 7], 32, 256) > \
         vmem.network_vmem_bytes([16, 7], 32, 256)
@@ -356,6 +357,108 @@ def test_spmm_wrapper_refuses_a_library_that_plans_otherwise():
         with pytest.raises(RuntimeError, match="analysis.vmem plans"):
             spmm_kernel._agreed_with_library(lib_with(**other), "probe",
                                              plan, 16, 128, 128)
+
+
+def test_fused_plan_pins():
+    """The two phases of gcn_fused / gcn_network at the served shapes: the
+    combination in items of 64 rows x up to 64 columns, F in chunks of 64
+    (4 x 8 register tiles, 8 k-groups at G = 16), the sweep one block a
+    stripe up to 128 rows (4 x 8 tiles, 4 k-groups at block 128), 88,320 B
+    of shared memory — two blocks an SM; the workspace is X and x_r,
+    f32."""
+    plan = vmem.fused_plan(16, 128, 128)
+    assert plan.library_fields() == (16, 1, 4, 32, 8, 128, 32, 4, 64, 4, 1,
+                                      88_320)
+    assert 2 * (plan.smem + 1024) <= vmem.SM_SMEM_BYTES
+    assert plan.combine.groups * plan.combine.span <= vmem.FUSED_THREADS
+    # G = 8 (Cora's second layer): 2 rows a thread keep the combination's
+    # 32 units
+    assert vmem.fused_plan(8, 128, 128).library_fields() == \
+        (8, 1, 2, 32, 8, 128, 32, 4, 32, 8, 1, 80_128)
+    assert vmem.fused_plan(7, 128, 128) == vmem.fused_plan(8, 128, 128)
+    # blocks 32 and 16: narrower chunks at 16
+    assert vmem.fused_plan(16, 32, 32).library_fields()[5:] == \
+        (32, 32, 2, 32, 8, 1, 88_320)
+    assert vmem.fused_plan(16, 16, 16).library_fields()[5:] == \
+        (16, 16, 2, 16, 4, 1, 88_320)
+    # G = 24: three column blocks a row; G = 72: three column tiles of 24
+    assert vmem.fused_plan(24, 32, 32)[:2] == (24, 1)
+    assert vmem.fused_plan(72, 32, 32)[:2] == (24, 3)
+    assert vmem.fused_plan(512, 16, 16)[:2] == (64, 8)
+    # tall blocks: row slices of at most 128 rows, one block each
+    assert vmem.fused_plan(16, 256, 256).slices == 2
+    assert vmem.fused_plan(16, 96, 96).sweep.rows == 96
+    assert vmem.fused_plan(16, 192, 192).sweep.rows == 96
+    # bk != bm, and bk with no 32-wide chunk
+    assert vmem.fused_plan(16, 6, 8).sweep[:3] == (6, 16, 8)
+    assert vmem.fused_plan(16, 40, 40).sweep.kc == 8
+    assert vmem.fused_plan(16, 7, 8) is None           # odd block_m
+    assert vmem.fused_plan(16, 128, 6) is None         # bk % 4
+    assert vmem.fused_plan(72, 128, 128) is None       # 576 X pieces
+    assert vmem.fused_workspace_bytes(16, 18_432) == 4 * 18_432 * 17 == \
+        1_253_376
+    assert vmem.network_workspace_bytes([1433, 16, 7], 18_432) == 1_253_376
+    assert vmem.slice_part_floats(144, 24, 1) == 144 * 49
+    assert vmem.combine_items(16, 18_432) == 288
+    assert vmem.combine_items(72, 18_432) == 3 * 288
+    assert vmem.combine_items(16, 65) == 2
+
+
+def test_fused_plan_is_a_function_of_shape_alone():
+    """What sets the association of every sum — the combination's column
+    tile and k-groups, the sweep's tile, chunk, k-groups and slices — is a
+    function of (bm, bk, G) alone, and the combination's of G alone: F, the
+    rows of H, the stripe count and the grid never enter (the wrappers take
+    nothing else), so B2, B3 and a gathered sub-system share the bits."""
+    import inspect
+    assert list(inspect.signature(vmem.fused_plan).parameters) == \
+        ["g", "bm", "bk", "block_g"]
+    for g in (8, 16, 24, 64, 72, 136, 512):
+        combines = {vmem.fused_plan(g, b, b)[:3] for b in (4, 8, 16, 32)
+                    if vmem.fused_plan(g, b, b) is not None}
+        assert len(combines) == 1, (g, combines)
+    for g, bm, bk in ((16, 128, 128), (8, 32, 32), (24, 16, 16),
+                      (16, 6, 8), (16, 256, 256), (72, 32, 32)):
+        p = vmem.fused_plan(g, bm, bk)
+        gp = vmem._lanes(g)
+        assert p == vmem.fused_plan(g, bm, bk)
+        assert p.slices * p.sweep.rows == bm and p.sweep.nc == gp
+        assert bk % p.sweep.kc == 0 and p.sweep.kc in (4, 8, 16, 32)
+        assert p.ct * p.col_tiles == gp and p.ct % 8 == 0
+        for t in (p.combine, p.sweep):
+            assert t.units == t.rpos * (t.nc // vmem.FUSED_COLS) <= t.span
+            assert t.groups * t.span <= vmem.FUSED_THREADS
+            assert t.groups <= t.kc // 4
+        assert vmem.fused_vmem_bytes(1, g, bm, bk) == \
+            vmem.fused_vmem_bytes(1433, g, bm, bk) == p.smem
+        assert p.smem <= vmem.FUSED_SMEM_BUDGET
+
+
+def test_fused_wrapper_refuses_a_library_that_plans_otherwise():
+    """The B2 and B3 wrappers hold the library's plan (both phases' cuts and
+    the shared memory) against ``analysis.vmem.fused_plan``: a library that
+    cuts otherwise would sum in another order, so it must not launch."""
+    import ctypes
+    import types
+
+    def lib_with(**other):
+        def plan(bm, bk, g, addr):
+            p = vmem.fused_plan(g, bm, bk)
+            fields = list(p.library_fields())
+            for i, v in other.items():
+                fields[int(i[1:])] = v
+            (ctypes.c_int * 12).from_address(addr)[:] = fields
+            return 1
+        return types.SimpleNamespace(
+            gcn_fused_plan=plan,
+            gcn_fused_smem_bytes=lambda bm, bk, g:
+                vmem.fused_plan(g, bm, bk).smem)
+    fused_kernel._agreed_with_library(lib_with(), "probe", 16, 128, 128)
+    for other in (dict(f0=32), dict(f4=4), dict(f6=16), dict(f9=8),
+                  dict(f10=2), dict(f11=88_320 + 16)):
+        with pytest.raises(RuntimeError, match="analysis.vmem plans"):
+            fused_kernel._agreed_with_library(lib_with(**other), "probe",
+                                              16, 128, 128)
 
 
 def test_matmul_wrapper_refuses_a_library_that_splits_otherwise():
