@@ -23,11 +23,18 @@ CUDA graphs — the device's own time, with B in L2 and L2-cold — beside the
 eager back-to-back time, and ``lm_serve`` traces one guarded decode step
 with ``torch.profiler`` (device busy time, top kernels).
 
+The chaos campaign (``repro_torch.faults``) runs on the card too: its GCN
+lane sweeps every fault site x kind through the packed two-pass path (B1
+with its accumulator ``inject=`` hook, the guard's repair tiers) at Cora's
+widths, its LM lane the weight and attention-accumulator faults through the
+guarded gemma-2b steps (B4, B5) at full width; each prints its
+by-(site, kind) table and holds the campaign's gates.
+
 One JSON object per phase is printed (``env``, ``build``, ``kernel_checks``,
 ``lm_kernels``, ``serve``, ``fault``, ``stream``, ``full_graph``,
-``lm_serve``), then the ``kernels`` summary line, the card's name and power
-limit as ``nvidia-smi`` gives them, and a last line
-``{"ok": true, "device": {...}}``.
+``campaign_gcn``, ``lm_serve``, ``campaign_lm``), then the ``kernels``
+summary line, the card's name and power limit as ``nvidia-smi`` gives them,
+and a last line ``{"ok": true, "device": {...}}``.
 
 Bounds use the published peaks of an H100 SXM: 3.35 TB/s of device memory,
 67 TFLOP/s in float32 outside the tensor cores, 989 TFLOP/s in bfloat16.
@@ -69,6 +76,16 @@ LM = dict(arch="gemma-2b", batch=2, prompt=512, new=16, seed=0,
           inject_at=3, inject_delta=25.0, flip_layer=5, flip_bit=30,
           cut_layers=2, cut_prompt=128, cut_decode=2)
 BF16_TOL = dict(matmul_abft=2e-2, flash_checksum=3e-2)   # the JAX tests'
+# the chaos campaign (repro_torch.faults): the GCN lane on the first 8
+# graphs of the served stream at Cora's widths, the default
+# sweep_models(reps=2) grid (26 models) with the accumulator upsets at the
+# fault phase's delta 50 (gated) and at the grid's own delta 1.0 (measured,
+# not gated: it may sit below tau * max(1, |actual|) at this width); the LM
+# lane on gemma-2b at full width with lm_sweep_models(reps=1)
+CAMPAIGN = dict(n_graphs=8, n_lo=SERVE["n_lo"], n_hi=SERVE["n_hi"],
+                feat=DIMS[0], hidden=DIMS[1], n_out=DIMS[2], block=128,
+                n_steps=4, reps=2, gated_delta=50.0, seed=0,
+                lm_reps=1, lm_decode=3)
 
 
 def emit(phase: str, **fields) -> None:
@@ -1306,6 +1323,164 @@ def phase_full_graph(torch, params):
     emit("full_graph", **result)
 
 
+def campaign_table(payload) -> None:
+    """The campaign's by-(site, kind) table, repair tiers and clean
+    control, one line each."""
+    from repro_torch.launch.campaign import print_table
+    print_table(payload)
+    sys.stdout.flush()
+
+
+def campaign_summary(payload) -> dict:
+    return {k: payload[k] for k in ("backend", "authoritative", "config",
+                                    "clean_control", "by_site_kind",
+                                    "repair_tiers_total")}
+
+
+def _experiments(payload, site, kind=None, nan=None):
+    """The payload's experiments of one site (and kind; ``nan``: only the
+    NaN stuck-ats, which ``FaultModel.to_dict`` writes as "nan")."""
+    return [e for e in payload["experiments"]
+            if e["model"]["site"] == site
+            and (kind is None or e["model"]["kind"] == kind)
+            and (nan is None or (e["model"]["stuck_value"] == "nan") == nan)]
+
+
+def phase_campaign_gcn(torch):
+    """The chaos campaign's GCN lane on the card: every fault site x kind
+    of ``sweep_models`` through the packed two-pass path (B1 with its
+    ``inject=`` hook) and the guard's repair tiers, at Cora's widths.
+    Gates: the delta-50 accumulator upsets detected at latency 0, the
+    sticky ones escalating; no clean flag; the NaN check-path stuck-ats
+    would-be false negatives caught by the self-check; the sticky weight
+    fault escalating as a persistent site; B1 launched, no plain version
+    called.  The delta-1.0 accumulator upsets are measured beside the hit
+    graph's threshold."""
+    import dataclasses
+
+    from repro_torch.faults import sweep_models
+    from repro_torch.faults.campaign import run_fault_campaign
+    from repro_torch.kernels import runtime
+
+    kw = {k: CAMPAIGN[k] for k in ("n_graphs", "n_lo", "n_hi", "feat",
+                                   "hidden", "n_out", "block", "seed")}
+    grid = sweep_models(reps=CAMPAIGN["reps"], seed=CAMPAIGN["seed"])
+    gated = [dataclasses.replace(m, delta=CAMPAIGN["gated_delta"])
+             if m.site == "accumulator" else m for m in grid]
+    measured = [m for m in grid if m.site == "accumulator"]
+
+    runtime.reset_counts()
+    t0 = time.perf_counter()
+    payload = run_fault_campaign(gated, n_steps=CAMPAIGN["n_steps"],
+                                 device="cuda", **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, plain = runtime.launch_counts(), runtime.plain_counts()
+    runtime.reset_counts()
+    t0 = time.perf_counter()
+    low = run_fault_campaign(measured, n_steps=CAMPAIGN["n_steps"],
+                             device="cuda", **kw)
+    torch.cuda.synchronize()
+    low_seconds = time.perf_counter() - t0
+    low_launches, low_plain = runtime.launch_counts(), runtime.plain_counts()
+
+    # the accumulator's hit graph and its clean threshold at that layer,
+    # from the campaign's own clean reference forward
+    clean = low["clean_checks"]
+    thresholds = []
+    for e in low["experiments"]:
+        m = e["model"]
+        g = clean["stripe_graph"][m["stripe"]]
+        thresholds.append(dict(
+            label=e["label"], seed=m["seed"], layer=m["layer"],
+            stripe=m["stripe"], slot=m["slot"], delta=m["delta"],
+            hit_graph=g, actual=clean["actual"][m["layer"]][g],
+            threshold=clean["threshold"][m["layer"]][g],
+            detected=e["detected"], flagged_steps=e["flagged_steps"],
+            sdc_steps=e["sdc_steps"], masked_steps=e["masked_steps"]))
+
+    print("campaign gcn (accumulator delta "
+          f"{CAMPAIGN['gated_delta']}, gated):")
+    campaign_table(payload)
+    print("campaign gcn (accumulator delta 1.0, measured):")
+    campaign_table(low)
+    emit("campaign_gcn", seconds=seconds, launches=launches,
+         plain_calls=plain, gated=campaign_summary(payload),
+         delta_1=dict(seconds=low_seconds, launches=low_launches,
+                      plain_calls=low_plain,
+                      by_site_kind=low["by_site_kind"],
+                      repair_tiers_total=low["repair_tiers_total"],
+                      hit_graph_thresholds=thresholds))
+
+    agg = payload["by_site_kind"]
+    failures = []
+    for kind in ("bitflip", "stuck"):
+        a = agg[f"accumulator/{kind}"]
+        if a["detection_rate"] != 1.0 or a["mean_detection_latency"] != 0.0:
+            failures.append(f"accumulator/{kind}: {a}")
+    if agg["accumulator/stuck"]["escalations"] != \
+            agg["accumulator/stuck"]["n"]:
+        failures.append(f"accumulator/stuck escalations "
+                        f"{agg['accumulator/stuck']}")
+    if payload["clean_control"]["flagged"] or low["clean_control"]["flagged"]:
+        failures.append(f"clean control {payload['clean_control']}")
+    for site in ("w_r", "s_c"):
+        nans = _experiments(payload, site, "stuck", nan=True)
+        if not nans or not all(e["would_be_false_negative"]
+                               and e["selfcheck_detected"] for e in nans):
+            failures.append(f"{site} NaN stuck-at: {nans}")
+    sticky = _experiments(payload, "weights", "stuck")
+    if not sticky or not all(e["escalated"]
+                             and e["repair_tiers"]["persistent_sites"]
+                             for e in sticky):
+        failures.append(f"weights/stuck: {sticky}")
+    if launches["spmm_abft"] <= 0 or low_launches["spmm_abft"] <= 0 \
+            or any(plain.values()) or any(low_plain.values()):
+        failures.append(f"launches {launches}, {low_launches}, "
+                        f"plain {plain}, {low_plain}")
+    if not payload["authoritative"]:
+        failures.append(f"payload stamp {payload['backend']}")
+    if failures:
+        raise AssertionError("campaign gcn: " + "; ".join(failures))
+    return launches
+
+
+def phase_campaign_lm(torch, cfg, master, cache_len):
+    """The chaos campaign's LM lane on the card: ``lm_sweep_models`` (qkv_w
+    and mlp_w weight faults, bit flip and stuck-at, and the attention
+    accumulator upset) through guarded prefill and decode steps of gemma-2b
+    at full width — every dense product on B4, the prefill attention on
+    B5 — on the 18-layer master the serving phase built, with guarded
+    steps for its cache length.  Gates: every gated site detected, no
+    clean flag, B4 and B5 launched, no plain version called."""
+    from repro_torch.faults.campaign import run_lm_fault_campaign
+    from repro_torch.faults.model import lm_sweep_models
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.campaign import gate_failures
+
+    models = lm_sweep_models(reps=CAMPAIGN["lm_reps"], seed=CAMPAIGN["seed"])
+    runtime.reset_counts()
+    t0 = time.perf_counter()
+    payload = run_lm_fault_campaign(
+        models, n_decode=CAMPAIGN["lm_decode"], prompt_len=LM["prompt"],
+        batch=LM["batch"], cache_len=cache_len, seed=CAMPAIGN["seed"],
+        cfg=cfg, master=master, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, plain = runtime.launch_counts(), runtime.plain_counts()
+    print("campaign lm:")
+    campaign_table(payload)
+    emit("campaign_lm", seconds=seconds, launches=launches,
+         plain_calls=plain, **campaign_summary(payload))
+    failures = gate_failures(payload, "lm")
+    if launches["matmul_abft"] <= 0 or launches["flash_checksum"] <= 0 \
+            or any(plain.values()) or not payload["authoritative"]:
+        failures.append(f"launches {launches}, plain {plain}")
+    if failures:
+        raise AssertionError("campaign lm: " + "; ".join(failures))
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # the checked-op path: guarded LM serving on matmul_abft and flash_checksum
 # ---------------------------------------------------------------------------
@@ -1931,6 +2106,9 @@ def phase_lm_serve(torch, smi):
                              f"{cut_errs} (atol {LOGIT_ATOL}, rtol "
                              f"{LM_LOGIT_RTOL}); flags "
                              f"{runs['cuda']['flags']} {runs['cpu']['flags']}")
+    # the 18-layer master is freed with this frame: the campaign's LM lane
+    # runs on it first
+    phase_campaign_lm(torch, cfg, params, cache_len)
     return {k: counts[k] for k in want}
 
 
@@ -2011,6 +2189,7 @@ def main() -> int:
     phase_fault(torch, batches, params)
     phase_stream(torch, params, smi)
     phase_full_graph(torch, params)
+    phase_campaign_gcn(torch)
     del batches, params
     launches.update(phase_lm_serve(torch, smi))
 

@@ -547,10 +547,13 @@ class StreamingEngine:
     built clean, which is what lets the ladder recover from a sticky
     backend fault.
 
-    ``checkpoint_dir=`` (a checkpoint at every degrade) and
-    ``selfcheck_interval=`` (re-deriving the folded ``w_r`` every N
-    dispatches) need the port's checkpoint and self-check modules, which
-    are not ported yet: passing either raises ``NotImplementedError``.
+    ``selfcheck_interval=`` adds a sampled-cadence check of the check
+    path itself: every N dispatches the folded ``w_r`` operands are
+    re-derived bitwise (:mod:`repro_torch.faults.selfcheck`) and a
+    mismatch refolds them and discards every runner built on the stale
+    fold.  ``checkpoint_dir=`` (a checkpoint at every degrade) needs the
+    port's checkpoint module, which is not ported yet: passing it raises
+    ``NotImplementedError``.
 
     ``params`` are moved to ``device``, which defaults to the GPU and
     raises when there is none (pass ``device="cpu"`` for the plain PyTorch
@@ -579,10 +582,6 @@ class StreamingEngine:
             raise NotImplementedError(
                 "checkpoint_dir= needs the port's checkpoint/ package, "
                 "which is not ported yet — ROADMAP A12")
-        if selfcheck_interval is not None:
-            raise NotImplementedError(
-                "selfcheck_interval= needs the port's faults/selfcheck.py, "
-                "which is not ported yet — ROADMAP A8")
         if oversize_policy not in ("singleton", "reject"):
             raise ValueError(f"oversize_policy {oversize_policy!r} not in "
                              f"('singleton', 'reject')")
@@ -619,6 +618,14 @@ class StreamingEngine:
         self._level_runners: Dict[int, PackedRunner] = {}
         self._dense_step_fn = None
         self._dense_shapes: set = set()
+        # shapes built by runners a self-check repair discarded: the
+        # bounded-shapes accounting stays cumulative across rebuilds
+        self._retired_compiles = 0
+        self._selfcheck = None
+        if selfcheck_interval is not None:
+            from repro_torch.faults.selfcheck import CheckPathSelfCheck
+            self._selfcheck = CheckPathSelfCheck(cfg,
+                                                 interval=selfcheck_interval)
         self.guard = guard if guard is not None else ABFTGuard()
         self.watchdog = watchdog
         self.hang_timeout = hang_timeout
@@ -658,6 +665,7 @@ class StreamingEngine:
         self.failovers = 0
         self.dense_dispatches = 0
         self.hang_flushes = 0
+        self.selfcheck_repairs = 0
         self._runner_for(0)           # eager level-0 runner (warmup path)
 
     # -- backend ladder ----------------------------------------------------
@@ -728,6 +736,36 @@ class StreamingEngine:
             # packed operands are backend-independent: the same block-ELL
             # pack re-runs through the degraded level's kernels
             self._dispatch(inf["pb"], rids, now)
+
+    # -- check-the-check ---------------------------------------------------
+
+    def _maybe_selfcheck(self) -> None:
+        """Sampled-cadence self-check of the checksum operands: re-derive
+        every folded w_r bitwise; a mismatch means the CHECK path is
+        corrupt (every verdict a lie), so refold and discard the runners
+        that captured the stale fold."""
+        if self._selfcheck is None:
+            return
+        bad = self._selfcheck.maybe_check(self.params,
+                                          self.batches_dispatched)
+        if bad:
+            log.error("stream: check-path self-check tripped on layer(s) "
+                      "%s — refolding w_r and rebuilding serve steps", bad)
+            self.params = self._selfcheck.repair(self.params)
+            self.selfcheck_repairs += 1
+            self._rebuild_steps()
+
+    def _rebuild_steps(self) -> None:
+        """Discard every runner and the dense step after a params repair
+        (each captured the params it was built with); the shape accounting
+        stays cumulative so the bounded-shapes contract still reports
+        honestly."""
+        self._retired_compiles += (
+            sum(r.compile_count for r in self._level_runners.values())
+            + len(self._dense_shapes))
+        self._level_runners = {}
+        self._dense_step_fn = None
+        self._dense_shapes = set()
 
     # -- intake ------------------------------------------------------------
 
@@ -909,6 +947,7 @@ class StreamingEngine:
             # the replaced backend
             self._dispatch_dense(list(pb.items), rids, now)
             return
+        self._maybe_selfcheck()
         runner = self.runner
         step = runner.step_for(pb)
         args = runner.args_for(pb)
@@ -934,6 +973,7 @@ class StreamingEngine:
         graphs, which contribute 0 = 0 to every check and can never
         flag."""
         self._drain_inflight()
+        self._maybe_selfcheck()
         k = len(items)
         pad = next_pow2(k)
         bucket = next_pow2(max(s.shape[0] for s, _ in items))
@@ -1077,7 +1117,8 @@ class StreamingEngine:
         (+ the O(log) singleton/retry/degrade ladder shapes when those
         paths fired).  The name is the JAX package's, where each shape cost
         one compile."""
-        return (sum(r.compile_count for r in self._level_runners.values())
+        return (self._retired_compiles
+                + sum(r.compile_count for r in self._level_runners.values())
                 + len(self._dense_shapes))
 
     def stats(self, results: Optional[Sequence[RequestResult]] = None
@@ -1125,4 +1166,9 @@ class StreamingEngine:
             "hang_flushes": self.hang_flushes,
             "watchdog_events": (self.watchdog.events
                                 if self.watchdog is not None else 0),
+            "selfcheck_runs": (self._selfcheck.checks_run
+                               if self._selfcheck is not None else 0),
+            "selfcheck_trips": (self._selfcheck.trips
+                                if self._selfcheck is not None else 0),
+            "selfcheck_repairs": self.selfcheck_repairs,
         }

@@ -259,13 +259,71 @@ def test_options_that_need_later_slices_raise():
     with pytest.raises(NotImplementedError, match="A12"):
         StreamingEngine(tp, TConfig(), rungs, checkpoint_dir="ckpt",
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        StreamingEngine(tp, TConfig(), rungs, selfcheck_interval=4,
-                        device="cpu")
     for bad in (dict(oversize_policy="explode"), dict(granularity="layer"),
                 dict(queue_capacity=0), dict(hang_timeout=0.0)):
         with pytest.raises(ValueError):
             StreamingEngine(tp, TConfig(), rungs, device="cpu", **bad)
+
+
+def test_engine_selfcheck_repairs_corrupted_fold_midstream():
+    """A NaN stuck in layer 0's folded w_r, in both engines mid-stream:
+    the periodic self-check finds it, refolds, discards the runners that
+    captured the stale fold, and every request is served — with the same
+    statuses, flags and counters as the reference."""
+    from repro.faults import FaultInjector as JInjector
+    from repro.faults import FaultModel as JModel
+    from repro.faults import verify_w_r as j_verify_w_r
+    from repro_torch.faults import FaultInjector, FaultModel, verify_w_r
+
+    stream = _stream(12)
+    jeng, teng = _engines(stream, selfcheck_interval=1)
+    for eng, inj, verify in (
+            (jeng, JInjector(JModel(site="w_r", kind="stuck",
+                                    stuck_value=float("nan"))),
+             j_verify_w_r),
+            (teng, FaultInjector(FaultModel(site="w_r", kind="stuck",
+                                            stuck_value=float("nan"))),
+             verify_w_r)):
+        assert inj.fires(0)
+        eng.params = inj.apply_params(eng.params)
+        assert verify(eng.params, eng.cfg) == [0]
+    stale = teng._level_runners[0]
+    jres, tres = _drive(jeng, stream), _drive(teng, stream)
+    stats = _same(jres, tres, jeng, teng)
+    jstats = jeng.stats(jres)
+    for key in ("selfcheck_runs", "selfcheck_trips", "selfcheck_repairs"):
+        assert stats[key] == jstats[key], key
+    assert stats["selfcheck_trips"] >= 1
+    assert stats["selfcheck_repairs"] >= 1
+    assert verify_w_r(teng.params, teng.cfg) == []     # refolded
+    assert all(r is not stale for r in teng._level_runners.values())
+    assert stats["served"] == len(stream)
+    assert all(r.status == "served" for r in tres)
+
+
+def test_selfcheck_interval_validation():
+    stream = _stream(4)
+    _jp, tp = _params()
+    rungs = plan_rungs(stream, n_slots=4, block=BLOCK)
+    with pytest.raises(ValueError):
+        StreamingEngine(tp, TConfig(), rungs, selfcheck_interval=0,
+                        device="cpu")
+    with pytest.raises(ValueError):
+        StreamingEngine(tp, TConfig(), rungs, hang_timeout=0.0,
+                        device="cpu")
+
+
+def test_stats_surface_the_selfcheck_counters():
+    stream = _stream(4)
+    jeng, teng = _engines(stream)
+    stats = _same(_drive(jeng, stream), _drive(teng, stream), jeng, teng)
+    for key in ("repair_tiers", "backend_ladder", "active_backend",
+                "degrade_level", "degrades", "failovers",
+                "dense_dispatches", "hang_flushes", "watchdog_events",
+                "selfcheck_runs", "selfcheck_trips", "selfcheck_repairs"):
+        assert key in stats, key
+    assert stats["selfcheck_runs"] == stats["selfcheck_trips"] == 0
+    assert stats["selfcheck_repairs"] == 0
 
 
 def test_step_never_synchronizes_and_params_move_to_the_device():
