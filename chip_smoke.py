@@ -30,9 +30,19 @@ widths, its LM lane the weight and attention-accumulator faults through the
 guarded gemma-2b steps (B4, B5) at full width; each prints its
 by-(site, kind) table and holds the campaign's gates.
 
+The paper's layer API and the sparse path run in ``sparse``: the
+quickstart's flow at full Cora (dense against sparse, two split checks
+against one fused, B1 through ``gcn_layer_fused_sparse_kernel``), then full
+NELL through ``gcn_apply_sparse`` on the ``"bcoo"`` backend against a
+float64 forward, with an injected corruption and whether cuSPARSE repeats
+bit for bit.  Stripe sharding runs in ``sharded``: full PubMed's block-ELL
+at 1, 2 and 4 shards through B1 and B2, one launch a shard, rows and stripe
+corners bit for bit the unsharded run's.
+
 One JSON object per phase is printed (``env``, ``build``, ``kernel_checks``,
 ``lm_kernels``, ``serve``, ``fault``, ``stream``, ``full_graph``,
-``campaign_gcn``, ``lm_serve``, ``campaign_lm``), then the ``kernels``
+``campaign_gcn``, ``sparse``, ``sharded``, ``lm_serve``, ``campaign_lm``),
+then the ``kernels``
 summary line, the card's name and power limit as ``nvidia-smi`` gives them,
 and a last line ``{"ok": true, "device": {...}}``.
 
@@ -86,6 +96,17 @@ CAMPAIGN = dict(n_graphs=8, n_lo=SERVE["n_lo"], n_hi=SERVE["n_hi"],
                 feat=DIMS[0], hidden=DIMS[1], n_out=DIMS[2], block=128,
                 n_steps=4, reps=2, gated_delta=50.0, seed=0,
                 lm_reps=1, lm_decode=3)
+# the sparse path (the paper's layer API and core/gcn.py over a torch sparse
+# S on the "bcoo" backend): the quickstart's flow at full Cora, then full
+# NELL (65,755 nodes, 5414 -> 64 -> 186), which only the sparse path serves
+# (its block-ELL at 128 x 128 would be 13.6 GB, dense S 17.3 GB); weights
+# from seed 0; the corrupted output element of tests/test_sparse_abft.py
+SPARSE = dict(quick="cora", graph="nell", seed=0, corrupt=(11, 7), reps=5)
+NELL_LOGIT_RTOL = 1e-6           # NELL's logits vs the f64 forward: + rtol
+# stripe sharding (engine/sharded.py): full PubMed (19,717 nodes, 500 -> 16
+# -> 3) at block 128, 155 stripes padded to 156 and staged once, 1, 2 and
+# 4 shards on one card, the two-pass (B1) and fused-layer (B2) paths
+SHARDED = dict(graph="pubmed", block=128, shards=(1, 2, 4), seed=0, reps=5)
 
 
 def emit(phase: str, **fields) -> None:
@@ -1323,6 +1344,314 @@ def phase_full_graph(torch, params):
     emit("full_graph", **result)
 
 
+def f64_forward(ds, params):
+    """The float64 GCN forward S relu(S (H0 W0)) W1 ... on the host with
+    scipy's sparse products (S and H0 stay sparse)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    def csr(coo):
+        return sp.csr_matrix((coo.data.astype(np.float64),
+                              (coo.row, coo.col)), shape=coo.shape)
+
+    s, h = csr(ds.s), csr(ds.features)
+    ws = [layer["w"].double().cpu().numpy() for layer in params["layers"]]
+    for i, w in enumerate(ws):
+        h = s @ (h @ w)
+        if i < len(ws) - 1:
+            h = np.maximum(h, 0.0)
+    return h
+
+
+def phase_sparse(torch):
+    """The paper's layer API and the sparse path on the card: the
+    quickstart's flow at full Cora (dense against sparse, split against
+    fused, B1 through gcn_layer_fused_sparse_kernel), then full NELL
+    through dataset_to_sparse and gcn_apply_sparse on the "bcoo" backend,
+    against a float64 forward; whether cuSPARSE repeats bit for bit, in
+    COO and in CSR.  Returns the B1 launches of the driven run."""
+    from repro_torch.core.abft import (ABFTConfig, Check, _total,
+                                       gcn_layer_fused,
+                                       gcn_layer_fused_sparse,
+                                       gcn_layer_split)
+    from repro_torch.core.datasets import make_dataset
+    from repro_torch.core.gcn import (dataset_to_sparse, gcn_apply,
+                                      gcn_apply_sparse, init_gcn,
+                                      precompute_s_c)
+    from repro_torch.engine import make_backend
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.spmm_abft.ops import \
+        gcn_layer_fused_sparse_kernel
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("sparse: TF32 is on — f32 products must stay "
+                             "on FFMA")
+    cfg = ABFTConfig(mode="fused", threshold=1e-3, relative=True)
+    gen = torch.Generator().manual_seed(SPARSE["seed"])
+    result = {}
+
+    # the quickstart's flow at full Cora
+    ds = make_dataset(SPARSE["quick"])
+    params = init_gcn(gen, ds.stats.layer_dims, device="cuda")
+    s_sp, h_sp, _ = dataset_to_sparse(ds, device="cuda")
+    runtime.reset_counts()
+    dense, rep_d = gcn_apply(params, ds.s.todense(), ds.features.todense(),
+                             cfg, device="cuda")
+    sparse, rep_s = gcn_apply_sparse(params, s_sp, h_sp, cfg,
+                                     precompute_s_c(s_sp, cfg),
+                                     device="cuda")
+    w0 = params["layers"][0]["w"]
+    out_split, split_checks = gcn_layer_split(s_sp, h_sp, w0, cfg,
+                                              device="cuda")
+    out_fused, fused_chk = gcn_layer_fused(s_sp, h_sp, w0, cfg,
+                                           device="cuda")
+    out_kernel, kernel_chk = gcn_layer_fused_sparse_kernel(
+        ds.s.to_block_ell(128, 128), h_sp, w0, w_r=w0.sum(dim=1),
+        device="cuda")
+    torch.cuda.synchronize()
+    launches, plain = runtime.launch_counts(), runtime.plain_counts()
+    flags = [bool(r.flag) for r in (rep_d, rep_s)] + [
+        bool(c.flag(cfg)) for c in (*split_checks, fused_chk, kernel_chk)]
+    if any(flags) or len(split_checks) != 2:
+        raise AssertionError(f"sparse cora: flags {flags}, split checks "
+                             f"{len(split_checks)}")
+    if launches["spmm_abft"] != 1 or any(
+            v for k, v in launches.items() if k != "spmm_abft") \
+            or any(plain.values()):
+        raise AssertionError(f"sparse cora: launches {launches}, plain "
+                             f"{plain}")
+    result["cora"] = dict(
+        nodes=ds.stats.nodes, dims=list(ds.stats.layer_dims),
+        sparse_vs_dense_max_abs=assert_close(
+            "cora sparse vs dense logits", sparse, dense, atol=LOGIT_ATOL,
+            rtol=0.0),
+        split_vs_fused_bitwise=bool(torch.equal(out_split, out_fused)),
+        split_vs_fused_max_abs=assert_close(
+            "cora split vs fused layer", out_split, out_fused),
+        kernel_vs_sparse_max_abs=assert_close(
+            "cora B1 layer vs sparse layer", out_kernel, out_fused),
+        checks_split=len(split_checks), checks_fused=1,
+        max_rel=float(rep_s.max_rel), launches=launches)
+    spmm_launches = launches["spmm_abft"]
+    del params, s_sp, h_sp
+
+    # full NELL on the sparse path
+    t0 = time.perf_counter()
+    ds = make_dataset(SPARSE["graph"])
+    t1 = time.perf_counter()
+    params = init_gcn(torch.Generator().manual_seed(SPARSE["seed"]),
+                      ds.stats.layer_dims, device="cuda")
+    s_sp, h_sp, _ = dataset_to_sparse(ds, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    s_c = precompute_s_c(s_sp, cfg)
+    torch.cuda.synchronize()
+    s_c_ms = (time.perf_counter() - t2) * 1e3
+    want = torch.from_numpy(f64_forward(ds, params)).to("cuda")
+    runtime.reset_counts()
+    logits, rep = gcn_apply_sparse(params, s_sp, h_sp, cfg, s_c,
+                                   device="cuda")
+    again, _ = gcn_apply_sparse(params, s_sp, h_sp, cfg, s_c, device="cuda")
+    torch.cuda.synchronize()
+    if any(runtime.launch_counts().values()) \
+            or any(runtime.plain_counts().values()):
+        raise AssertionError(f"sparse nell: kernels {runtime.launch_counts()}"
+                             f" on the bcoo path")
+    if logits.shape != want.shape or bool(rep.flag) \
+            or float(rep.max_rel) > CORNER_RTOL:
+        raise AssertionError(f"sparse nell: logits {tuple(logits.shape)}, "
+                             f"flag {bool(rep.flag)}, max_rel "
+                             f"{float(rep.max_rel):.3e}")
+    err = assert_close("nell logits vs f64", logits.double(), want,
+                       atol=LOGIT_ATOL, rtol=NELL_LOGIT_RTOL)
+    # a corrupted output element diverges past tau
+    h_out, chk = gcn_layer_fused_sparse(s_sp, h_sp,
+                                        params["layers"][0]["w"], cfg, s_c,
+                                        device="cuda")
+    bad = h_out.clone()
+    i, j = SPARSE["corrupt"]
+    bad[i, j] += 10.0 * max(float(bad.abs().max()), 1.0)
+    bad_chk = Check(predicted=chk.predicted, actual=_total(bad, cfg))
+    if bool(chk.flag(cfg)) or not bool(bad_chk.flag(cfg)):
+        raise AssertionError(f"sparse nell: clean flag {bool(chk.flag(cfg))}"
+                             f", corrupted flag {bool(bad_chk.flag(cfg))}")
+    # does cuSPARSE repeat bit for bit?  The same product twice, per layout
+    x = h_sp @ params["layers"][0]["w"]
+    repeats = {}
+    for name, layout in (("coo", torch.sparse_coo),
+                         ("csr", torch.sparse_csr)):
+        s_l = ds.s.to_sparse(device="cuda", layout=layout)
+        s_l = s_l.coalesce() if layout == torch.sparse_coo else s_l
+        a, b = torch.sparse.mm(s_l, x), torch.sparse.mm(s_l, x)
+        torch.cuda.synchronize()
+        repeats[name] = dict(bitwise=bool(torch.equal(a, b)),
+                             max_abs=max_err(a, b),
+                             ms=time_ms(lambda: torch.sparse.mm(s_l, x)))
+        del s_l
+
+    def forward():
+        gcn_apply_sparse(params, s_sp, h_sp, cfg, s_c, device="cuda")
+
+    result["nell"] = dict(
+        nodes=ds.stats.nodes, dims=list(ds.stats.layer_dims),
+        s_nnz=ds.s.nnz, features_nnz=ds.features.nnz,
+        h0_bytes=nbytes(h_sp), layout=str(s_sp.layout),
+        backend_layout=str(make_backend(s_sp, cfg, s_c=s_c,
+                                        device="cuda").s.layout),
+        logits_max_abs_err_vs_f64=err, max_rel=float(rep.max_rel),
+        flags=int(bool(rep.flag)), two_runs_bitwise=bool(
+            torch.equal(logits, again)),
+        corrupted_divergence=float(bad_chk.diff()),
+        threshold=cfg.threshold * max(1.0, abs(float(bad_chk.actual))),
+        clean_divergence=float(chk.diff()),
+        cusparse_repeats=repeats, forward_ms=time_ms(forward, warm=1,
+                                                     reps=SPARSE["reps"]),
+        s_c_precompute_ms=s_c_ms,
+        host_seconds=dict(make_dataset=t1 - t0, to_device=t2 - t1))
+    del params, s_sp, h_sp, want, x, logits, again, h_out, bad
+    torch.cuda.empty_cache()
+    emit("sparse", **result)
+    return {"spmm_abft": spmm_launches}
+
+
+def phase_sharded(torch):
+    """Stripe sharding on the card: full PubMed at block 128, staged once,
+    1, 2 and 4 shards on the two-pass (B1) and fused-layer (B2) paths at
+    layer and stripe granularity, against the unsharded run (rows and
+    stripe corners bit for bit, layer corners within rtol 1e-6) and the
+    float64 forward.  Returns the B1 and B2 launches of the driven runs."""
+    from repro_torch.core.abft import ABFTConfig, summarize
+    from repro_torch.core.datasets import make_dataset
+    from repro_torch.core.gcn import init_gcn
+    from repro_torch.engine import Graph, Partition, fold_w_r, gcn_forward
+    from repro_torch.engine.backends import BlockEllBackend
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.gcn_fused.kernel import gcn_fused_kernel
+    from repro_torch.kernels.gcn_fused.ops import prepare_fused_operands
+    from repro_torch.kernels.spmm_abft.kernel import spmm_abft_kernel
+    from repro_torch.kernels.spmm_abft.layout import pad_block_rows
+    from repro_torch.kernels.spmm_abft.ops import (device_block_ell,
+                                                   prepare_operands)
+    from repro_torch.launch.mesh import make_graph_mesh
+
+    t0 = time.perf_counter()
+    cfg = ABFTConfig(mode="fused", threshold=1e-3, relative=True)
+    ds = make_dataset(SHARDED["graph"])
+    params = fold_w_r(init_gcn(torch.Generator().manual_seed(
+        SHARDED["seed"]), ds.stats.layer_dims, device="cuda"), cfg)
+    n_layers = len(params["layers"])
+    block = SHARDED["block"]
+    raw = ds.s.to_block_ell(block, block)
+    bell = pad_block_rows(raw, max(SHARDED["shards"]))
+    staged = device_block_ell(bell, "cuda")
+    h0 = torch.from_numpy(ds.features.todense()).to("cuda")
+    graph = Graph(bell, h0)
+    want = torch.from_numpy(f64_forward(ds, params)).to("cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cols, vals = staged
+    nbm, width = bell.n_block_rows, bell.width
+    result = dict(nodes=ds.stats.nodes, dims=list(ds.stats.layer_dims),
+                  stripes=raw.n_block_rows, padded_stripes=nbm, width=width,
+                  stored_tiles=nbm * width, nonzero_tiles=bell.nnz_tiles,
+                  tile_bytes=nbytes(vals), setup_seconds=setup_s)
+    launches = {"spmm_abft": 0, "gcn_fused": 0}
+    paths = (("two_pass", {}, "spmm_abft"),
+             ("fused_layer", {"fused_layer": True}, "gcn_fused"))
+    for path, opts, kernel in paths:
+        runs = {}
+        for gran in ("layer", "stripe"):
+            def backend(part):
+                return BlockEllBackend(bell, cfg, partition=part,
+                                       granularity=gran, staged=staged,
+                                       device="cuda", **opts)
+            base_bk = backend(None)
+            base_logits, base_checks = gcn_forward(params, graph, cfg,
+                                                   backend=base_bk)
+            for n in SHARDED["shards"]:
+                tag = f"sharded {path} {gran} x{n}"
+                bk = backend(Partition(make_graph_mesh(n, device="cuda")))
+                runtime.reset_counts()
+                logits, checks = gcn_forward(params, graph, cfg, backend=bk)
+                torch.cuda.synchronize()
+                counts, plain = runtime.launch_counts(), \
+                    runtime.plain_counts()
+                others = {k: v for k, v in counts.items() if k != kernel}
+                if counts[kernel] != n * n_layers or any(others.values()) \
+                        or any(plain.values()):
+                    raise AssertionError(f"{tag}: launches {counts}, plain "
+                                         f"{plain}; expected {kernel} = "
+                                         f"{n} x {n_layers}")
+                launches[kernel] += counts[kernel]
+                if not torch.equal(logits, base_logits):
+                    raise AssertionError(f"{tag}: logits differ from the "
+                                         f"unsharded run by "
+                                         f"{max_err(logits, base_logits):.3e}"
+                                         f", not bitwise")
+                corner_err = 0.0
+                for c, b in zip(checks, base_checks):
+                    for got, ref in ((c.predicted, b.predicted),
+                                     (c.actual, b.actual)):
+                        if gran == "stripe" and not torch.equal(got, ref):
+                            raise AssertionError(f"{tag}: stripe corners "
+                                                 f"not bitwise")
+                        if not torch.allclose(got, ref, rtol=1e-6, atol=0.0):
+                            raise AssertionError(f"{tag}: layer corner "
+                                                 f"{float(got)} vs "
+                                                 f"{float(ref)}")
+                        corner_err = max(corner_err, float(
+                            ((got - ref).abs() / ref.abs().clamp(
+                                min=1e-30)).max()))
+                rep = summarize(checks, cfg)
+                if bool(rep.flag):
+                    raise AssertionError(f"{tag}: clean run flagged")
+                err = assert_close(f"{tag} logits vs f64", logits.double(),
+                                   want, atol=LOGIT_ATOL, rtol=0.0)
+                entry = dict(launches=counts[kernel], logits_bitwise=True,
+                             corners_bitwise=gran == "stripe",
+                             corner_max_rel_vs_unsharded=corner_err,
+                             logits_max_abs_err_vs_f64=err,
+                             max_rel=float(rep.max_rel))
+                if gran == "layer":
+                    entry["forward_ms"] = time_ms(
+                        lambda: gcn_forward(params, graph, cfg, backend=bk),
+                        warm=1, reps=SHARDED["reps"])
+                runs[f"{gran}_x{n}"] = entry
+            if gran == "layer":
+                runs["layer_unsharded_forward_ms"] = time_ms(
+                    lambda: gcn_forward(params, graph, cfg,
+                                        backend=base_bk),
+                    warm=1, reps=SHARDED["reps"])
+        result[path] = runs
+
+    # one shard's launch alone, layer 0's operands: B1 on S (H0 W0), B2 on
+    # H0, W0, w_r0; the slab of shard 0 at each shard count
+    w0, wr0 = params["layers"][0]["w"], params["layers"][0]["w_r"]
+    xp, xrp = prepare_operands(bell, h0 @ w0, (h0 @ wr0)[:, None], block)
+    hp, wp, wrp = prepare_fused_operands(bell, h0, w0, wr0, block)
+    out_bytes = nbm * block * (xp.shape[1] + 1) * 4 + nbm * 4
+    bound_ms = (nbytes(cols, vals, xp, xrp) + out_bytes) \
+        / PEAK_BYTES_PER_S * 1e3
+    per_launch = {}
+    for n in SHARDED["shards"]:
+        per = nbm // n
+        c, v = cols[:per], vals[:per]
+        per_launch[f"x{n}"] = dict(
+            stripes=per, b1_ms=time_ms(lambda: spmm_abft_kernel(c, v, xp,
+                                                                 xrp)),
+            b2_ms=time_ms(lambda: gcn_fused_kernel(c, v, hp, wp, wrp)))
+    result.update(
+        shard_launch_layer0=per_launch,
+        b1_bound_ms_whole_table_layer0=bound_ms,
+        b2_combination_recomputed_bytes={
+            f"x{n}": (n - 1) * nbytes(hp) for n in SHARDED["shards"]},
+        seconds=time.perf_counter() - t0)
+    del staged, cols, vals, h0, want, xp, xrp, hp
+    torch.cuda.empty_cache()
+    emit("sharded", **result)
+    return launches
+
+
 def campaign_table(payload) -> None:
     """The campaign's by-(site, kind) table, repair tiers and clean
     control, one line each."""
@@ -2191,6 +2520,9 @@ def main() -> int:
     phase_full_graph(torch, params)
     phase_campaign_gcn(torch)
     del batches, params
+    for phase in (phase_sparse, phase_sharded):
+        for name, count in phase(torch).items():
+            launches[name] += count
     launches.update(phase_lm_serve(torch, smi))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

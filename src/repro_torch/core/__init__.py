@@ -9,6 +9,38 @@ Public surface:
   fault     — bit-flip fault-injection engine (paper Table I)
 """
 from . import fault, opcount  # noqa: F401
+from .abft import (  # noqa: F401
+    ABFTConfig,
+    ABFTReport,
+    ChainOp,
+    Check,
+    CheckedOp,
+    MatmulOp,
+    check_chain,
+    check_matmul,
+    checked_matmul,
+    fold_w_r_tree,
+    gcn_layer,
+    gcn_layer_fused,
+    gcn_layer_fused_sparse,
+    gcn_layer_sparse,
+    gcn_layer_split,
+    gcn_layer_split_sparse,
+    merge_reports,
+    per_op_report,
+    resolve_w_r,
+    sparse_col_checksum,
+    sparse_matmul,
+    summarize,
+)
+from .checksum import (  # noqa: F401
+    col_checksum,
+    fused_chain_checksum,
+    kahan_total,
+    predicted_matmul_checksum,
+    row_checksum,
+    total_checksum,
+)
 from .fault import (  # noqa: F401
     CampaignSummary,
     NumpyGCN,

@@ -30,6 +30,8 @@ from typing import Any, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
+
 from .checksum import (
     col_checksum,
     kahan_total,
@@ -160,6 +162,15 @@ def check_matmul(a: Tensor, b: Tensor, c: Tensor, cfg: ABFTConfig,
         b_r = resolve_w_r(b, b_r, cfg)
         pred = torch.einsum("...k,...k->...", col_checksum(a, cfg.dtype), b_r)
     return Check(predicted=pred, actual=_total(c, cfg))
+
+
+def checked_matmul(a: Tensor, b: Tensor, cfg: ABFTConfig
+                   ) -> tuple[Tensor, Optional[Check]]:
+    """Compute a @ b and (mode-dependent) its ABFT check."""
+    c = torch.matmul(a, b)
+    if not cfg.enabled:
+        return c, None
+    return c, check_matmul(a, b, c, cfg)
 
 
 def check_chain(mats: Sequence[Tensor], out: Tensor, cfg: ABFTConfig
@@ -372,6 +383,130 @@ def per_op_report(checks: Sequence[Optional[Check]], cfg: ABFTConfig, *,
 
 
 # ---------------------------------------------------------------------------
+# The paper's GCN layer checks, both dataflows.
+# ---------------------------------------------------------------------------
+
+def gcn_layer_split(s: Any, h: Tensor, w: Tensor, cfg: ABFTConfig, *,
+                    device: DeviceLike = "cuda"
+                    ) -> tuple[Tensor, tuple[Check, Check]]:
+    """Baseline ABFT (eqs. 2–3): combination-first, two separate checks."""
+    return gcn_layer_split_sparse(s, h, w, cfg, device=device)
+
+
+def gcn_layer_fused(s: Any, h: Tensor, w: Tensor, cfg: ABFTConfig, *,
+                    device: DeviceLike = "cuda"
+                    ) -> tuple[Tensor, Check]:
+    """GCN-ABFT (eqs. 4–6): single fused check s_c H w_r vs e^T H_out e.
+
+    H carries *no* check state: we only form w_r = W e (offline in a real
+    deployment), the extra column x_r = H w_r during the first multiply, and
+    s_c = e^T S (offline for static graphs).
+    """
+    return gcn_layer_fused_sparse(s, h, w, cfg, device=device)
+
+
+def gcn_layer(s: Any, h: Tensor, w: Tensor, cfg: ABFTConfig, *,
+              device: DeviceLike = "cuda"
+              ) -> tuple[Tensor, list[Check]]:
+    """Policy dispatch used by the GCN model."""
+    return gcn_layer_sparse(s, h, w, cfg, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Canonical layer implementations, generic over the adjacency (a ``torch``
+# sparse tensor, COO or CSR, or dense S — the dense gcn_layer* wrappers
+# above delegate here).  Only the aggregation product and the s_c checksum
+# honour sparsity.  For a static graph s_c = e^T S never changes — compute
+# it once offline (:func:`sparse_col_checksum`) and pass it to every
+# layer/step.
+# ---------------------------------------------------------------------------
+
+def _is_sparse(s: Any) -> bool:
+    """A ``torch`` sparse tensor in COO or CSR layout."""
+    return isinstance(s, Tensor) and s.layout in (torch.sparse_coo,
+                                                  torch.sparse_csr)
+
+
+def sparse_matmul(s: Any, x: Tensor) -> Tensor:
+    """S @ X for sparse or dense S."""
+    return torch.sparse.mm(s, x) if _is_sparse(s) else torch.matmul(s, x)
+
+
+def sparse_col_checksum(s: Any, dtype: torch.dtype = torch.float32
+                        ) -> Tensor:
+    """e^T S without densifying: O(nnz) over the column indices.
+
+    This is the offline s_c precompute for static graphs — call it once per
+    graph and thread the result through :func:`gcn_layer_fused_sparse`.
+    For a sparse S it is built once on the host in one fixed order
+    (``np.bincount``, float64, then cast to ``dtype``) and placed on S's
+    device: ``index_add_`` on CUDA adds floats with atomics, in an order
+    that changes from run to run.
+    """
+    if not _is_sparse(s):
+        return col_checksum(torch.as_tensor(s), dtype)
+    if s.layout == torch.sparse_csr:
+        cols, data = s.col_indices(), s.values()
+    else:
+        cols, data = s._indices()[1], s._values()
+    sums = np.bincount(cols.cpu().numpy(), minlength=s.shape[1],
+                       weights=data.cpu().numpy().astype(np.float64))
+    return torch.from_numpy(sums).to(dtype).to(s.device)
+
+
+def _engine_layer(s: Any, h: Tensor, w: Tensor, cfg: ABFTConfig,
+                  s_c: Optional[Tensor], mode: str, device: DeviceLike
+                  ) -> tuple[Tensor, list[Check]]:
+    """Delegate one layer to the unified engine under a forced mode.
+
+    The eq. 4–6 algebra lives in ``repro_torch/engine/api.py``; these entry
+    points stay for callers that address a single layer directly.  ``h``
+    and ``w`` move to ``device``.  Imports are deferred: the engine imports
+    this module for Check/summarize.
+    """
+    from repro_torch.engine import gcn_layer as engine_gcn_layer
+    from repro_torch.engine import make_backend
+
+    if cfg.mode != mode:
+        cfg = dataclasses.replace(cfg, mode=mode)
+    dev = resolve_device(device)
+    bk = make_backend(s, cfg, s_c=s_c if cfg.enabled else None, device=dev)
+    return engine_gcn_layer(bk, torch.as_tensor(h).to(dev),
+                            torch.as_tensor(w).to(dev), cfg)
+
+
+def gcn_layer_fused_sparse(s: Any, h: Tensor, w: Tensor, cfg: ABFTConfig,
+                           s_c: Optional[Tensor] = None, *,
+                           device: DeviceLike = "cuda"
+                           ) -> tuple[Tensor, Check]:
+    """GCN-ABFT (eqs. 4–6) with a sparse aggregation operand.
+
+    Identical check algebra to :func:`gcn_layer_fused`; ``s_c`` should be
+    the offline precompute for static graphs (recomputed O(nnz) when not
+    supplied, which is still cheap but wasteful across layers/steps).
+    """
+    h_out, checks = _engine_layer(s, h, w, cfg, s_c, "fused", device)
+    return h_out, checks[0]
+
+
+def gcn_layer_split_sparse(s: Any, h: Tensor, w: Tensor, cfg: ABFTConfig,
+                           s_c: Optional[Tensor] = None, *,
+                           device: DeviceLike = "cuda"
+                           ) -> tuple[Tensor, tuple[Check, Check]]:
+    """Baseline split ABFT (eqs. 2–3) over a sparse aggregation operand."""
+    h_out, checks = _engine_layer(s, h, w, cfg, s_c, "split", device)
+    return h_out, (checks[0], checks[1])
+
+
+def gcn_layer_sparse(s: Any, h: Tensor, w: Tensor, cfg: ABFTConfig,
+                     s_c: Optional[Tensor] = None, *,
+                     device: DeviceLike = "cuda"
+                     ) -> tuple[Tensor, list[Check]]:
+    """Policy dispatch used by the sparse GCN model path."""
+    return _engine_layer(s, h, w, cfg, s_c, cfg.mode, device)
+
+
+# ---------------------------------------------------------------------------
 # Segment reductions over a sorted stripe -> graph map.
 #
 # ``segments`` assigns each row-stripe to a graph slot; padding stripes
@@ -576,6 +711,11 @@ def per_slot_report(checks: Sequence[Optional[Check]], cfg: ABFTConfig,
         flags.append(f)
         rels.append(r)
     return torch.stack(flags), torch.stack(rels)
+
+
+def np_size(x: Any) -> int:
+    """Element count of a tensor or array."""
+    return int(x.numel()) if isinstance(x, Tensor) else int(np.size(x))
 
 
 def merge_reports(reports: Sequence[ABFTReport]) -> ABFTReport:

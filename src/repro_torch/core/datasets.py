@@ -1,7 +1,8 @@
 """Synthetic stand-ins for the paper's four GCN applications.
 
 The port's own numpy copy of the JAX package's ``repro/core/datasets.py``
-(minus the BCOO view): the same seed gives the same graphs.
+(its BCOO view is ``Coo.to_sparse``, a ``torch`` sparse tensor): the same
+seed gives the same graphs.
 
 The container is offline, so Cora/Citeseer/PubMed/Nell are generated to the
 *published* statistics (nodes, undirected edges, feature nnz, feature dim,
@@ -120,6 +121,21 @@ class Coo:
         out = np.zeros(self.shape, np.float32)
         np.add.at(out, (self.row, self.col), self.data)
         return out
+
+    def to_sparse(self, device="cuda", layout=None):
+        """``torch`` sparse view on ``device`` — the counterpart of the JAX
+        package's BCOO view.  COO (the default) keeps duplicate entries
+        uncoalesced; the product accumulates them, matching todense +
+        np.add.at.  ``layout=torch.sparse_csr`` sums them while converting."""
+        import torch
+
+        from repro_torch.device import resolve_device
+        idx = torch.from_numpy(np.stack([self.row, self.col]))
+        s = torch.sparse_coo_tensor(idx, torch.from_numpy(self.data),
+                                    self.shape, check_invariants=True)
+        if layout is not None and layout != torch.sparse_coo:
+            s = s.to_sparse(layout=layout)
+        return s.to(resolve_device(device))
 
     def to_block_ell(self, block_m: int = 128, block_k: int = 128):
         """Padded block-ELL layout for the spmm_abft kernel."""

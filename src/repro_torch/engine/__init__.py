@@ -2,7 +2,10 @@
 
 Public surface:
   api       — Graph, gcn_layer, gcn_forward, gcn_apply (the entry point)
-  backends  — AggregationBackend (a CheckedOp) + dense/block_ell registry
+  backends  — AggregationBackend (a CheckedOp) + dense/bcoo/block_ell
+              registry
+  sharded   — Partition: block-ELL row-stripes split over devices, one
+              kernel launch a shard, partial checks summed in shard order
   batching  — bucketed padding and block-diagonal packing of variable-size
               graphs for batched serving
   localize  — the stripe- and slot-surgical repair tiers
@@ -42,6 +45,11 @@ from .localize import (  # noqa: F401
     gather_stripe_system,
     surgical_slot_retry,
     surgical_stripe_retry,
+)
+from .sharded import (  # noqa: F401
+    Partition,
+    sharded_gcn_fused,
+    sharded_spmm_abft,
 )
 from .streaming import (  # noqa: F401
     PackedRunner,

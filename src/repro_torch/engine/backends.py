@@ -15,16 +15,20 @@ When ``x_r`` is given, the returned :class:`~repro_torch.core.abft.Check`
 holds ``predicted = s_c @ x_r`` (equivalently ``Σ S x_r`` — the kernel
 backend never materializes s_c online) and ``actual = Σ H_out``.
 
-Two built-in backends, selected by name or inferred from the operand:
+Three built-in backends, selected by name or inferred from the operand:
 
   * ``dense``     — ``torch.matmul`` over a dense S; batched leading axes ok.
+  * ``bcoo``      — a ``torch`` sparse S (COO or CSR) through
+                    ``torch.sparse.mm``, with the O(nnz) offline s_c
+                    (``sparse_col_checksum``).  The JAX package computes
+                    this product outside any Pallas kernel too.
   * ``block_ell`` — the CUDA spmm_abft kernel over a padded block-ELL
-                    layout; the check rides the kernel's fused epilogue.
+                    layout; the check rides the kernel's fused epilogue,
+                    and a :class:`~repro_torch.engine.sharded.Partition`
+                    splits the row-stripes over devices, one launch a
+                    shard, with the partial corners summed in shard order.
 
-Counterpart of the JAX package's ``repro/engine/backends.py``.  The sparse
-COO backend and stripe sharding across devices (``partition=``) are not
-ported yet; ``partition=`` raises ``NotImplementedError`` naming its
-ROADMAP item.
+Counterpart of the JAX package's ``repro/engine/backends.py``.
 
 New backends register with :func:`register_backend`; the registry is the
 single dispatch point for ``gcn_apply(..., backend=...)``.
@@ -37,8 +41,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.abft import (GRANULARITIES, ABFTConfig, Check,
-                                   CheckedOp, _total, check_matmul,
-                                   segment_sum)
+                                   CheckedOp, _is_sparse, _total,
+                                   check_matmul, segment_sum,
+                                   sparse_col_checksum)
 from repro_torch.core.checksum import col_checksum, row_checksum
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -86,6 +91,8 @@ def infer_backend(s: Any) -> str:
     from repro_torch.kernels.spmm_abft.layout import BlockEll
     if isinstance(s, (BlockEll, PackedGraphs)):
         return "block_ell"
+    if _is_sparse(s):
+        return "bcoo"
     return "dense"
 
 
@@ -212,6 +219,42 @@ class DenseBackend(AggregationBackend):
                             granularity=self.granularity)
 
 
+@register_backend("bcoo")
+class BcooBackend(AggregationBackend):
+    """S as a ``torch`` sparse tensor (COO or CSR; the JAX package's BCOO);
+    s_c is the O(nnz) offline column sum (``sparse_col_checksum``) shared
+    across layers/steps.  A COO operand is converted to CSR once here
+    (duplicates summed): ``torch.sparse.mm`` would otherwise coalesce and
+    convert it on every product.  On an H100 both layouts repeat bit for
+    bit across runs, and at full NELL the CSR product takes 0.064 ms
+    against COO's 0.230 (``chip_smoke.py``, phase ``sparse``)."""
+
+    def __init__(self, s: Any, cfg: ABFTConfig, *,
+                 s_c: Optional[Tensor] = None, partition=None,
+                 granularity: str = "layer", device: DeviceLike = "cuda"):
+        if partition is not None:
+            raise ValueError("bcoo backend does not support partition=; "
+                             "use backend='block_ell'")
+        self.granularity = _validate_granularity("bcoo", granularity,
+                                                 ("layer",))
+        if not _is_sparse(s):
+            raise TypeError("bcoo backend needs a torch sparse (COO or CSR) "
+                            "operand; convert with Coo.to_sparse")
+        self.device = resolve_device(device)
+        s = s.to(self.device)
+        self.s = s.to_sparse_csr() if s.layout == torch.sparse_coo else s
+        self.cfg = cfg
+        self.s_c = s_c if s_c is not None else (
+            sparse_col_checksum(self.s, cfg.dtype) if cfg.enabled else None)
+
+    def aggregate(self, x, x_r):
+        h_out = torch.sparse.mm(self.s, x)
+        if x_r is None:
+            return h_out, None
+        pred = torch.einsum("...k,...k->...", self.s_c, x_r)
+        return h_out, Check(predicted=pred, actual=_total(h_out, self.cfg))
+
+
 @register_backend("block_ell")
 class BlockEllBackend(AggregationBackend):
     """S as a host-side padded block-ELL (``kernels/spmm_abft/layout.py``);
@@ -243,8 +286,14 @@ class BlockEllBackend(AggregationBackend):
     follow the port's predicate, which takes Cora's widths at block 128
     where the JAX package's TPU predicate does not.
 
-    ``partition=`` (stripes sharded across devices) is not ported yet and
-    raises ``NotImplementedError``.
+    With ``partition=Partition(mesh, axis)`` the row-stripes split over the
+    mesh's devices (``engine/sharded.py``): the layout is padded to a
+    multiple of the shard count, each shard makes one launch on its slab,
+    and the per-shard (predicted, actual) partials add in shard order into
+    the global check — the single-device corner, because the checksum is
+    linear.  Stripe corners concatenate; slot corners, ``inject=`` and
+    packed batches are refused under a partition, and :meth:`network`
+    declines (the per-layer ladder runs), as in the reference.
 
     ``granularity="stripe"`` declines every collapse: the kernels' per-
     row-stripe checksum partials stay individual corners ([n_block_rows]
@@ -260,6 +309,10 @@ class BlockEllBackend(AggregationBackend):
     element mid-flight, in whichever kernel runs that layer (whole-network,
     fused single-layer or the two-pass spmm — all three carry the hook, so
     the fallback paths are injectable too).
+
+    ``staged=(cols, vals)`` hands over device tensors of ``s`` (as padded
+    for the partition) that the caller staged once, so several backends
+    over one layout share one copy of its tile table.
     """
 
     def __init__(self, s: Any, cfg: ABFTConfig, *,
@@ -269,9 +322,11 @@ class BlockEllBackend(AggregationBackend):
                  vmem_budget: Optional[int] = None,
                  granularity: Optional[str] = None,
                  inject: Optional[Tuple[int, int, int, float]] = None,
+                 staged: Optional[Tuple[Tensor, Tensor]] = None,
                  device: DeviceLike = "cuda"):
         from repro_torch.engine.batching import PackedGraphs
-        from repro_torch.kernels.spmm_abft.layout import BlockEll
+        from repro_torch.kernels.spmm_abft.layout import (BlockEll,
+                                                          pad_block_rows)
         from repro_torch.kernels.spmm_abft.ops import device_block_ell
         self._init_options(cfg, block_g, fused_layer, fused_network,
                            vmem_budget, partition)
@@ -280,6 +335,10 @@ class BlockEllBackend(AggregationBackend):
         self._set_granularity(granularity, packed=packed)
         self._set_inject(inject)
         if packed:
+            if partition is not None:
+                raise ValueError("packed block-diagonal batches do not "
+                                 "support partition= (stripes already "
+                                 "interleave graphs)")
             self.segments = torch.from_numpy(s.stripe_graph).to(self.device)
             self.n_slots = s.n_slots
             s = s.bell
@@ -288,18 +347,24 @@ class BlockEllBackend(AggregationBackend):
                             "PackedGraphs operand; convert with "
                             "dense_to_block_ell/coo_to_block_ell or "
                             "engine.batching.pack_graphs")
+        elif partition is not None:
+            s = pad_block_rows(s, partition.n_shards)
         self.bell = s
-        self.cols, self.vals = device_block_ell(s, self.device)
+        if staged is None:
+            self.cols, self.vals = device_block_ell(s, self.device)
+        elif (tuple(staged[1].shape) != s.values.shape
+              or tuple(staged[0].shape) != s.block_cols.shape):
+            raise ValueError(f"staged tables {tuple(staged[1].shape)} are "
+                             f"not the layout's {s.values.shape} (padded "
+                             f"for the partition)")
+        else:
+            self.cols, self.vals = staged
 
     def _init_options(self, cfg, block_g, fused_layer, fused_network,
                       vmem_budget, partition):
-        if partition is not None:
-            raise NotImplementedError(
-                "partition= (row-stripes sharded across devices) is not "
-                "ported yet — ROADMAP A11")
         self.cfg = cfg
         self.block_g = block_g
-        self.partition = None
+        self.partition = partition
         self.fused_layer = fused_layer
         self.fused_network = fused_network
         self.vmem_budget = vmem_budget
@@ -318,13 +383,24 @@ class BlockEllBackend(AggregationBackend):
         # graph segmentation to offer
         supported = (("graph", "stripe", "slot") if packed
                      else ("layer", "stripe", "slot"))
+        if granularity == "slot" and self.partition is not None:
+            raise ValueError(
+                "granularity='slot' is not plumbed through the sharded "
+                "path (sharded_gcn_fused collapses each shard's partials "
+                "before the sum) — use granularity='stripe' there")
         self.granularity = _validate_granularity("block_ell", granularity,
                                                  supported)
 
     def _set_inject(self, inject):
-        if inject is not None and len(inject) != 4:
-            raise ValueError("inject is (layer, stripe, slot, delta); "
-                             f"got {inject!r}")
+        if inject is not None:
+            if self.partition is not None:
+                raise ValueError("inject= is not plumbed through the "
+                                 "sharded path (sharded_gcn_fused runs the "
+                                 "kernel without the hook) — injecting "
+                                 "there would silently run clean")
+            if len(inject) != 4:
+                raise ValueError("inject is (layer, stripe, slot, delta); "
+                                 f"got {inject!r}")
         self.inject = inject
         # which whole-layer call the injection lands in
         self._layer_calls = 0
@@ -397,6 +473,12 @@ class BlockEllBackend(AggregationBackend):
                                     block_g=self.block_g,
                                     granularity=self.granularity,
                                     inject=inject)
+        if self.partition is not None:
+            from .sharded import sharded_gcn_fused
+            return sharded_gcn_fused(self.bell, self.cols, self.vals, h, w,
+                                     w_r, self.partition,
+                                     block_g=self.block_g,
+                                     granularity=self.granularity)
         return gcn_fused_layer(self.bell, h, w, w_r, block_g=self.block_g,
                                granularity=self.granularity, inject=inject,
                                _staged=(self.cols, self.vals))
@@ -409,10 +491,11 @@ class BlockEllBackend(AggregationBackend):
         per-layer and pre-activation.
 
         Falls back to the per-layer ladder (returns ``NotImplemented``)
-        when the option is off or ``fused_network_fits`` declines the
-        model at this block shape and shared-memory budget.
+        when the option is off, the operand is sharded, or
+        ``fused_network_fits`` declines the model at this block shape and
+        shared-memory budget.
         """
-        if not self.fused_network:
+        if not self.fused_network or self.partition is not None:
             return NotImplemented
         from repro_torch.kernels.gcn_fused.ops import (
             FUSED_SMEM_BUDGET,
@@ -494,6 +577,11 @@ class BlockEllBackend(AggregationBackend):
                                     self.segments, num_segments=self.n_slots,
                                     block_g=self.block_g, granularity=gran,
                                     inject=inject)
+        if self.partition is not None:
+            from .sharded import sharded_spmm_abft
+            return sharded_spmm_abft(self.bell, self.cols, self.vals, x,
+                                     xr_col, self.partition,
+                                     block_g=self.block_g, granularity=gran)
         from repro_torch.kernels.spmm_abft.ops import spmm_abft
         out, chk = spmm_abft(self.bell, x, xr_col, block_g=self.block_g,
                              granularity=gran, inject=inject,

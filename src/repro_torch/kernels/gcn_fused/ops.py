@@ -173,6 +173,15 @@ def gcn_fused_packed(cols: Tensor, vals: Tensor, h: Tensor, w: Tensor,
     return res[0][:, :g], chk
 
 
+def gcn_fused_auto(bell: BlockEll, h: Tensor, w: Tensor,
+                   w_r: Optional[Tensor] = None, *, block_g: int = 128
+                   ) -> Tuple[Tensor, Optional[Check]]:
+    """Same as :func:`gcn_fused_layer`: the reference resolves interpret
+    mode here, the port dispatches on ``h``'s device in the kernel
+    wrapper."""
+    return gcn_fused_layer(bell, h, w, w_r, block_g=block_g)
+
+
 # ---------------------------------------------------------------------------
 # Whole-network fusion: L layers in ONE launch.
 # ---------------------------------------------------------------------------
@@ -373,3 +382,24 @@ def schedule_bytes_network(bell: BlockEll, dims: Sequence[int], *,
                     + 2 * tiles)                                # sweep
         traffic += rows * gp if ell == len(dims) - 2 else rows * g
     return itemsize * traffic
+
+
+# The JAX package's names for the same three models (its ``hbm_bytes_*``);
+# ``block_g`` and ``stash_acts`` are accepted for parity of the call — the
+# port pads G to the register-tile quantum whatever ``block_g`` says, and
+# its stashed activations are the network kernel's own buffers.
+
+def hbm_bytes_twopass(bell: BlockEll, f: int, g: int, *, block_g: int = 128,
+                      itemsize: int = 4) -> int:
+    return schedule_bytes_twopass(bell, f, g, itemsize=itemsize)
+
+
+def hbm_bytes_fused(bell: BlockEll, f: int, g: int, *, block_g: int = 128,
+                    itemsize: int = 4) -> int:
+    return schedule_bytes_fused(bell, f, g, itemsize=itemsize)
+
+
+def hbm_bytes_network(bell: BlockEll, dims: Sequence[int], *,
+                      block_g: int = 128, stash_acts: bool = False,
+                      itemsize: int = 4) -> int:
+    return schedule_bytes_network(bell, dims, itemsize=itemsize)

@@ -198,8 +198,12 @@ def require_cuda_operands(what: str, *, allow=None, **tensors) -> None:
     """The kernels' operand contract: CUDA, one device, contiguous, 16-byte
     aligned, of a dtype the kernel takes — ``allow`` (default float32 only,
     the GCN kernels; the checked-op kernels pass float32 and bfloat16),
-    ``cols`` always int32.  Raises on anything else — there is no silent
-    copy or cast on the launch path."""
+    ``cols`` always int32.  The float operands are copied by TMA and bulk
+    copies, which need 16-byte aligned addresses (a stripe slab of ``vals``
+    starts stripes x width x bm x bk floats in, with bk % 4 == 0, so it
+    stays aligned); ``cols`` is read one index at a time, so a slab of it
+    needs only its 4-byte alignment.  Raises on anything else — there is no
+    silent copy or cast on the launch path."""
     import torch
 
     allow = (torch.float32,) if allow is None else tuple(allow)
@@ -219,8 +223,9 @@ def require_cuda_operands(what: str, *, allow=None, **tensors) -> None:
                              f"kernel takes {' or '.join(map(str, want))}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} is not contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: {name} is not 16-byte aligned")
+        align = 4 if name == "cols" else 16
+        if t.data_ptr() % align:
+            raise ValueError(f"{what}: {name} is not {align}-byte aligned")
 
 
 def _wrappers():

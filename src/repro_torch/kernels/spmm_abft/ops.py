@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.analysis.vmem import _lanes
-from repro_torch.core.abft import Check, segment_sum
+from repro_torch.core.abft import ABFTConfig, Check, segment_sum
 from repro_torch.device import DeviceLike, resolve_device
 
 from .kernel import spmm_abft_kernel
@@ -194,3 +194,38 @@ def spmm_abft_packed(cols: Tensor, vals: Tensor, x: Tensor,
         return out, stripe_check_corners(stripe_sums, extra)
     return out, packed_check_corners(stripe_sums, extra, segments,
                                      num_segments)
+
+
+def spmm_abft_auto(bell: BlockEll, x: Tensor, xr: Optional[Tensor] = None,
+                   *, block_g: int = 128) -> Tuple[Tensor, Check]:
+    """Same as :func:`spmm_abft`: the reference resolves interpret mode
+    here, the port dispatches on ``x``'s device in the kernel wrapper."""
+    return spmm_abft(bell, x, xr, block_g=block_g)
+
+
+def gcn_layer_fused_sparse_kernel(bell: BlockEll, h: Tensor, w: Tensor, *,
+                                  w_r: Optional[Tensor] = None,
+                                  block_g: int = 128,
+                                  device: DeviceLike = "cuda"
+                                  ) -> Tuple[Tensor, Check]:
+    """One GCN layer H_out = S (H W) with the single fused GCN-ABFT check
+    (eqs. 4–6), aggregation through the block-ELL kernel (B1) on
+    ``device``.
+
+    Thin shim over the unified engine (``repro_torch.engine``): the eq. 4–6
+    algebra lives in ``engine/api.py``; this backend only contributes the
+    kernel aggregation, whose fused epilogue carries x_r = H w_r so
+    Check.predicted = Σ S H w_r = s_c H w_r with no online s_c pass.
+    ``w_r`` (= W·e) is offline in a deployment — fold it at weight-load time.
+    """
+    from repro_torch.engine import gcn_layer, make_backend
+
+    cfg = ABFTConfig(mode="fused", dtype=torch.float32)
+    bk = make_backend(bell, cfg, backend="block_ell", block_g=block_g,
+                      device=device)
+    h = torch.as_tensor(h).to(bk.device)
+    w = torch.as_tensor(w).to(bk.device)
+    w_r_vec = None if w_r is None else torch.as_tensor(w_r).to(
+        bk.device).reshape(-1)
+    h_out, checks = gcn_layer(bk, h, w, cfg, w_r=w_r_vec)
+    return h_out, checks[0]

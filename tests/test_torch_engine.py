@@ -24,7 +24,10 @@ from repro_torch.engine import Graph as TGraph
 from repro_torch.engine import (backend_names, fold_w_r, gcn_apply,
                                 gcn_forward, make_backend, pack_graphs,
                                 synth_graph_stream)
-from repro_torch.engine.backends import BlockEllBackend, DenseBackend
+from repro_torch.engine import Partition
+from repro_torch.engine.backends import (BcooBackend, BlockEllBackend,
+                                         DenseBackend)
+from repro_torch.launch.mesh import make_graph_mesh
 from repro_torch.kernels.spmm_abft.layout import dense_to_block_ell
 
 DIMS = (13, 16, 12, 5)          # three layers
@@ -209,11 +212,13 @@ def test_backend_registry_and_validation():
     s, h0 = _graph(seed=6)
     bell = dense_to_block_ell(s, 8, 8)
     cfg = TConfig()
-    assert backend_names() == ("block_ell", "dense")
+    assert backend_names() == ("bcoo", "block_ell", "dense")
     assert isinstance(make_backend(bell, cfg, device="cpu"), BlockEllBackend)
     assert isinstance(make_backend(s, cfg, device="cpu"), DenseBackend)
+    sparse = torch.from_numpy(s).to_sparse()
+    assert isinstance(make_backend(sparse, cfg, device="cpu"), BcooBackend)
     with pytest.raises(ValueError, match="unknown engine backend"):
-        make_backend(s, cfg, backend="bcoo", device="cpu")
+        make_backend(s, cfg, backend="csr", device="cpu")
     with pytest.raises(TypeError):
         make_backend(s, cfg, backend="block_ell", device="cpu")
     with pytest.raises(TypeError):
@@ -227,8 +232,10 @@ def test_backend_registry_and_validation():
         make_backend(bell, cfg, inject=(0, 1, 2.0), device="cpu")
     net = make_backend(bell, cfg, fused_network=True, device="cpu")
     assert isinstance(net, BlockEllBackend) and net.fused_network
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_backend(bell, cfg, partition=object(), device="cpu")
+    part = Partition(make_graph_mesh(2, device="cpu"))
+    sharded = make_backend(bell, cfg, partition=part, device="cpu")
+    assert sharded.partition is part
+    assert sharded.bell.n_block_rows % 2 == 0
     bk = make_backend(bell, cfg, device="cpu")
     assert bk.network(None, [], [], cfg) is NotImplemented
     with pytest.raises(ValueError, match="single-graph"):

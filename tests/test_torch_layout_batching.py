@@ -6,6 +6,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import datasets as jds
 from repro.core import gcn as jgcn
@@ -203,4 +204,8 @@ def test_reduced_dataset_copy_is_equal():
     _same_bell(a.s.to_block_ell(16, 16), b.s.to_block_ell(16, 16))
     for x, y in zip(tgcn.dataset_to_dense(a), jgcn.dataset_to_dense(b)):
         assert np.array_equal(x, y)
-    assert not hasattr(a.s, "to_bcoo")
+    want = np.asarray(b.s.to_bcoo().todense())
+    for layout in (torch.sparse_coo, torch.sparse_csr):
+        s = a.s.to_sparse(device="cpu", layout=layout)
+        assert s.layout == layout
+        assert np.array_equal(s.to_dense().numpy(), want)
