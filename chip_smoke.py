@@ -14,7 +14,11 @@ the streaming server — at the published widths of Cora's 2-layer GCN
 (1433 -> 16 -> 7), and the checked-op path — guarded LM serving (prefill,
 greedy decode, the retry and restore ladder) at gemma-2b's published widths,
 all 18 layers, float32, on the ``matmul_abft`` and ``flash_checksum``
-kernels — through the entry points a user would call.  Any phase that fails
+kernels, then the same at the full widths of qwen1.5-4b, chatglm3-6b and
+h2o-danube-3-4b (``lm_archs``; danube's 5120-token prompt runs past its
+4096-key sliding window, which ``flash_checksum`` masks), and guarded GAT
+serving on ``matmul_abft`` over full Cora and full PubMed (``gat``) —
+through the entry points a user would call.  Any phase that fails
 raises and the run exits non-zero; without a CUDA device it exits non-zero
 before printing anything.
 
@@ -39,10 +43,15 @@ bit for bit.  Stripe sharding runs in ``sharded``: full PubMed's block-ELL
 at 1, 2 and 4 shards through B1 and B2, one launch a shard, rows and stripe
 corners bit for bit the unsharded run's.
 
+``lm_kernels`` also holds B4 at every launch shape the three other LMs
+add and B5 at each of their served prefill attentions (danube's with its
+window) and at small ragged windowed shapes.
+
 One JSON object per phase is printed (``env``, ``build``, ``kernel_checks``,
 ``lm_kernels``, ``serve``, ``fault``, ``stream``, ``full_graph``,
-``campaign_gcn``, ``sparse``, ``sharded``, ``lm_serve``, ``campaign_lm``),
-then the ``kernels``
+``campaign_gcn``, ``sparse``, ``sharded``, ``gat`` (one a graph),
+``lm_serve``, ``campaign_lm``, ``lm_archs`` (one a model)), then the
+``kernels``
 summary line, the card's name and power limit as ``nvidia-smi`` gives them,
 and a last line ``{"ok": true, "device": {...}}``.
 
@@ -51,6 +60,7 @@ Bounds use the published peaks of an H100 SXM: 3.35 TB/s of device memory,
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -73,6 +83,10 @@ SERVE = dict(n_graphs=16, n_lo=1500, n_hi=2708, avg_deg=4, batch=8,
 STREAM = dict(n_requests=32, profile=16, n_slots=4)
 OUT_ATOL = OUT_RTOL = 1e-4       # kernel vs plain version, every output
 CORNER_RTOL = 1e-4               # clean |pred - actual| / max(1, |actual|)
+# a clean LM check element over CORNER_RTOL passes only with its float64
+# witness (clean_witness): each f32 rounding step between its two sides
+# within one unit roundoff of the sum of |terms| that step rounds
+U32 = 2.0 ** -24
 LOGIT_ATOL = 1e-4                # vs the float64 dense forward
 # the LM's logits card vs CPU: 1e-4, plus 1e-6 of |logit| — one f32 spacing
 # is 1.22e-4 at |logit| >= 1024, which gemma's logit of the input token
@@ -86,6 +100,27 @@ LM = dict(arch="gemma-2b", batch=2, prompt=512, new=16, seed=0,
           inject_at=3, inject_delta=25.0, flip_layer=5, flip_bit=30,
           cut_layers=2, cut_prompt=128, cut_decode=2)
 BF16_TOL = dict(matmul_abft=2e-2, flash_checksum=3e-2)   # the JAX tests'
+# the other attention decoders the port serves, each at its published
+# widths, all layers, float32, seeded weights (LM's seed, upset and bit
+# flip, and card-vs-CPU cut): qwen1.5-4b (MHA, QKV bias, untied head of
+# 152,064), chatglm3-6b (GQA 16, half-dim RoPE, QKV bias) and
+# h2o-danube-3-4b (GQA 4 at head 120, window 4096 — its 5120-token prompt
+# runs past the window, so the last 1024 queries lose keys in prefill and
+# every decode step masks by it); each master is freed before the next.
+ARCHS = (
+    dict(arch="qwen1.5-4b", batch=2, prompt=512, cache=528, new=8),
+    dict(arch="chatglm3-6b", batch=2, prompt=512, cache=528, new=8),
+    dict(arch="h2o-danube-3-4b", batch=1, prompt=5120, cache=5136, new=8))
+# B5's sliding window at small ragged shapes: T = S = 257 (B, H, Kh, dh),
+# and danube's head dim at a short window
+FLASH_WINDOWS = (1, 31, 32, 33, 100, 300)
+# guarded GAT (engine/gat.py): the adjacency pattern of make_dataset(graph,
+# normalize=False), A + I, dense on the card, its raw features, weights
+# from seed 0; 64 is the published GAT's hidden width (8 heads x 8,
+# arXiv:1710.10903), served as the engine's single head
+GAT = (dict(graph="cora", dims=(1433, 64, 7)),
+       dict(graph="pubmed", dims=(500, 64, 3)))
+GAT_SEED, GAT_DELTA, GAT_FLIP = 0, 50.0, dict(layer=1, index=5, bit=30)
 # the chaos campaign (repro_torch.faults): the GCN lane on the first 8
 # graphs of the served stream at Cora's widths, the default
 # sweep_models(reps=2) grid (26 models) with the accumulator upsets at the
@@ -1823,21 +1858,32 @@ def lm_config():
     return dataclasses.replace(get_config(LM["arch"]), dtype="float32")
 
 
-def lm_matmul_shapes(cfg):
-    """Every (M, K, N, trans_b) the LM run launches matmul_abft at, with its
-    launches per prefill and per decode step."""
+def arch_config(name):
+    """A registered architecture at its published widths, served in
+    float32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(name), dtype="float32")
+
+
+def lm_matmul_shapes(cfg, batch=LM["batch"], prompt=LM["prompt"]):
+    """Every (M, K, N, trans_b) an LM run of ``cfg`` at ``batch`` x
+    ``prompt`` launches matmul_abft at, with its launches per prefill and
+    per decode step."""
     d, hq = cfg.d_model, cfg.n_heads * cfg.hd
     hkv, ff, n = cfg.n_kv_heads * cfg.hd, cfg.d_ff, cfg.n_layers
     per_layer = [(d, hq), (d, hkv), (d, hkv), (hq, d), (d, ff), (d, ff),
                  (ff, d)]
     shapes = {}
-    for m, step in ((LM["batch"] * LM["prompt"], "prefill"),
-                    (LM["batch"], "decode")):
+    for m, step in ((batch * prompt, "prefill"), (batch, "decode")):
         for k, nn in per_layer:
             shapes.setdefault((m, k, nn, False), {"prefill": 0, "decode": 0})
             shapes[(m, k, nn, False)][step] += n
-    # the tied head: the last position of each sequence, both steps
-    head = (LM["batch"], d, cfg.padded_vocab, True)
+    # the head: the last position of each sequence, both steps — the tied
+    # one multiplies by the embedding table as it lies (B^T), an untied one
+    # by its [d, V] weight
+    head = (batch, d, cfg.padded_vocab, cfg.tie_embeddings)
     shapes[head] = {"prefill": 1, "decode": 1}
     return shapes
 
@@ -1968,13 +2014,14 @@ def check_matmul_shape(torch, m, k, n, trans_b, dtype, gen, timed):
     return entry
 
 
-def flash_bound(torch, b, t, s, h, kh, dh, dtype):
+def flash_bound(torch, b, t, s, h, kh, dh, dtype, window=0):
     """Least time of one causal launch: q, k, v, vr, o, o_extra once against
-    the causal pairs' work (q·k and p·v over dh, p·vr) at the type's peak."""
+    the valid pairs' work (q·k and p·v over dh, p·vr) at the type's peak;
+    with a sliding window a query's pairs are at most ``window``."""
     item = torch.empty((), dtype=dtype).element_size()
     n_bytes = item * (2 * b * t * h * dh + 2 * b * s * kh * dh + b * s * h) \
         + 4 * b * t * h
-    pairs = b * h * sum(min(i + 1, s) for i in range(t))
+    pairs = b * h * sum(min(i + 1, s, window or s) for i in range(t))
     n_ops = pairs * (4 * dh + 2)
     peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     t_b, t_o = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / peak * 1e3
@@ -1982,53 +2029,66 @@ def flash_bound(torch, b, t, s, h, kh, dh, dtype):
         n_bytes, n_ops
 
 
-def sdpa_ms(torch, q, k, v, backends):
+def sdpa_ms(torch, q, k, v, backends, mask=None):
     """Milliseconds of one causal ``scaled_dot_product_attention`` call on
     the first of ``backends`` (``SDPBackend`` names) that takes the operands
-    (q, k, v in its [B, H, T, d] layout), timed as every kernel is — the
-    yardstick only; nothing in the port calls it.  Returns (ms, backend) or
-    (None, why each backend refused)."""
+    (q, k, v in its [B, H, T, d] layout; ``mask``, a boolean [T, S] of the
+    valid pairs, in place of ``is_causal`` for a sliding window), timed as
+    every kernel is — the yardstick only; nothing in the port calls it.
+    Returns (ms, backend) or (None, why each backend refused)."""
     import torch.nn.functional as F
+    kw = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
     refused = []
     for name in backends:
         try:
             from torch.nn.attention import SDPBackend, sdpa_kernel
             with sdpa_kernel(getattr(SDPBackend, name)):
-                F.scaled_dot_product_attention(q, k, v, is_causal=True)
+                F.scaled_dot_product_attention(q, k, v, **kw)
                 torch.cuda.synchronize()
                 return time_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True)), name
+                    q, k, v, **kw)), name
         except Exception as exc:  # the backend refuses these operands
             why = str(exc).splitlines()[0][:160] if str(exc) else ""
             refused.append(f"{name}: {type(exc).__name__}: {why}")
     return None, "; ".join(refused)
 
 
-def sdpa_library_ms(torch, q, k, v, vr):
+def sdpa_library_ms(torch, q, k, v, vr, window=0):
     """SDPA yardsticks of a ``flash_checksum`` launch: o and o_extra
     together (vr as an extra value column, 257 wide at dh 256) on the
     memory-efficient backend, else the math one; and o alone (v, dh wide)
-    on the memory-efficient backend.  Returns a dict of both times and the
-    backend that served each (or why none did)."""
-    h = q.shape[2]
+    on the memory-efficient backend; a sliding window as a boolean mask.
+    Returns a dict of both times and the backend that served each (or why
+    none did)."""
+    h, t, s = q.shape[2], q.shape[1], k.shape[1]
     g = h // k.shape[2]
     qt = q.transpose(1, 2).contiguous()
     kt = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
     vt = v.repeat_interleave(g, dim=2)
     vv = torch.cat([vt, vr[..., None]], dim=-1).transpose(1, 2).contiguous()
-    ms, backend = sdpa_ms(torch, qt, kt, vv, ("EFFICIENT_ATTENTION", "MATH"))
+    mask = None
+    if window:
+        i = torch.arange(t, device=q.device)[:, None]
+        j = torch.arange(s, device=q.device)[None, :]
+        mask = (j <= i) & (j > i - window)
+    ms, backend = sdpa_ms(torch, qt, kt, vv, ("EFFICIENT_ATTENTION", "MATH"),
+                          mask)
     o_ms, o_backend = sdpa_ms(torch, qt, kt, vt.transpose(1, 2).contiguous(),
-                              ("EFFICIENT_ATTENTION",))
+                              ("EFFICIENT_ATTENTION",), mask)
+    how = "is_causal=True" if not window else \
+        f"attn_mask=(j <= i) & (j > i - {window})"
     return dict(library_ms=ms, library_backend=backend,
-                library_note="F.scaled_dot_product_attention(q, k, [v | vr], "
-                             "is_causal=True)",
+                library_note=f"F.scaled_dot_product_attention(q, k, [v | vr], "
+                             f"{how})",
                 library_o_only_ms=o_ms, library_o_only_backend=o_backend)
 
 
-def check_flash_shape(torch, b, t, s, h, kh, dh, dtype, gen, timed):
+def check_flash_shape(torch, b, t, s, h, kh, dh, dtype, gen, timed,
+                      window=0):
     """flash_checksum kernel vs plain (with and without the column), the
     chain identity Σ o_extra = Σ (o W_o) as a clean corner, a corrupted
-    accumulator that must diverge; optionally its times."""
+    accumulator that must diverge; optionally its times.  ``window`` > 0:
+    the sliding window's mask."""
     from repro_torch.kernels.flash_checksum.kernel import (
         flash_checksum_kernel, flash_checksum_plain)
     from repro_torch.kernels.flash_checksum.ops import (carried_column,
@@ -2043,20 +2103,21 @@ def check_flash_shape(torch, b, t, s, h, kh, dh, dtype, gen, timed):
           * (h * dh) ** -0.5)
     w_or = wo.sum(dim=1).reshape(h, dh)
     vr = carried_column(v, w_or, h).to(dtype)
-    tag = f"flash_checksum B={b} T={t} S={s} H={h} Kh={kh} dh={dh} {dtype}"
+    tag = f"flash_checksum B={b} T={t} S={s} H={h} Kh={kh} dh={dh} " \
+        f"window={window} {dtype}"
     tol = OUT_ATOL if dtype == torch.float32 else BF16_TOL["flash_checksum"]
-    got = flash_checksum_kernel(q, k, v, vr)
+    got = flash_checksum_kernel(q, k, v, vr, window=window)
     torch.cuda.synchronize()
-    want = flash_checksum_plain(q, k, v, vr)
+    want = flash_checksum_plain(q, k, v, vr, window=window)
     worst = max(assert_close(f"{tag} o", got[0].float(), want[0].float(),
                              atol=tol, rtol=tol),
                 assert_close(f"{tag} o_extra", got[1], want[1],
                              atol=max(tol, OUT_ATOL) * 2,
                              rtol=max(tol, OUT_RTOL) * 2))
-    o_bare, ex_bare = flash_checksum_kernel(q, k, v, None)
+    o_bare, ex_bare = flash_checksum_kernel(q, k, v, None, window=window)
     if ex_bare is not None or not torch.equal(o_bare, got[0]):
         raise AssertionError(f"{tag}: o without the carried column differs")
-    again = flash_checksum_kernel(q, k, v, vr)
+    again = flash_checksum_kernel(q, k, v, vr, window=window)
     if not all(torch.equal(x, y) for x, y in zip(again, got)):
         raise AssertionError(f"{tag}: a second run differs")
     o, ex = got
@@ -2077,25 +2138,25 @@ def check_flash_shape(torch, b, t, s, h, kh, dh, dtype, gen, timed):
     if not div > 1e-3 * max(1.0, float(chk.actual.abs())):
         raise AssertionError(f"{tag}: a corrupted accumulator diverges by "
                              f"only {div}")
-    entry = dict(b=b, t=t, s=s, h=h, kh=kh, dh=dh, dtype=str(dtype),
-                 max_abs_err=worst, max_rel_corner=rel,
+    entry = dict(b=b, t=t, s=s, h=h, kh=kh, dh=dh, window=window,
+                 dtype=str(dtype), max_abs_err=worst, max_rel_corner=rel,
                  corrupted_divergence=div, repeat_bitwise=True)
     if timed:
         bound, by, n_bytes, n_ops = flash_bound(torch, b, t, s, h, kh, dh,
-                                                dtype)
+                                                dtype, window)
 
         def kern():
-            return flash_checksum_kernel(q, k, v, vr)
+            return flash_checksum_kernel(q, k, v, vr, window=window)
         # one yardstick with B1's: 10 launches after 2 warm-up ones, 50, and
         # the device's own time from a CUDA graph; and the wrapper's host
         # dispatch, which bounds the eager times from below
         entry.update(
             ms=time_ms(kern), ms_50=time_ms(kern, reps=50),
             device_ms=device_ms(kern), host_dispatch_ms=host_ms(kern),
-            plain_ms=time_ms(lambda: flash_checksum_plain(q, k, v, vr),
-                             warm=1, reps=2),
+            plain_ms=time_ms(lambda: flash_checksum_plain(
+                q, k, v, vr, window=window), warm=1, reps=2),
             bound_ms=bound, bound_by=by, bytes=n_bytes, flops=n_ops,
-            **sdpa_library_ms(torch, q, k, v, vr))
+            **sdpa_library_ms(torch, q, k, v, vr, window))
     return entry
 
 
@@ -2140,6 +2201,41 @@ def phase_lm_kernels(torch):
         for shape in ((1, 100, 100, 4, 2, 64), (2, 128, 256, 4, 2, 64),
                       (1, 70, 70, 4, 4, 16), (1, 33, 50, 2, 2, 70))
         for dt in (torch.float32, torch.bfloat16)]
+
+    # the other served models: B4 at every launch shape they add (f32,
+    # prefill and decode, the untied heads), B5 at each served prefill
+    # attention (danube's with its window), then windowed B5 at small
+    # ragged shapes, f32 and bf16
+    checked = {(e["m"], e["k"], e["n"], e["trans_b"]): e for e in per_shape}
+    arch_steps, flash_archs = {}, []
+    for spec in ARCHS:
+        acfg = arch_config(spec["arch"])
+        ashapes = lm_matmul_shapes(acfg, spec["batch"], spec["prompt"])
+        for key, counts in ashapes.items():
+            if key not in checked:
+                checked[key] = check_matmul_shape(torch, *key, torch.float32,
+                                                  gen, True)
+            checked[key].setdefault("launches_per_step_by_arch", {})[
+                acfg.name] = counts
+        arch_steps[acfg.name] = {
+            step: {k: sum(checked[key][k] * c[step]
+                          for key, c in ashapes.items() if c[step])
+                   for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            for step in ("prefill", "decode")}
+        arch_steps[acfg.name]["decode"]["device_ms"] = sum(
+            checked[key]["device_ms"] * c["decode"]
+            for key, c in ashapes.items() if c["decode"])
+        flash_archs.append(check_flash_shape(
+            torch, spec["batch"], spec["prompt"], spec["prompt"],
+            acfg.n_heads, acfg.n_kv_heads, acfg.hd, torch.float32, gen, True,
+            window=acfg.window))
+        flash_archs[-1]["arch"] = acfg.name
+    arch_matmul = [e for key, e in checked.items() if key not in shapes]
+    flash_window = [
+        check_flash_shape(torch, *shape, dt, gen, False, window=w)
+        for shape, windows in (((1, 257, 257, 4, 2, 64), FLASH_WINDOWS),
+                               ((1, 300, 300, 8, 2, 120), (64,)))
+        for w in windows for dt in (torch.float32, torch.bfloat16)]
 
     def step_ms(key, step):
         return sum(e[key] * e["launches_per_step"][step] for e in per_shape
@@ -2201,6 +2297,8 @@ def phase_lm_kernels(torch):
                                       corner_rtol=CORNER_RTOL),
          matmul_f32=per_shape, matmul_bf16=bf16, matmul_ragged=ragged,
          flash_f32=flash_main, flash_other=flash_other, per_step=per_step,
+         matmul_archs=arch_matmul, arch_per_step=arch_steps,
+         flash_archs=flash_archs, flash_window=flash_window,
          prefill_shapes=prefill, thin_ptxas=thin_ptxas,
          wide_ptxas=wide_ptxas, flash_ptxas=flash_ptxas,
          kernels=list(entries.values()))
@@ -2238,30 +2336,28 @@ def lm_trajectory(torch, step_prefill, step_decode, tokens, n_new, *,
     return out_logits, out_tokens, times
 
 
-def phase_lm_serve(torch, smi):
-    """The checked-op main path: LMEngine at gemma-2b's full width, all 18
-    layers, f32 — guarded == unguarded bit for bit with no clean flag, an
-    accumulator upset on a decode step and a wq bit flip each detected and
-    repaired bit for bit, every product on matmul_abft and every prefill
-    attention on flash_checksum; then the same params cut to 2 layers on the
-    card against the CPU (the plain versions)."""
+def lm_gates(torch, cfg, params, spec, cache_len):
+    """The guarded-LM gates on one full-width master ``params`` of ``cfg``
+    (``spec``: batch, prompt, new, and LM's seed, upset and bit flip):
+    LMEngine guarded == unguarded bit for bit with no clean flag, every
+    product on matmul_abft and every prefill attention on flash_checksum;
+    an accumulator upset on a decode step and a wq bit flip each detected
+    and repaired bit for bit; then the same params cut to 2 layers, the
+    card against the CPU (the plain versions).  Returns the measurements;
+    raises on any gate but the cut's, which :func:`_raise_unless_cut_ok`
+    holds after the caller has printed the numbers."""
     from repro_torch.core.abft import ABFTConfig
     from repro_torch.engine.lm import LMEngine, fold_lm_w_r
     from repro_torch.kernels import runtime
-    from repro_torch.models.transformer import (init_model, model_decode,
-                                                model_prefill)
+    from repro_torch.models.transformer import model_decode, model_prefill
 
-    cfg = lm_config()
+    spec = {**LM, **spec}
+    tag = cfg.name
     abft = ABFTConfig(mode="fused", threshold=1e-3, relative=True)
     off = ABFTConfig(mode="none")
-    cache_len = LM["prompt"] + LM["new"]
-    t_init = time.perf_counter()
-    params = init_model(cfg, LM["seed"], device="cuda")
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t_init
     eng = LMEngine(cfg, abft, params, cache_len=cache_len)
-    gen = torch.Generator(device="cuda").manual_seed(LM["seed"] + 1)
-    tokens = torch.randint(1, cfg.vocab_size, (LM["batch"], LM["prompt"]),
+    gen = torch.Generator(device="cuda").manual_seed(spec["seed"] + 1)
+    tokens = torch.randint(1, cfg.vocab_size, (spec["batch"], spec["prompt"]),
                            generator=gen, device="cuda", dtype=torch.int32)
     per_prefill = cfg.n_layers * 7 + 1
     torch.cuda.reset_peak_memory_stats()
@@ -2274,7 +2370,7 @@ def phase_lm_serve(torch, smi):
                                        cache_len)[:2],
         lambda st, tok, pos, inj: model_decode(params, cfg, st, tok, pos,
                                                off)[:2],
-        tokens, LM["new"])
+        tokens, spec["new"])
     ref_counts = runtime.launch_counts()
 
     # the main path: the guarded engine, clean
@@ -2291,54 +2387,54 @@ def phase_lm_serve(torch, smi):
     metrics = []
     runtime.reset_counts()
     logits, toks, step_ms = lm_trajectory(torch, g_prefill, g_decode, tokens,
-                                          LM["new"])
+                                          spec["new"])
     counts, plain = runtime.launch_counts(), runtime.plain_counts()
-    want = {"matmul_abft": per_prefill * (LM["new"] + 1),
+    want = {"matmul_abft": per_prefill * (spec["new"] + 1),
             "flash_checksum": cfg.n_layers}
     others = {k: v for k, v in counts.items() if k not in want}
     if {k: counts[k] for k in want} != want or any(others.values()) \
             or any(plain.values()) or ref_counts != counts:
-        raise AssertionError(f"lm_serve: launches {counts} (want {want}, "
+        raise AssertionError(f"{tag}: launches {counts} (want {want}, "
                              f"unguarded {ref_counts}), plain {plain}")
     identical = all(torch.equal(a, b) for a, b in zip(logits, ref_logits)) \
         and all(torch.equal(a, b) for a, b in zip(toks, ref_tokens))
     if not identical or eng.guard.flags:
-        raise AssertionError(f"lm_serve: guarded trajectory bit-identical "
+        raise AssertionError(f"{tag}: guarded trajectory bit-identical "
                              f"{identical}, clean flags {eng.guard.flags}")
     ids = metrics[0]["abft_op_ids"]
     if len(ids) != 7 * cfg.n_layers + 1 or ids[0] != "op0:L0" \
             or ids[-1] != "op7":
-        raise AssertionError(f"lm_serve: op ids {ids[:3]}..{ids[-2:]}")
+        raise AssertionError(f"{tag}: op ids {ids[:3]}..{ids[-2:]}")
     max_rel = max(float(m["abft_max_rel"]) for m in metrics)
-    if not max_rel <= CORNER_RTOL:
-        raise AssertionError(f"lm_serve: clean max_rel {max_rel:.3e}")
+    witness = clean_witness(torch, cfg, eng.params, abft, tokens, toks,
+                            cache_len, logits)
+    if witness["max_rel"] != max_rel or not all(
+            w["rounding"] for w in witness["over_tol"]):
+        raise AssertionError(f"{tag}: clean max_rel {max_rel:.3e} (replay "
+                             f"{witness['max_rel']:.3e}); over "
+                             f"{CORNER_RTOL}: {witness['over_tol']}")
     finite = all(bool(torch.isfinite(x[..., :cfg.vocab_size]).all())
                  for x in logits)
-    shape_ok = tuple(logits[0].shape) == (LM["batch"], 1, cfg.padded_vocab)
+    shape_ok = tuple(logits[0].shape) == (spec["batch"], 1,
+                                          cfg.padded_vocab)
     if not (finite and shape_ok):
-        raise AssertionError(f"lm_serve: logits finite {finite}, shape "
+        raise AssertionError(f"{tag}: logits finite {finite}, shape "
                              f"{tuple(logits[0].shape)}")
-
-    # where a guarded decode step's time goes on the device
-    _, st0, _ = eng.prefill(tokens)
-    trace = decode_trace(torch, lambda: eng.decode(
-        st0, toks[0], LM["prompt"], inject=0.0))
-    del st0
 
     # a transient accumulator upset on one decode step: one retry, bit for bit
     flags0, retries0 = eng.guard.flags, eng.guard.retries
     metrics = []
-    inj_logits, inj_toks, _ = lm_trajectory(
-        torch, g_prefill, g_decode, tokens, LM["new"],
-        inject_at=LM["inject_at"], delta=LM["inject_delta"])
-    inject = dict(decode_step=LM["inject_at"], delta=LM["inject_delta"],
+    inj_logits, _, _ = lm_trajectory(
+        torch, g_prefill, g_decode, tokens, spec["new"],
+        inject_at=spec["inject_at"], delta=spec["inject_delta"])
+    inject = dict(decode_step=spec["inject_at"], delta=spec["inject_delta"],
                   flags=eng.guard.flags - flags0,
                   retries=eng.guard.retries - retries0,
                   bitwise=all(torch.equal(a, b) for a, b in
                               zip(inj_logits, ref_logits)))
     if inject["flags"] != 1 or inject["retries"] != 1 \
             or not inject["bitwise"]:
-        raise AssertionError(f"lm_serve: injected upset {inject}")
+        raise AssertionError(f"{tag}: injected upset {inject}")
 
     # a bit flip in one layer's wq after load: a corrupted clone replaces
     # the working leaf (the master shares the tensor and stays pristine)
@@ -2349,33 +2445,34 @@ def phase_lm_serve(torch, smi):
     wq = dict(attn["wq"])
     w = wq["w"].clone()
     word = w.view(torch.int32)
-    word[LM["flip_layer"], 0, 0, 0] ^= (1 << LM["flip_bit"])
+    word[spec["flip_layer"], 0, 0, 0] ^= (1 << spec["flip_bit"])
     wq["w"], attn["wq"], b0["attn"], seg["b0"] = w, wq, attn, b0
     eng.params = dict(eng.params, segments=[seg])
     metrics = []
     flip_logits, _, _ = lm_trajectory(torch, g_prefill, g_decode, tokens, 2)
-    flip = dict(layer=LM["flip_layer"], bit=LM["flip_bit"],
+    flip = dict(layer=spec["flip_layer"], bit=spec["flip_bit"],
                 flags=eng.guard.flags - flags0,
                 restores=eng.guard.restores - restores0,
                 bitwise=all(torch.equal(a, b) for a, b in
                             zip(flip_logits, ref_logits)),
                 master_pristine=not torch.equal(
                     params["segments"][0]["b0"]["attn"]["wq"]["w"], w))
+    del w, word, wq, attn, b0, seg
     if flip["flags"] != 1 or flip["restores"] != 1 or not flip["bitwise"] \
             or not flip["master_pristine"]:
-        raise AssertionError(f"lm_serve: weight flip {flip}")
+        raise AssertionError(f"{tag}: weight flip {flip}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # the same params cut to 2 layers: the card against the CPU's plain
-    # versions, prefill and decode logits within LOGIT_ATOL
-    n_cut = LM["cut_layers"]
+    # versions, prefill and decode logits within LOGIT_ATOL + LM_LOGIT_RTOL
     import dataclasses
+    n_cut = spec["cut_layers"]
     cut_cfg = dataclasses.replace(cfg, n_layers=n_cut)
     cut = dict(params, segments=[{"b0": {
         key: _slice_tree(val, n_cut)
         for key, val in params["segments"][0]["b0"].items()}}])
-    cut_tokens = tokens[:, :LM["cut_prompt"]]
-    cut_len = LM["cut_prompt"] + LM["cut_decode"]
+    cut_tokens = tokens[:, :spec["cut_prompt"]]
+    cut_len = spec["cut_prompt"] + spec["cut_decode"]
     runs = {}
     for dev in ("cuda", "cpu"):
         p_dev = _tree_to(cut, dev)
@@ -2385,60 +2482,451 @@ def phase_lm_serve(torch, smi):
                                     {"tokens": cut_tokens.to(dev)}, abft,
                                     cut_len)
         outs, flags = [lg], [bool(rep.flag)]
-        for i in range(LM["cut_decode"]):
+        for i in range(spec["cut_decode"]):
             nxt = _argmax_tokens(torch, outs[-1])
             lg, st, rep = model_decode(folded, cut_cfg, st, nxt,
-                                       LM["cut_prompt"] + i, abft)
+                                       spec["cut_prompt"] + i, abft)
             outs.append(lg)
             flags.append(bool(rep.flag))
         runs[dev] = dict(logits=[x.cpu() for x in outs], flags=flags,
                          seconds=time.perf_counter() - t0)
-        del p_dev, folded
+        del p_dev, folded, st
     pairs = [(a[..., :cfg.vocab_size], b[..., :cfg.vocab_size])
              for a, b in zip(runs["cuda"]["logits"], runs["cpu"]["logits"])]
     cut_errs = [max_err(a, b) for a, b in pairs]
-    cut_err = max(cut_errs)
     # max |card - CPU| / (atol + rtol |CPU|): at most 1 passes
     cut_ratio = [float(((a - b).abs() / (LOGIT_ATOL + LM_LOGIT_RTOL
                                           * b.abs())).max()) for a, b in pairs]
     cut_ok = max(cut_ratio) <= 1.0 and not any(runs["cuda"]["flags"]) \
         and not any(runs["cpu"]["flags"])
-
     prefill_ms, decode_ms = step_ms[0], step_ms[1:]
-    emit("lm_serve", nvidia_smi=smi, model=cfg.name, dtype=cfg.dtype,
-         layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
-         kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, d_ff=cfg.d_ff,
-         vocab=cfg.vocab_size, batch=LM["batch"], prompt=LM["prompt"],
-         new=LM["new"], cache_len=cache_len, init_seconds=t_init,
-         launches=counts, plain_calls=plain,
-         launches_per_step=dict(matmul_abft=per_prefill,
-                                flash_checksum_per_prefill=cfg.n_layers),
-         clean=dict(bitwise_identical=identical, flags=0, max_rel=max_rel,
-                    op_ids=len(ids)),
-         prefill_ms=prefill_ms, unguarded_prefill_ms=ref_ms[0],
-         decode_ms_per_step=sum(decode_ms) / len(decode_ms),
-         decode_ms_min_max=[min(decode_ms), max(decode_ms)],
-         unguarded_decode_ms_per_step=sum(ref_ms[1:]) / len(ref_ms[1:]),
-         decode_trace=trace,
-         inject=inject, weight_flip=flip, peak_memory_gb=peak_gb,
-         cut=dict(layers=n_cut, prompt=LM["cut_prompt"],
-                  decode=LM["cut_decode"], max_abs_err_card_vs_cpu=cut_err,
-                  per_step_max_abs_err=cut_errs,
-                  per_step_gate_ratio=cut_ratio,
-                  max_abs_logit=max(float(b.abs().max()) for _, b in pairs),
-                  tolerance=dict(atol=LOGIT_ATOL, rtol=LM_LOGIT_RTOL),
-                  card_seconds=runs["cuda"]["seconds"],
-                  cpu_seconds=runs["cpu"]["seconds"]),
-         guard=eng.stats())
-    if not cut_ok:      # reported above first, so the numbers are kept
-        raise AssertionError(f"2-layer logits card vs CPU, per step: "
-                             f"{cut_errs} (atol {LOGIT_ATOL}, rtol "
-                             f"{LM_LOGIT_RTOL}); flags "
-                             f"{runs['cuda']['flags']} {runs['cpu']['flags']}")
-    # the 18-layer master is freed with this frame: the campaign's LM lane
-    # runs on it first
+    return dict(
+        eng=eng, tokens=tokens, toks=toks, counts=counts, want=want,
+        cut_ok=cut_ok, cut_errs=cut_errs, cut_flags=(runs["cuda"]["flags"],
+                                                     runs["cpu"]["flags"]),
+        fields=dict(
+            model=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers,
+            d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.hd, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+            padded_vocab=cfg.padded_vocab, window=cfg.window,
+            batch=spec["batch"], prompt=spec["prompt"], new=spec["new"],
+            cache_len=cache_len, launches=counts, plain_calls=plain,
+            launches_per_step=dict(
+                prefill=dict(matmul_abft=per_prefill,
+                             flash_checksum=cfg.n_layers),
+                decode=dict(matmul_abft=per_prefill, flash_checksum=0)),
+            clean=dict(bitwise_identical=identical, flags=0, max_rel=max_rel,
+                       op_ids=len(ids), over_tol=witness["over_tol"],
+                       largest=witness["largest"]),
+            prefill_ms=prefill_ms, unguarded_prefill_ms=ref_ms[0],
+            decode_ms_per_step=sum(decode_ms) / len(decode_ms),
+            decode_ms_min_max=[min(decode_ms), max(decode_ms)],
+            unguarded_decode_ms_per_step=sum(ref_ms[1:]) / len(ref_ms[1:]),
+            inject=inject, weight_flip=flip, peak_memory_gb=peak_gb,
+            cut=dict(layers=n_cut, prompt=spec["cut_prompt"],
+                     decode=spec["cut_decode"],
+                     max_abs_err_card_vs_cpu=max(cut_errs),
+                     per_step_max_abs_err=cut_errs,
+                     per_step_gate_ratio=cut_ratio,
+                     max_abs_logit=max(float(b.abs().max())
+                                       for _, b in pairs),
+                     tolerance=dict(atol=LOGIT_ATOL, rtol=LM_LOGIT_RTOL),
+                     card_seconds=runs["cuda"]["seconds"],
+                     cpu_seconds=runs["cpu"]["seconds"])))
+
+
+class _Witnessed:
+    """``dense``'s :class:`MatmulAbftOp`, keeping beside each checked
+    product the float64 values its corner is held to
+    (:func:`clean_witness`): the corner's two f32 sides, S, P, P_r, Σ|C|,
+    Σ|A||B| and Σ|A||w_r|."""
+
+    def __init__(self, torch, op):
+        self.torch, self.op, self.rows = torch, op, []
+
+    def __call__(self, cfg, a, b, *, w_r=None):
+        from repro_torch.core.abft import resolve_w_r
+        y, chk = self.op(cfg, a, b, w_r=w_r)
+        if chk is not None:
+            f64 = self.torch.float64
+            wr = resolve_w_r(b, w_r, cfg).reshape(-1).to(f64)
+            col, col_abs = a.sum(0, dtype=f64), a.abs().sum(0, dtype=f64)
+            self.rows.append(self.torch.stack([
+                chk.predicted.to(f64), chk.actual.to(f64), y.sum(dtype=f64),
+                col @ b.sum(1, dtype=f64), col @ wr, y.abs().sum(dtype=f64),
+                col_abs @ b.abs().sum(1, dtype=f64), col_abs @ wr.abs()]))
+        return y, chk
+
+
+def clean_witness(torch, cfg, params, abft, tokens, toks, cache_len, want):
+    """Replays the guarded clean trajectory (the prompt, then the guarded
+    run's tokens ``toks``; every step's logits must equal ``want``'s bit
+    for bit) with each ``dense`` product witnessed in float64.  Returns the
+    guard's largest clean ``|pred - actual| / max(1, |actual|)`` and, for
+    every check element over CORNER_RTOL and for the largest, the witness
+    of its gap, four f32 rounding steps that sum to it exactly:
+
+        actual - predicted = (actual - S) + (S - P) + (P - P_r)
+                             + (P_r - predicted)
+
+    S is the float64 sum of the served output C = A B, P = (eᵀA)(B e) and
+    P_r = (eᵀA) w_r in float64 from the f32 operands and the folded w_r:
+    the block sums' rounding, C's own, the fold's and the predicted
+    column's.  Each term's ratio is |term| over one unit roundoff of the
+    |terms| it rounds (Σ|C|, Σ|A||B|, Σ|A||B|, Σ|A||w_r|); the textbook
+    bound of such a sum is n units, so ``rounding`` (every ratio ≤ 1) holds
+    only for f32 rounding, never for a wrong product or corner.  An element
+    no ``dense`` product made (an attention corner, a tied head) has no
+    witness and is not ``rounding``."""
+    from repro_torch.core.abft import per_op_report
+    from repro_torch.models import common
+    from repro_torch.models.transformer import model_decode, model_prefill
+    f64 = torch.float64
+    wit, found, max_rel = _Witnessed(torch, common._DENSE), [], 0.0
+
+    def note(step, logits, rep, checks):
+        nonlocal max_rel
+        if not torch.equal(logits, want[step]):
+            raise AssertionError(f"{cfg.name}: witness replay step {step} "
+                                 f"is not the guarded run's")
+        max_rel = max(max_rel, float(rep.max_rel))
+        rows, wit.rows = torch.stack(wit.rows), []
+        checks = [c for c in checks if c is not None]
+        ids, _, rel = per_op_report(checks, abft, prefix="op")
+        pred = torch.cat([c.predicted.reshape(-1).to(f64) for c in checks])
+        act = torch.cat([c.actual.reshape(-1).to(f64) for c in checks])
+        pick = set((rel > CORNER_RTOL).nonzero().reshape(-1).tolist())
+        for e in sorted(pick | {int(rel.argmax())}):
+            w = dict(step=step, op=ids[e], rel=float(rel[e]),
+                     predicted=float(pred[e]), actual=float(act[e]),
+                     rounding=False)
+            match = ((rows[:, 0] == pred[e]) & (rows[:, 1] == act[e])
+                     ).nonzero().reshape(-1)
+            if len(match):
+                p32, a32, s, p, p_r, s_c, s_ab, s_awr = \
+                    rows[int(match[0])].tolist()
+                terms = dict(sum=(a32 - s, s_c), product=(s - p, s_ab),
+                             fold=(p - p_r, s_ab), column=(p_r - p32, s_awr))
+                w.update(f64_output_sum=s, f64_corner=p, terms={
+                    k: dict(value=v, ratio=abs(v) / (U32 * scale))
+                    for k, (v, scale) in terms.items()})
+                w["rounding"] = all(t["ratio"] <= 1.0
+                                    for t in w["terms"].values())
+            found.append(w)
+
+    common._DENSE = wit
+    try:
+        t0 = tokens.shape[1]
+        logits, states, rep, checks = model_prefill(
+            params, cfg, {"tokens": tokens}, abft, cache_len,
+            return_checks=True, attn_inject=0.0)
+        note(0, logits, rep, checks)
+        for i, nxt in enumerate(toks):
+            logits, states, rep, checks = model_decode(
+                params, cfg, states, nxt, t0 + i, abft, return_checks=True,
+                attn_inject=0.0)
+            note(i + 1, logits, rep, checks)
+    finally:
+        common._DENSE = wit.op
+    return dict(max_rel=max_rel,
+                over_tol=[w for w in found if w["rel"] > CORNER_RTOL],
+                largest=max(found, key=lambda w: w["rel"]))
+
+
+def _raise_unless_cut_ok(run) -> None:
+    if not run["cut_ok"]:      # reported first, so the numbers are kept
+        raise AssertionError(
+            f"{run['fields']['model']}: 2-layer logits card vs CPU, per "
+            f"step: {run['cut_errs']} (atol {LOGIT_ATOL}, rtol "
+            f"{LM_LOGIT_RTOL}); flags {run['cut_flags']}")
+
+
+def phase_lm_serve(torch, smi):
+    """The checked-op main path: LMEngine at gemma-2b's full width, all 18
+    layers, f32, through :func:`lm_gates`; then one guarded decode step
+    traced on the device, and the campaign's LM lane on the same master."""
+    from repro_torch.models.transformer import init_model
+
+    cfg = lm_config()
+    cache_len = LM["prompt"] + LM["new"]
+    t_init = time.perf_counter()
+    params = init_model(cfg, LM["seed"], device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t_init
+    run = lm_gates(torch, cfg, params, {}, cache_len)
+    eng = run["eng"]
+
+    # where a guarded decode step's time goes on the device
+    _, st0, _ = eng.prefill(run["tokens"])
+    trace = decode_trace(torch, lambda: eng.decode(
+        st0, run["toks"][0], LM["prompt"], inject=0.0))
+    del st0
+    emit("lm_serve", nvidia_smi=smi, init_seconds=t_init, **run["fields"],
+         decode_trace=trace, guard=eng.stats())
+    _raise_unless_cut_ok(run)
+    launches = run["want"]
+    del run, eng
+    # the 18-layer master is freed after this frame (the engine's cycle by
+    # the collector): the campaign's LM lane runs on it first
     phase_campaign_lm(torch, cfg, params, cache_len)
-    return {k: counts[k] for k in want}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lm_archs(torch, smi):
+    """qwen1.5-4b, chatglm3-6b and h2o-danube-3-4b served at full width,
+    all layers, f32, seeded weights, one at a time through
+    :func:`lm_gates` (each master freed before the next).  Returns the B4
+    and B5 launches of the three guarded clean runs."""
+    from repro_torch.models.transformer import init_model
+
+    launches = {"matmul_abft": 0, "flash_checksum": 0}
+    for spec in ARCHS:
+        cfg = arch_config(spec["arch"])
+        t0 = time.perf_counter()
+        params = init_model(cfg, LM["seed"], device="cuda")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_params = sum(x.numel() for x in _leaves(params))
+        run = lm_gates(torch, cfg, params, spec, spec["cache"])
+        emit("lm_archs", nvidia_smi=smi, init_seconds=t_init,
+             params=n_params, weight_gb=4 * n_params / 1e9, **run["fields"],
+             guard=run["eng"].stats(),
+             seconds=time.perf_counter() - t0)
+        _raise_unless_cut_ok(run)
+        for name in launches:
+            launches[name] += run["want"][name]
+        # the engine and its guard hold each other (the guard's restore_fn
+        # is the engine's method): only the cycle collector frees the master
+        del run, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def gat_f64_forward(torch, params, h, adj):
+    """The GAT forward in float64 on the card, from the same weights: the
+    yardstick of the served logits."""
+    import torch.nn.functional as F
+    x, mask = h.double(), adj > 0
+    n_layers = len(params["layers"])
+    for i, p in enumerate(params["layers"]):
+        xw = x @ p["w"].double()
+        sc = (xw @ p["a_l"].double())[:, None] \
+            + (xw @ p["a_r"].double())[None, :]
+        sc = F.leaky_relu(sc, 0.2).masked_fill_(~mask, -1e30)
+        att = torch.softmax(sc, dim=-1)
+        del sc
+        x = att @ xw
+        del att
+        if i < n_layers - 1:
+            x = F.elu(x)
+    return x
+
+
+def gat_b4_ms(torch, forward, reps=5):
+    """CUDA-event ms of each ``matmul_abft`` launch inside the served GAT
+    forward ``forward()`` (H W with its H w_r column, then att @ X, layer
+    by layer), the mean over ``reps`` forwards after one warm-up, beside
+    each launch's bound: a thin timed wrapper stands in for the engine's
+    ``matmul_abft_kernel`` while it runs."""
+    from repro_torch.engine import gat as gat_mod
+    kernel, events = gat_mod.matmul_abft_kernel, []
+
+    def timed(a, b, br=None, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = kernel(a, b, br, **kw)
+        end.record()
+        events.append((tuple(a.shape), b.shape[1], br is not None, start,
+                       end))
+        return out
+
+    forward()
+    gat_mod.matmul_abft_kernel = timed
+    try:
+        for _ in range(reps):
+            forward()
+    finally:
+        gat_mod.matmul_abft_kernel = kernel
+    torch.cuda.synchronize()
+    per = len(events) // reps
+    rows = []
+    for i in range(per):
+        (m, k), n, column, _, _ = events[i]
+        bound, by, _, _ = matmul_bound(torch, m, k, n, torch.float32)
+        rows.append(dict(launch=i, layer=i // 2,
+                         product="h_w" if column else "att_x",
+                         m=m, k=k, n=n, check_column=column,
+                         rows_16b_aligned=(k * 4) % 16 == 0,
+                         ms=sum(s.elapsed_time(e) for *_, s, e
+                                in events[i::per]) / reps,
+                         bound_ms=bound, bound_by=by))
+    return rows
+
+
+def phase_gat(torch):
+    """Guarded GAT serving on the card (engine/gat.py): full Cora and full
+    PubMed, the adjacency pattern A + I dense, weights from seed 0 — logits
+    against a float64 forward, no clean flag, guarded == unguarded bit for
+    bit, an upset in each layer flagging only that layer's site and retried
+    bit for bit, a W bit flip after the fold restored bit for bit, exactly
+    two matmul_abft launches a layer and no plain call.  Returns the B4
+    launches of the guarded clean forwards, counted from 0 just before
+    each."""
+    from repro_torch.core.abft import ABFTConfig
+    from repro_torch.core.datasets import make_dataset
+    from repro_torch.engine.gat import (GATEngine, gat_forward, init_gat,
+                                        make_gat_serve_step)
+    from repro_torch.faults.injectors import flip_bits_tensor
+    from repro_torch.kernels import runtime
+
+    cfg = ABFTConfig(mode="fused", threshold=1e-3, relative=True)
+    off = ABFTConfig(mode="none")
+    served = 0
+    for spec in GAT:
+        t0 = time.perf_counter()
+        ds = make_dataset(spec["graph"], normalize=False)
+        n, dims = ds.stats.nodes, spec["dims"]
+        n_layers = len(dims) - 1
+        if (n, dims[0]) != (ds.features.shape[0], ds.features.shape[1]):
+            raise AssertionError(f"gat {spec['graph']}: {n} nodes x "
+                                 f"{ds.features.shape[1]} features, dims "
+                                 f"{dims}")
+        adj = torch.zeros((n, n), dtype=torch.float32, device="cuda")
+        adj[torch.from_numpy(ds.s.row).cuda(),
+            torch.from_numpy(ds.s.col).cuda()] = 1.0
+        h = torch.from_numpy(ds.features.todense()).cuda()
+        params = init_gat(torch.Generator().manual_seed(GAT_SEED), dims,
+                          device="cuda")
+        eng = GATEngine(cfg, params)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        tag = f"gat {spec['graph']}"
+
+        runtime.reset_counts()
+        ref, _ = gat_forward(params, h, adj, off)           # unguarded
+        ref_counts, ref_plain = runtime.launch_counts(), \
+            runtime.plain_counts()
+        # the main path: the guarded forward, its launches counted alone
+        runtime.reset_counts()
+        out, m = eng.forward(h, adj)
+        counts, plain = runtime.launch_counts(), runtime.plain_counts()
+        want_counts = {k: 0 for k in counts}
+        want_counts["matmul_abft"] = 2 * n_layers
+        if counts != want_counts or ref_counts != want_counts \
+                or any(plain.values()) or any(ref_plain.values()):
+            raise AssertionError(f"{tag}: launches guarded {counts}, "
+                                 f"unguarded {ref_counts} (want "
+                                 f"{want_counts}), plain {plain}, "
+                                 f"{ref_plain}")
+        served += counts["matmul_abft"]
+        identical = torch.equal(out, ref)
+        max_rel = float(m["abft_max_rel"])
+        if not identical or eng.guard.flags or not max_rel <= CORNER_RTOL \
+                or m["abft_op_ids"] != tuple(f"gat{i}"
+                                             for i in range(n_layers)):
+            raise AssertionError(f"{tag}: guarded == unguarded {identical}, "
+                                 f"clean flags {eng.guard.flags}, max_rel "
+                                 f"{max_rel:.3e}, ids {m['abft_op_ids']}")
+        want = gat_f64_forward(torch, params, h, adj)
+        ratio = float(((out.double() - want).abs()
+                       / (LOGIT_ATOL + LM_LOGIT_RTOL * want.abs())).max())
+        err = float((out.double() - want).abs().max())
+        del want
+        finite = bool(torch.isfinite(out).all()) and \
+            tuple(out.shape) == (n, dims[-1])
+
+        # an upset in each layer: only its site flags; the engine retries
+        # it away bit for bit
+        step = make_gat_serve_step(cfg)
+        upsets = []
+        for layer in range(n_layers):
+            _, mi = step(eng.params, h, adj, layer, GAT_DELTA)
+            flags0, retries0 = eng.guard.flags, eng.guard.retries
+            again, _ = eng.forward(h, adj, inject_layer=layer,
+                                   inject_delta=GAT_DELTA)
+            upsets.append(dict(
+                layer=layer, delta=GAT_DELTA,
+                site_flags=mi["abft_op_flags"].tolist(),
+                site_rel=mi["abft_op_rel"].tolist(),
+                flags=eng.guard.flags - flags0,
+                retries=eng.guard.retries - retries0,
+                bitwise=torch.equal(again, ref)))
+            if upsets[-1]["site_flags"] != [i == layer
+                                            for i in range(n_layers)] \
+                    or upsets[-1]["flags"] != 1 \
+                    or upsets[-1]["retries"] != 1 \
+                    or not upsets[-1]["bitwise"]:
+                raise AssertionError(f"{tag}: upset {upsets[-1]}")
+
+        # a bit flip in one layer's W after the fold: a corrupted clone
+        # replaces the working leaf; the guard refolds from the master
+        flags0, restores0 = eng.guard.flags, eng.guard.restores
+        layers = list(eng.params["layers"])
+        fl = GAT_FLIP["layer"]
+        layers[fl] = dict(layers[fl], w=flip_bits_tensor(
+            layers[fl]["w"], GAT_FLIP["index"], GAT_FLIP["bit"]))
+        eng.params = dict(eng.params, layers=layers)
+        del layers
+        again, _ = eng.forward(h, adj)
+        flip = dict(GAT_FLIP, flags=eng.guard.flags - flags0,
+                    restores=eng.guard.restores - restores0,
+                    bitwise=torch.equal(again, ref))
+        if flip["flags"] != 1 or flip["restores"] != 1 \
+                or not flip["bitwise"]:
+            raise AssertionError(f"{tag}: weight flip {flip}")
+        if any(runtime.plain_counts().values()):
+            raise AssertionError(f"{tag}: plain calls in the repairs "
+                                 f"{runtime.plain_counts()}")
+
+        # forward times (CUDA events): guarded and unguarded, and each B4
+        # launch at its served operands
+        fwd_ms = time_ms(lambda: gat_forward(eng.params, h, adj, cfg),
+                         warm=1, reps=5)
+        fwd_off_ms = time_ms(lambda: gat_forward(params, h, adj, off),
+                             warm=1, reps=5)
+        b4 = gat_b4_ms(torch, lambda: gat_forward(eng.params, h, adj, cfg))
+        b4_ms = sum(r["ms"] for r in b4)
+        emit("gat", graph=spec["graph"], nodes=n, dims=list(dims),
+             edges_with_self_loops=int(ds.s.nnz),
+             adjacency_gb=nbytes(adj) / 1e9,
+             setup_seconds=setup_s,
+             launches_per_forward=dict(
+                 guarded=counts["matmul_abft"],
+                 unguarded=ref_counts["matmul_abft"]),
+             logits=dict(max_abs_err_vs_f64=err, gate_ratio=ratio,
+                         tolerance=dict(atol=LOGIT_ATOL, rtol=LM_LOGIT_RTOL),
+                         finite_and_shaped=finite),
+             clean=dict(bitwise_identical=identical, flags=0,
+                        max_rel=max_rel),
+             upsets=upsets, weight_flip=flip,
+             forward_ms=fwd_ms, unguarded_forward_ms=fwd_off_ms,
+             b4=b4, b4_ms=b4_ms, b4_share=b4_ms / fwd_ms,
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+             guard=eng.stats())
+        if ratio > 1.0 or not finite:
+            raise AssertionError(f"{tag}: logits vs float64 {err:.3e} "
+                                 f"(ratio {ratio:.3f}), finite/shape "
+                                 f"{finite}")
+        del adj, h, params, eng, out, ref, again
+        gc.collect()            # the engine and its guard form a cycle
+        torch.cuda.empty_cache()
+    return {"matmul_abft": served}
 
 
 def decode_trace(torch, step):
@@ -2520,10 +3008,12 @@ def main() -> int:
     phase_full_graph(torch, params)
     phase_campaign_gcn(torch)
     del batches, params
-    for phase in (phase_sparse, phase_sharded):
+    for phase in (phase_sparse, phase_sharded, phase_gat):
         for name, count in phase(torch).items():
-            launches[name] += count
-    launches.update(phase_lm_serve(torch, smi))
+            launches[name] = launches.get(name, 0) + count
+    for phase in (phase_lm_serve, phase_lm_archs):
+        for name, count in phase(torch, smi).items():
+            launches[name] = launches.get(name, 0) + count
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -532,18 +532,32 @@ def flash_head_tile(dh: int) -> int:
 
 
 def flash_key_blocks(qt: int, s: int, causal: bool = True) -> int:
-    """Key blocks that query tile ``qt`` walks over ``s`` keys (those
-    wholly above its diagonal skipped under the causal mask)."""
+    """End of the key blocks that query tile ``qt`` walks over ``s`` keys
+    (those wholly above its diagonal skipped under the causal mask)."""
     last = min(s, (qt + 1) * FLASH_BLOCK_Q) if causal else s
     return -(-last // FLASH_BLOCK_K)
 
 
-def flash_part_start(qt: int, s: int, causal: bool, p: int) -> int:
+def flash_first_block(qt: int, s: int, causal: bool = True,
+                      window: int = 0) -> int:
+    """First key block that query tile ``qt`` walks: 0, or with a sliding
+    window (> 0, causal only; key j is valid for query i iff
+    ``i - window < j <= i``) the block of its first row's earliest key."""
+    if not causal or window <= 0:
+        return 0
+    lo = max(0, qt * FLASH_BLOCK_Q - window + 1) // FLASH_BLOCK_K
+    return min(lo, flash_key_blocks(qt, s, causal))
+
+
+def flash_part_start(qt: int, s: int, causal: bool, p: int,
+                     window: int = 0) -> int:
     """First key block of part ``p`` of query tile ``qt`` (``p`` =
-    FLASH_PARTS: the end): the parts split the tile's key blocks evenly,
-    the earlier parts taking the extra ones (the library's
-    ``flash_checksum_part_start``)."""
-    return -(-(p * flash_key_blocks(qt, s, causal)) // FLASH_PARTS)
+    FLASH_PARTS: the end): the parts split the tile's key blocks
+    ``[flash_first_block, flash_key_blocks)`` evenly, the earlier parts
+    taking the extra ones (the library's ``flash_checksum_part_start``)."""
+    lo = flash_first_block(qt, s, causal, window)
+    return lo + -(-(p * (flash_key_blocks(qt, s, causal) - lo))
+                  // FLASH_PARTS)
 
 
 def flash_smem_bytes(dh: int, *, itemsize: int = 4) -> int:

@@ -1,10 +1,10 @@
 """Config registry: the architectures the port can run.
 
 Counterpart of the JAX package's ``repro/configs/__init__.py``.  Only the
-attention decoders whose blocks the port has are registered (gemma-2b); the
-other architectures of the JAX package need MoE, RWKV, RG-LRU,
-encoder-decoder or windowed attention, which are still to port
-(ROADMAP A10).
+attention decoders with dense MLPs are registered — gemma-2b, qwen1.5-4b,
+chatglm3-6b and h2o-danube-3-4b (sliding window); the other architectures
+of the JAX package need MoE, RWKV, RG-LRU or an encoder-decoder, which are
+still to port (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -36,4 +36,9 @@ def list_archs() -> List[str]:
 def _ensure_loaded() -> None:
     if _REGISTRY:
         return
-    from . import gemma_2b  # noqa: F401
+    from . import (  # noqa: F401
+        chatglm3_6b,
+        gemma_2b,
+        h2o_danube3_4b,
+        qwen15_4b,
+    )

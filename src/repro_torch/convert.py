@@ -1,7 +1,8 @@
 """Carry weights between the JAX package and the port.
 
 The JAX package's GCN params are a tree ``{"layers": [{"w": ..., "w_r"?:
-...}, ...]}`` and its LM params a tree ``{"embed": {"table"}, "segments":
+...}, ...]}``, its GAT params the same with ``a_l`` and ``a_r`` beside each
+``w``, and its LM params a tree ``{"embed": {"table"}, "segments":
 [layer-stacked unit dicts], "final_norm": {"scale"}}`` of ``jax.Array``
 leaves; exported with ``jax.tree.map(np.asarray, params)`` they become
 numpy arrays, which is the form this module reads and writes.  Neither side
@@ -86,3 +87,22 @@ def lm_params_from_numpy(tree: Any, cfg, *,
                                      f"{want.get(k)})" for k in diff[:6]))
     return params_from_numpy(tree, device=device)
 
+
+
+def gat_params_from_numpy(tree: Any, dims, *,
+                          device: DeviceLike = "cuda") -> Any:
+    """The JAX package's GAT params (numpy leaves) -> the port's, after
+    checking that every leaf has the shape the port's ``init_gat(dims)``
+    gives it (a tree of other widths raises instead of failing inside a
+    kernel)."""
+    from repro_torch.engine.gat import init_gat
+
+    want = _shapes(init_gat(None, tuple(dims), device="meta"))
+    have = _shapes(tree)
+    if want != have:
+        diff = sorted(k for k in set(want) | set(have)
+                      if want.get(k) != have.get(k))
+        raise ValueError(f"GAT params do not match dims {tuple(dims)}: "
+                         + ", ".join(f"{k} {have.get(k)} (want "
+                                     f"{want.get(k)})" for k in diff[:6]))
+    return params_from_numpy(tree, device=device)

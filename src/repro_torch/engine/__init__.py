@@ -6,6 +6,9 @@ Public surface:
               registry
   sharded   — Partition: block-ELL row-stripes split over devices, one
               kernel launch a shard, partial checks summed in shard order
+  gat       — guarded GAT serving: the three-matrix chain A (H W) with one
+              eq. 4–6 corner a layer, both products on the matmul_abft
+              kernel
   batching  — bucketed padding and block-diagonal packing of variable-size
               graphs for batched serving
   localize  — the stripe- and slot-surgical repair tiers
@@ -40,6 +43,15 @@ from .batching import (  # noqa: F401
     pick_bucket,
     schedule_packs,
     synth_graph_stream,
+)
+from .gat import (  # noqa: F401
+    GATEngine,
+    GATLayerOp,
+    fold_gat_w_r,
+    gat_forward,
+    gat_layer,
+    init_gat,
+    make_gat_serve_step,
 )
 from .localize import (  # noqa: F401
     gather_stripe_system,

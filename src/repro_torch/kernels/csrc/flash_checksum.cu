@@ -12,6 +12,11 @@
 // check column, so Σ o_extra = eᵀ(A V W_o)e.  The causal mask compares
 // query and key *indices*, as the TPU kernel does; the LM calls it only for
 // self-attention over positions 0..T-1, where indices and positions agree.
+// An optional sliding window (causal only; the reference's
+// models/attention.py masks so) keeps key j for query i iff
+// i - window < j <= i: a query tile then walks only the key blocks from
+// its first row's earliest key through its diagonal, and the block on the
+// window's edge is masked per element.
 // vr may be null: then o_extra is not computed and o is unchanged — the
 // output accumulator runs the same code either way, so a guarded step's
 // attention output equals the unguarded one's bit for bit.
@@ -134,16 +139,26 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Key blocks of query tile qt, and the first key block of part p of them
-// (part kParts: the end): the parts split the tile's key blocks evenly,
-// the earlier parts taking the extra ones.  A function of the shape only.
+// The key blocks query tile qt walks, [first_block, key_blocks): under the
+// causal mask they end at its diagonal, and with a sliding window (> 0,
+// causal only) they start at the block of the first row's earliest key,
+// q0 - window + 1.  The first key block of part p of them (part kParts: the
+// end): the parts split the tile's range evenly, the earlier parts taking
+// the extra ones.  A function of the shape and the mask only.
 __host__ __device__ inline int key_blocks(int qt, int n_s, int causal) {
   const int last = causal ? min(n_s, (qt + 1) * kBQ) : n_s;
   return (last + kBKey - 1) / kBKey;
 }
+__host__ __device__ inline int first_block(int qt, int n_s, int causal,
+                                           int window) {
+  if (!causal || window <= 0) return 0;
+  return min(max(0, qt * kBQ - window + 1) / kBKey,
+             key_blocks(qt, n_s, causal));
+}
 __host__ __device__ inline int part_start(int qt, int n_s, int causal,
-                                          int p) {
-  return (p * key_blocks(qt, n_s, causal) + kParts - 1) / kParts;
+                                          int window, int p) {
+  const int lo = first_block(qt, n_s, causal, window);
+  return lo + (p * (key_blocks(qt, n_s, causal) - lo) + kParts - 1) / kParts;
 }
 
 // the compile-time head-dim tile of a head dim
@@ -195,7 +210,7 @@ flash_checksum_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ vr,
                       T* __restrict__ o, float* __restrict__ o_extra,
                       int n_t, int n_s, int n_h, int n_kh, int dh,
-                      float scale, int causal, int vec) {
+                      float scale, int causal, int window, int vec) {
   // q and k row stride: 32 bytes of padding put the 8 pieces a
   // quarter-warp reads (4 keys x 2 lane groups) in distinct banks
   constexpr int LD = DHT + 32 / (int)sizeof(T);
@@ -239,8 +254,8 @@ flash_checksum_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vrbase = with_extra ? vr + (size_t)b * n_s * n_h + h : nullptr;
 
   // this part's key blocks
-  const int first = part_start(qt, n_s, causal, part);
-  const int steps = part_start(qt, n_s, causal, part + 1);
+  const int first = part_start(qt, n_s, causal, window, part);
+  const int steps = part_start(qt, n_s, causal, window, part + 1);
 
   // q and the first K tile, one copy group
   if (first < steps) {
@@ -343,12 +358,14 @@ flash_checksum_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // online softmax of the row: its kKeyLanes lanes reduce by xor shuffles
     {
       const int qpos = q0 + row;
+      // a sliding window's earliest key of the row (0: none)
+      const int kmin = window > 0 ? qpos - window + 1 : 0;
       bool valid[SK];
       float mx = kNeg;
 #pragma unroll
       for (int j = 0; j < SK; ++j) {
         const int kpos = k0 + kq + kKeyLanes * j;
-        valid[j] = kpos < n_s && (!causal || kpos <= qpos);
+        valid[j] = kpos < n_s && (!causal || (kpos <= qpos && kpos >= kmin));
         sc[j] = valid[j] ? sc[j] * scale : kNeg;
         mx = fmaxf(mx, sc[j]);
       }
@@ -521,7 +538,7 @@ flash_checksum_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DHT>
 int launch_tiled(const void* q, const void* k, const void* v, const void* vr,
                  void* o, float* o_extra, int n_b, int n_t, int n_s, int n_h,
-                 int n_kh, int dh, float scale, int causal,
+                 int n_kh, int dh, float scale, int causal, int window,
                  cudaStream_t stream) {
   const int smem = smem_bytes(DHT, (int)sizeof(T));
   auto fn = flash_checksum_kernel<T, DHT>;
@@ -552,7 +569,7 @@ int launch_tiled(const void* q, const void* k, const void* v, const void* vr,
   err = cudaLaunchKernelEx(
       &cfg, fn, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(vr), static_cast<T*>(o),
-      o_extra, n_t, n_s, n_h, n_kh, dh, scale, causal, vec);
+      o_extra, n_t, n_s, n_h, n_kh, dh, scale, causal, window, vec);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -560,18 +577,20 @@ int launch_tiled(const void* q, const void* k, const void* v, const void* vr,
 template <typename T>
 int launch_typed(const void* q, const void* k, const void* v, const void* vr,
                  void* o, float* o_extra, int n_b, int n_t, int n_s, int n_h,
-                 int n_kh, int dh, float scale, int causal,
+                 int n_kh, int dh, float scale, int causal, int window,
                  cudaStream_t stream) {
   switch (head_tile(dh)) {
     case 64:
       return launch_tiled<T, 64>(q, k, v, vr, o, o_extra, n_b, n_t, n_s, n_h,
-                                 n_kh, dh, scale, causal, stream);
+                                 n_kh, dh, scale, causal, window, stream);
     case 128:
       return launch_tiled<T, 128>(q, k, v, vr, o, o_extra, n_b, n_t, n_s,
-                                  n_h, n_kh, dh, scale, causal, stream);
+                                  n_h, n_kh, dh, scale, causal, window,
+                                  stream);
     default:
       return launch_tiled<T, 256>(q, k, v, vr, o, o_extra, n_b, n_t, n_s,
-                                  n_h, n_kh, dh, scale, causal, stream);
+                                  n_h, n_kh, dh, scale, causal, window,
+                                  stream);
   }
 }
 
@@ -591,32 +610,36 @@ extern "C" int flash_checksum_block_q() { return kBQ; }
 extern "C" int flash_checksum_block_k() { return kBKey; }
 extern "C" int flash_checksum_head_tile(int dh) { return head_tile(dh); }
 // key parts of a query tile, and the first key block of part p of tile qt
+// (window 0: no sliding window)
 extern "C" int flash_checksum_parts() { return kParts; }
 extern "C" int flash_checksum_part_start(int qt, int n_s, int causal,
-                                         int p) {
-  return part_start(qt, n_s, causal, p);
+                                         int p, int window) {
+  return part_start(qt, n_s, causal, window, p);
 }
 
 // Launch on `stream`; allocates nothing, does not synchronise, returns
 // cudaGetLastError() (0 on success).  q [B, T, H, dh], k and v [B, S, Kh, dh],
 // vr [B, S, H] or null, o [B, T, H, dh], o_extra [B, T, H] f32 or null (with
-// vr); dtype 0 = float32, 1 = bfloat16 (q, k, v, vr, o).
+// vr); dtype 0 = float32, 1 = bfloat16 (q, k, v, vr, o).  window > 0 (causal
+// only): key j is valid for query i iff i - window < j <= i; 0 is none (the
+// default keeps a C++ caller of the window-less signature building).
 extern "C" int flash_checksum_launch(const void* q, const void* k,
                                      const void* v, const void* vr, void* o,
                                      float* o_extra, int n_b, int n_t,
                                      int n_s, int n_h, int n_kh, int dh,
                                      float scale, int causal, int dtype,
-                                     void* stream) {
+                                     void* stream, int window = 0) {
   if (n_b <= 0 || n_t <= 0 || n_s <= 0 || n_kh <= 0 || n_h % n_kh ||
       dh <= 0 || dh > kMaxDH || (vr == nullptr) != (o_extra == nullptr) ||
-      (n_t + kBQ - 1) / kBQ > 65535)
+      (n_t + kBQ - 1) / kBQ > 65535 || window < 0 || (window && !causal))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return launch_typed<float>(q, k, v, vr, o, o_extra, n_b, n_t, n_s, n_h,
-                               n_kh, dh, scale, causal, s);
+                               n_kh, dh, scale, causal, window, s);
   if (dtype == 1)
     return launch_typed<__nv_bfloat16>(q, k, v, vr, o, o_extra, n_b, n_t,
-                                       n_s, n_h, n_kh, dh, scale, causal, s);
+                                       n_s, n_h, n_kh, dh, scale, causal,
+                                       window, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -11,7 +11,9 @@ q [B, T, H, dh], k and v [B, S, Kh, dh] (the key/value head of query head h
 is h // (H / Kh) — K and V are never repeated per query head), the carried
 column vr [B, S, H] (= V·w_or, in q's dtype).  Outputs o [B, T, H, dh] in
 q's dtype and o_extra [B, T, H] f32 with Σ o_extra = eᵀ(A·V·W_o)e.  The
-causal mask compares query and key indices.  ``vr=None`` skips the column;
+causal mask compares query and key indices; a sliding ``window`` > 0
+(causal only) keeps key j for query i iff ``i - window < j <= i``, the
+reference's ``models/attention.py`` mask.  ``vr=None`` skips the column;
 o does not change.
 """
 from __future__ import annotations
@@ -22,15 +24,20 @@ import torch
 
 from repro_torch.analysis.vmem import (FLASH_BLOCK_K, FLASH_BLOCK_Q,
                                         FLASH_MAX_DH, FLASH_PARTS,
-                                        FUSED_SMEM_BUDGET, flash_head_tile,
-                                        flash_part_start, flash_smem_bytes)
+                                        FUSED_SMEM_BUDGET, flash_first_block,
+                                        flash_head_tile, flash_part_start,
+                                        flash_smem_bytes)
 
 Tensor = torch.Tensor
 DTYPES = (torch.float32, torch.bfloat16)
 NEG = -1e30
 
 
-def _check_shapes(q: Tensor, k: Tensor, v: Tensor, vr: Optional[Tensor]):
+def _check_shapes(q: Tensor, k: Tensor, v: Tensor, vr: Optional[Tensor],
+                  causal: bool = True, window: int = 0):
+    if window < 0 or (window and not causal):
+        raise ValueError(f"window {window} must be >= 0, and > 0 only with "
+                         f"the causal mask (causal={causal})")
     if q.ndim != 4 or k.ndim != 4 or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"q {tuple(q.shape)} must be [B, T, H, dh] and k, v "
                          f"{tuple(k.shape)}, {tuple(v.shape)} [B, S, Kh, dh]")
@@ -51,20 +58,23 @@ def _check_shapes(q: Tensor, k: Tensor, v: Tensor, vr: Optional[Tensor]):
 
 
 def flash_checksum_plain(q: Tensor, k: Tensor, v: Tensor,
-                         vr: Optional[Tensor] = None, *, causal: bool = True
+                         vr: Optional[Tensor] = None, *, causal: bool = True,
+                         window: int = 0
                          ) -> Tuple[Tensor, Optional[Tensor]]:
     """Plain PyTorch version of :func:`flash_checksum_kernel`, in the
     kernel's association: each query tile's key blocks (of the kernel's
     width) are cut into the kernel's parts (``analysis.vmem``
-    ``flash_part_start``); each part runs the online softmax over its
-    blocks in order, with p cast to v's dtype before both products and
-    ``acc * corr + p @ v``; then the parts are folded in part order,
-    ``m = max(m, m_p)``, ``acc = acc * e^(m_old - m) + acc_p * e^(m_p - m)``
-    and l and ex alike.  A key block that lies wholly above a query row's
-    diagonal, or in another part, changes nothing (p = 0, corr = 1), so
-    processing it equals the kernel's skip."""
+    ``flash_part_start``, the window's included); each part runs the online
+    softmax over its blocks in order, with p cast to v's dtype before both
+    products and ``acc * corr + p @ v``; then the parts are folded in part
+    order, ``m = max(m, m_p)``, ``acc = acc * e^(m_old - m) + acc_p *
+    e^(m_p - m)`` and l and ex alike.  A key block that lies wholly above a
+    query row's diagonal, before its window, or in another part, changes
+    nothing (p = 0, corr = 1), so processing it equals the kernel's skip;
+    a part in which a row has no valid key leaves it m = -1e30, l = 0, and
+    the fold adds nothing of it."""
     flash_checksum_plain.calls += 1
-    b, t, h, dh, s, kh = _check_shapes(q, k, v, vr)
+    b, t, h, dh, s, kh = _check_shapes(q, k, v, vr, causal, window)
     g = h // kh
     f32 = torch.float32
     scale = dh ** -0.5
@@ -75,7 +85,7 @@ def flash_checksum_plain(q: Tensor, k: Tensor, v: Tensor,
     qpos = torch.arange(t, device=dev)[:, None]
     # [t, parts + 1]: the key blocks of each row's parts
     n_qt = -(-t // FLASH_BLOCK_Q)
-    starts = torch.tensor([[flash_part_start(i, s, causal, p)
+    starts = torch.tensor([[flash_part_start(i, s, causal, p, window)
                             for p in range(FLASH_PARTS + 1)]
                            for i in range(n_qt)], device=dev)
     starts = starts[torch.arange(t, device=dev) // FLASH_BLOCK_Q]
@@ -89,6 +99,8 @@ def flash_checksum_plain(q: Tensor, k: Tensor, v: Tensor,
         sc = torch.einsum("bthd,bchd->bthc", qf, ke[:, k0:k1]) * scale
         kpos = torch.arange(k0, k1, device=dev)[None, :]
         valid = (kpos <= qpos) if causal else torch.ones_like(kpos <= qpos)
+        if window > 0:
+            valid = valid & (kpos > qpos - window)
         vb = ve[:, k0:k1].to(f32)
         for p, st in enumerate(parts):
             mine = (starts[:, p] <= kb) & (kb < starts[:, p + 1])
@@ -125,24 +137,28 @@ flash_checksum_plain.calls = 0
 
 
 def _agreed_with_library(lib, what: str, dh: int, t: int = 1, s: int = 1,
-                         causal: bool = True) -> None:
+                         causal: bool = True, window: int = 0) -> None:
     """Hold the library's head-dim limit, cut (query rows a block, keys a
     step and key parts — the plain version's —, the head-dim tile, the
     parts of the first and last query tiles of a launch over ``t`` queries
-    and ``s`` keys) and shared memory against ``analysis.vmem``; raise on
-    any difference."""
+    and ``s`` keys, and of the first tile whose window starts past key 0)
+    and shared memory against ``analysis.vmem``; raise on any
+    difference."""
     if dh > FLASH_MAX_DH or FLASH_MAX_DH != lib.flash_checksum_max_dh():
         raise ValueError(f"{what}: head_dim {dh} over the kernel's "
                          f"{lib.flash_checksum_max_dh()} (analysis.vmem "
                          f"models {FLASH_MAX_DH})")
     smem = flash_smem_bytes(dh)
-    tiles = sorted({0, (t - 1) // FLASH_BLOCK_Q})
+    last = (t - 1) // FLASH_BLOCK_Q
+    tiles = sorted({0, last, next((i for i in range(last + 1)
+                                   if flash_first_block(i, s, causal,
+                                                        window)), last)})
     cut = (FLASH_BLOCK_Q, FLASH_BLOCK_K, FLASH_PARTS, flash_head_tile(dh),
-           [flash_part_start(i, s, causal, p) for i in tiles
+           [flash_part_start(i, s, causal, p, window) for i in tiles
             for p in range(FLASH_PARTS + 1)])
     lib_cut = (lib.flash_checksum_block_q(), lib.flash_checksum_block_k(),
                lib.flash_checksum_parts(), lib.flash_checksum_head_tile(dh),
-               [lib.flash_checksum_part_start(i, s, int(causal), p)
+               [lib.flash_checksum_part_start(i, s, int(causal), p, window)
                 for i in tiles for p in range(lib.flash_checksum_parts() + 1)])
     lib_smem = lib.flash_checksum_smem_bytes(dh)
     if smem != lib_smem or smem > FUSED_SMEM_BUDGET or cut != lib_cut:
@@ -153,25 +169,28 @@ def _agreed_with_library(lib, what: str, dh: int, t: int = 1, s: int = 1,
 
 
 def flash_checksum_kernel(q: Tensor, k: Tensor, v: Tensor,
-                          vr: Optional[Tensor] = None, *, causal: bool = True
+                          vr: Optional[Tensor] = None, *, causal: bool = True,
+                          window: int = 0
                           ) -> Tuple[Tensor, Optional[Tensor]]:
     """q: [B, T, H, dh]; k, v: [B, S, Kh, dh]; vr: [B, S, H] or None; one
-    dtype (float32 or bfloat16), dh <= 256.  Returns (o [B, T, H, dh],
-    o_extra [B, T, H] f32 | None).
+    dtype (float32 or bfloat16), dh <= 256; ``window`` > 0 a sliding window
+    (causal only).  Returns (o [B, T, H, dh], o_extra [B, T, H] f32 |
+    None).
 
     Operands on a CUDA device launch the CUDA kernel (one launch, counted in
     ``flash_checksum_kernel.launches``) or raise; only operands that lie on
     the CPU take :func:`flash_checksum_plain`."""
     if q.device.type == "cpu":
-        return flash_checksum_plain(q, k, v, vr, causal=causal)
+        return flash_checksum_plain(q, k, v, vr, causal=causal,
+                                    window=window)
     from repro_torch.kernels import runtime
 
     what = "flash_checksum_kernel"
-    b, t, h, dh, s, kh = _check_shapes(q, k, v, vr)
+    b, t, h, dh, s, kh = _check_shapes(q, k, v, vr, causal, window)
     ops = dict(q=q, k=k, v=v) if vr is None else dict(q=q, k=k, v=v, vr=vr)
     runtime.require_cuda_operands(what, allow=DTYPES, **ops)
     lib = runtime.load_library()
-    _agreed_with_library(lib, what, dh, t, s, causal)
+    _agreed_with_library(lib, what, dh, t, s, causal, window)
     dev = q.device
     o = torch.empty_like(q)
     o_extra = None if vr is None else torch.empty((b, t, h),
@@ -184,7 +203,7 @@ def flash_checksum_kernel(q: Tensor, k: Tensor, v: Tensor,
             None if vr is None else vr.data_ptr(), o.data_ptr(),
             None if o_extra is None else o_extra.data_ptr(),
             b, t, s, h, kh, dh, float(dh ** -0.5), int(causal),
-            DTYPES.index(q.dtype), stream)
+            DTYPES.index(q.dtype), stream, int(window))
     runtime.check_launch(code, what)
     flash_checksum_kernel.launches += 1
     return o, o_extra

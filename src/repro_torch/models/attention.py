@@ -11,12 +11,12 @@ o_extra = A·vr, and Σ_q o_extra = eᵀ(A V W_o)e.
 
 Where the work runs:
 
-* prefill self-attention (causal, no window, positions 0..T-1 over the
-  prompt itself) runs through the ``flash_checksum`` kernel — the CUDA
-  kernel for tensors on the card, its plain version on the CPU — with the
-  ``vr`` column this block computes;
-* any other attention (a sliding window, cross-attention, non-causal, or
-  the split baseline's second pass) is plain PyTorch
+* prefill self-attention (causal, with or without a sliding window,
+  positions 0..T-1 over the prompt itself) runs through the
+  ``flash_checksum`` kernel — the CUDA kernel for tensors on the card, its
+  plain version on the CPU — with the ``vr`` column this block computes;
+* any other attention (cross-attention, non-causal with or without a
+  window, or the split baseline's second pass) is plain PyTorch
   (:func:`streaming_attention`, :func:`_split_second_pass`) on the CPU and
   raises ``NotImplementedError`` on the card: the kernel does not take it
   yet, and the port does not fall back (ROADMAP A10);
@@ -262,13 +262,14 @@ def _flash_path(q: Tensor, causal: bool, window: int, cross: bool,
                 positions_are_indices: bool) -> bool:
     """True when prefill attention goes through the flash_checksum kernel;
     raises on the card for a case the kernel does not take."""
-    ok = causal and window == 0 and not cross and positions_are_indices
+    ok = causal and not cross and positions_are_indices
     if not ok and q.is_cuda:
         raise NotImplementedError(
             f"attention on the card runs only through the flash_checksum "
             f"kernel, which takes causal self-attention over positions "
-            f"0..T-1 without a window (got causal={causal}, window={window}, "
-            f"cross={cross}); other cases are still to port (ROADMAP A10)")
+            f"0..T-1, with or without a sliding window (got causal={causal}, "
+            f"window={window}, cross={cross}); other cases are still to port "
+            f"(ROADMAP A10)")
     return ok
 
 
@@ -325,7 +326,8 @@ def attention_block(
     if flash:
         o, o_extra = flash_checksum_kernel(
             q.contiguous(), k.contiguous(), v.contiguous(),
-            None if vr is None else vr.contiguous(), causal=True)
+            None if vr is None else vr.contiguous(), causal=True,
+            window=window)
         m = l = None
     else:
         o, o_extra, m, l = streaming_attention(

@@ -71,7 +71,8 @@ def _close_corner(got, want, what):
 # ---------------------------------------------------------------------------
 
 def test_the_registry_lists_what_the_port_runs():
-    assert list_archs() == ["gemma-2b"]
+    assert list_archs() == ["chatglm3-6b", "gemma-2b", "h2o-danube-3-4b",
+                            "qwen1.5-4b"]
     cfg = get_config("gemma-2b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
             cfg.d_ff, cfg.vocab_size) == (18, 2048, 8, 1, 256, 16384, 256000)
@@ -321,8 +322,8 @@ def test_unported_blocks_and_cases_raise(setup):
                 dataclasses.replace(setup["cfg"], family="encdec")):
         with pytest.raises(NotImplementedError, match="ROADMAP A10"):
             init_model(cfg, 0, device="cpu")
-    # windowed attention runs plain on the CPU (the kernel would refuse it
-    # on the card)
+    # windowed causal self-attention takes the flash_checksum path (its
+    # plain version on the CPU, the CUDA kernel on the card)
     cfg = dataclasses.replace(setup["cfg"], window=4)
     p = setup["params"]["segments"][0]["b0"]["attn"]
     p = {k: {"w": v["w"][0]} for k, v in p.items()}

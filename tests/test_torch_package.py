@@ -561,8 +561,8 @@ def test_flash_wrapper_refuses_a_library_that_cuts_otherwise():
                       block_k=lambda: vmem.FLASH_BLOCK_K,
                       parts=lambda: vmem.FLASH_PARTS,
                       head_tile=vmem.flash_head_tile,
-                      part_start=lambda i, s, c, p: vmem.flash_part_start(
-                          i, s, bool(c), p),
+                      part_start=lambda i, s, c, p, w: vmem.flash_part_start(
+                          i, s, bool(c), p, w),
                       smem_bytes=vmem.flash_smem_bytes)
         fields.update(other)
         return types.SimpleNamespace(**{f"flash_checksum_{k}": f
@@ -571,7 +571,7 @@ def test_flash_wrapper_refuses_a_library_that_cuts_otherwise():
         flash_kernel._agreed_with_library(lib_with(), "probe", dh, 512, 512)
     for other in (dict(block_q=lambda: 64), dict(block_k=lambda: 64),
                   dict(parts=lambda: 1), dict(head_tile=lambda dh: 128),
-                  dict(part_start=lambda i, s, c, p: p * (i + 1)),
+                  dict(part_start=lambda i, s, c, p, w: p * (i + 1)),
                   dict(smem_bytes=lambda dh: vmem.flash_smem_bytes(dh) + 16)):
         with pytest.raises(RuntimeError, match="analysis.vmem models"):
             flash_kernel._agreed_with_library(lib_with(**other), "probe",
