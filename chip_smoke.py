@@ -14,9 +14,11 @@ the streaming server — at the published widths of Cora's 2-layer GCN
 (1433 -> 16 -> 7), and the checked-op path — guarded LM serving (prefill,
 greedy decode, the retry and restore ladder) at gemma-2b's published widths,
 all 18 layers, float32, on the ``matmul_abft`` and ``flash_checksum``
-kernels, then the same at the full widths of qwen1.5-4b, chatglm3-6b and
+kernels, then the same at the full widths of qwen1.5-4b, chatglm3-6b,
 h2o-danube-3-4b (``lm_archs``; danube's 5120-token prompt runs past its
-4096-key sliding window, which ``flash_checksum`` masks), and guarded GAT
+4096-key sliding window, which ``flash_checksum`` masks), deepseek-moe-16b
+(all 28 layers) and qwen3-moe-30b-a3b (24 of its 48 layers), whose expert
+products run on ``matmul_abft``'s grouped launch, and guarded GAT
 serving on ``matmul_abft`` over full Cora and full PubMed (``gat``) —
 through the entry points a user would call.  Any phase that fails
 raises and the run exits non-zero; without a CUDA device it exits non-zero
@@ -43,9 +45,12 @@ bit for bit.  Stripe sharding runs in ``sharded``: full PubMed's block-ELL
 at 1, 2 and 4 shards through B1 and B2, one launch a shard, rows and stripe
 corners bit for bit the unsharded run's.
 
-``lm_kernels`` also holds B4 at every launch shape the three other LMs
-add and B5 at each of their served prefill attentions (danube's with its
-window) and at small ragged windowed shapes.
+``lm_kernels`` also holds B4 at every launch shape the other LMs add, the
+grouped B4 at every served expert shape (bit for bit one single launch a
+group, timed beside ``torch.bmm``) and at ragged shapes, and B5 at each of
+their served prefill attentions (danube's with its window) and at small
+ragged windowed shapes, the bfloat16 ones also on ``FLASH_SEEDS`` input
+streams, each chain corner with its float64 witness (``chain_witness``).
 
 One JSON object per phase is printed (``env``, ``build``, ``kernel_checks``,
 ``lm_kernels``, ``serve``, ``fault``, ``stream``, ``full_graph``,
@@ -87,6 +92,13 @@ CORNER_RTOL = 1e-4               # clean |pred - actual| / max(1, |actual|)
 # witness (clean_witness): each f32 rounding step between its two sides
 # within one unit roundoff of the sum of |terms| that step rounds
 U32 = 2.0 ** -24
+# B5's chain corner in bfloat16: over 5e-2 it passes only with its float64
+# witness (chain_witness), each rounding step within one unit roundoff
+# (bf16's or f32's) of the sum of |terms| that step rounds; FLASH_SEEDS are
+# the input streams the windowed bf16 cases are also run on
+U_BF16 = 2.0 ** -8
+BF16_CORNER_RTOL = 5e-2
+FLASH_SEEDS = tuple(range(100, 116))
 LOGIT_ATOL = 1e-4                # vs the float64 dense forward
 # the LM's logits card vs CPU: 1e-4, plus 1e-6 of |logit| — one f32 spacing
 # is 1.22e-4 at |logit| >= 1024, which gemma's logit of the input token
@@ -107,10 +119,18 @@ BF16_TOL = dict(matmul_abft=2e-2, flash_checksum=3e-2)   # the JAX tests'
 # h2o-danube-3-4b (GQA 4 at head 120, window 4096 — its 5120-token prompt
 # runs past the window, so the last 1024 queries lose keys in prefill and
 # every decode step masks by it); each master is freed before the next.
+# The MoE decoders follow, at their published widths, f32, with the
+# published capacity factor 1.25 (prefill drops assignments): deepseek-moe-16b
+# with all 28 layers (67.5 GB of weights), qwen3-moe-30b-a3b with 24 of its
+# 48 layers — all 48 would be 122 GB at f32, past the card's 80 GB
+# (``layers`` is the cut).
 ARCHS = (
     dict(arch="qwen1.5-4b", batch=2, prompt=512, cache=528, new=8),
     dict(arch="chatglm3-6b", batch=2, prompt=512, cache=528, new=8),
-    dict(arch="h2o-danube-3-4b", batch=1, prompt=5120, cache=5136, new=8))
+    dict(arch="h2o-danube-3-4b", batch=1, prompt=5120, cache=5136, new=8),
+    dict(arch="deepseek-moe-16b", batch=2, prompt=512, cache=528, new=8),
+    dict(arch="qwen3-moe-30b-a3b", batch=2, prompt=512, cache=528, new=8,
+         layers=24))
 # B5's sliding window at small ragged shapes: T = S = 257 (B, H, Kh, dh),
 # and danube's head dim at a short window
 FLASH_WINDOWS = (1, 31, 32, 33, 100, 300)
@@ -1858,13 +1878,61 @@ def lm_config():
     return dataclasses.replace(get_config(LM["arch"]), dtype="float32")
 
 
-def arch_config(name):
+def arch_config(name, layers=None):
     """A registered architecture at its published widths, served in
-    float32."""
+    float32; ``layers`` cuts its depth."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(name), dtype="float32")
+    cfg = dataclasses.replace(get_config(name), dtype="float32")
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _mlp_products(cfg):
+    """(K, N) of each matmul_abft launch of one layer's MLP: a gated MLP's
+    three, or an MoE layer's router and its shared experts' three (the
+    experts themselves are grouped launches, :func:`lm_grouped_shapes`)."""
+    d = cfg.d_model
+    if cfg.moe is None:
+        return [(d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
+    mc = cfg.moe
+    out = [(d, mc.n_experts)]
+    if mc.n_shared:
+        sff = mc.d_ff_shared or mc.n_shared * mc.d_ff_expert
+        out += [(d, sff), (d, sff), (sff, d)]
+    return out
+
+
+def lm_step_launches(cfg):
+    """matmul_abft and grouped matmul_abft launches of one prefill or decode
+    step (the head included), and the checks of one layer in fused mode
+    (attention's four; three of a gated MLP; an MoE layer's router, up, gate
+    and fused combine, and its shared experts' three)."""
+    per_layer = 4 + len(_mlp_products(cfg))
+    grouped = 3 if cfg.moe is not None else 0
+    checks = 7 if cfg.moe is None else per_layer + 3
+    return (dict(matmul_abft=cfg.n_layers * per_layer + 1,
+                 matmul_abft_grouped=cfg.n_layers * grouped), checks)
+
+
+def lm_grouped_shapes(cfg, batch=LM["batch"], prompt=LM["prompt"]):
+    """Every (G, M, K, N) an MoE run of ``cfg`` at ``batch`` x ``prompt``
+    launches the grouped matmul_abft at — G experts, M the capacity of the
+    step's tokens; up and gate [M, d] @ [d, f], down [M, f] @ [f, d] — with
+    its launches per prefill and per decode step; {} without MoE."""
+    from repro_torch.models.moe import _capacity
+    if cfg.moe is None:
+        return {}
+    mc, d = cfg.moe, cfg.d_model
+    shapes = {}
+    for tokens, step in ((batch * prompt, "prefill"), (batch, "decode")):
+        cap = _capacity(tokens, mc)
+        for k, n, per in ((d, mc.d_ff_expert, 2), (mc.d_ff_expert, d, 1)):
+            key = (mc.n_experts, cap, k, n)
+            shapes.setdefault(key, {"prefill": 0, "decode": 0})
+            shapes[key][step] += per * cfg.n_layers
+    return shapes
 
 
 def lm_matmul_shapes(cfg, batch=LM["batch"], prompt=LM["prompt"]):
@@ -1872,9 +1940,8 @@ def lm_matmul_shapes(cfg, batch=LM["batch"], prompt=LM["prompt"]):
     ``prompt`` launches matmul_abft at, with its launches per prefill and
     per decode step."""
     d, hq = cfg.d_model, cfg.n_heads * cfg.hd
-    hkv, ff, n = cfg.n_kv_heads * cfg.hd, cfg.d_ff, cfg.n_layers
-    per_layer = [(d, hq), (d, hkv), (d, hkv), (hq, d), (d, ff), (d, ff),
-                 (ff, d)]
+    hkv, n = cfg.n_kv_heads * cfg.hd, cfg.n_layers
+    per_layer = [(d, hq), (d, hkv), (d, hkv), (hq, d)] + _mlp_products(cfg)
     shapes = {}
     for m, step in ((batch * prompt, "prefill"), (batch, "decode")):
         for k, nn in per_layer:
@@ -2014,6 +2081,95 @@ def check_matmul_shape(torch, m, k, n, trans_b, dtype, gen, timed):
     return entry
 
 
+def check_grouped_shape(torch, g, m, k, n, dtype, gen, timed):
+    """The grouped matmul_abft at one served expert shape (G products
+    [M, K] @ [K, N]) against its plain version, with and without the extra
+    column; bit for bit one single launch a group and a second grouped run;
+    the clean corner and a corrupted output that must diverge; optionally
+    its times beside torch.bmm (f32 with TF32 off: cuBLAS's batched GEMM)
+    and the bound, summed over the groups.  Operands scaled as the LM's."""
+    from repro_torch.analysis.vmem import (MATMUL_THIN_N, MATMUL_WIDE_TILE,
+                                           matmul_split_k, matmul_splits,
+                                           matmul_tile)
+    from repro_torch.kernels.matmul_abft.kernel import (
+        matmul_abft_grouped_kernel, matmul_abft_grouped_plain,
+        matmul_abft_kernel)
+    from repro_torch.kernels.matmul_abft.ops import matmul_abft_grouped
+    a = torch.randn(g, m, k, generator=gen, device="cuda").to(dtype)
+    b = (torch.randn(g, k, n, generator=gen, device="cuda")
+         * k ** -0.5).to(dtype)
+    br = b.float().sum(dim=2).contiguous()
+    tag = f"matmul_abft_grouped G={g} M={m} K={k} N={n} {dtype}"
+    tol = OUT_ATOL if dtype == torch.float32 else BF16_TOL["matmul_abft"]
+    got = matmul_abft_grouped_kernel(a, b, br)
+    torch.cuda.synchronize()
+    want = matmul_abft_grouped_plain(a, b, br)
+    worst_c = assert_close(f"{tag} c", got[0].float(), want[0].float(),
+                           atol=tol, rtol=tol)
+    worst = max(worst_c,
+                assert_close(f"{tag} block_sums", got[1], want[1],
+                             atol=OUT_ATOL, rtol=OUT_RTOL),
+                assert_close(f"{tag} extra", got[2], want[2], atol=OUT_ATOL,
+                             rtol=OUT_RTOL))
+    del want
+    again = matmul_abft_grouped_kernel(a, b, br)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"{tag}: a second run differs")
+    bare = matmul_abft_grouped_kernel(a, b, None)
+    if bare[2] is not None or not torch.equal(bare[0], got[0]):
+        raise AssertionError(f"{tag}: the unchecked product differs from "
+                             f"the checked one")
+    for i in range(g):
+        # a group's slice need not start 16-byte aligned (b_r at K % 4 != 0),
+        # which the single launch requires: it takes its own copies
+        single = matmul_abft_kernel(a[i].clone(), b[i].clone(),
+                                    br[i].clone())
+        if not all(torch.equal(x[i], y) for x, y in zip(got, single)):
+            raise AssertionError(f"{tag}: group {i} differs from its single "
+                                 f"launch")
+    del again, bare, single
+    c, chk, _ = matmul_abft_grouped(a, b, br)
+    rel = corner_rel(chk.predicted, chk.actual)
+    if not rel <= (CORNER_RTOL if dtype == torch.float32 else 1e-2):
+        raise AssertionError(f"{tag}: clean corner divergence {rel:.3e}")
+    bad = c.float().clone()
+    bad.view(-1)[c.numel() // 2] += 100.0
+    div = float((chk.predicted - bad.sum()).abs())
+    del bad, c
+    if not div > 50.0:
+        raise AssertionError(f"{tag}: a corrupted output diverges by only "
+                             f"{div}")
+    splits = matmul_splits(m, n, k)
+    wm, wn = MATMUL_WIDE_TILE
+    tiles = -(-n // MATMUL_THIN_N) if m <= 16 else -(-n // wn) * -(-m // wm)
+    entry = dict(groups=g, m=m, k=k, n=n, dtype=str(dtype), splits=splits,
+                 split_k=matmul_split_k(m, n, k), tile=list(matmul_tile(m)),
+                 items=g * splits * tiles, bitwise_single_launches=True,
+                 repeat_bitwise=True, max_abs_err=worst,
+                 max_abs_err_c=worst_c, max_rel_corner=rel,
+                 corrupted_divergence=div)
+    if timed:
+        bound, by, n_bytes, n_ops = matmul_bound(torch, m, k, n, dtype)
+        lib_b = torch.cat([b, br[..., None].to(dtype)], dim=2).contiguous()
+
+        def kern():
+            return matmul_abft_grouped_kernel(a, b, br)
+
+        def lib():
+            return torch.bmm(a, lib_b)
+        entry.update(
+            ms=time_ms(kern, reps=5), device_ms=device_ms(kern, reps=5),
+            plain_ms=time_ms(lambda: matmul_abft_grouped_plain(a, b, br),
+                             warm=1, reps=1),
+            library_ms=time_ms(lib, reps=5),
+            library_device_ms=device_ms(lib, reps=5),
+            library_note="torch.bmm(a, [b | b_r]), TF32 off",
+            library_blas=str(torch.backends.cuda.preferred_blas_library()),
+            bound_ms=g * bound, bound_by=by, bytes=g * n_bytes,
+            flops=g * n_ops)
+    return entry
+
+
 def flash_bound(torch, b, t, s, h, kh, dh, dtype, window=0):
     """Least time of one causal launch: q, k, v, vr, o, o_extra once against
     the valid pairs' work (q·k and p·v over dh, p·vr) at the type's peak;
@@ -2083,6 +2239,70 @@ def sdpa_library_ms(torch, q, k, v, vr, window=0):
                 library_o_only_ms=o_ms, library_o_only_backend=o_backend)
 
 
+def chain_witness(torch, q, k, v, vr, wo, w_or, o, ex, out, chk, window=0):
+    """The float64 witness of B5's clean chain corner (causal, ``window``
+    > 0 the sliding window): ``actual − predicted`` = Σ out − Σ o_extra,
+    out = o W_o on B4 in o's dtype, split into eight steps that sum to it
+    exactly,
+
+        (actual − Y) + (Y − Z) + (Z − W) + (W − V) + (V − O) + (O − E)
+        + (E − X) + (X − predicted)
+
+    Y = Σ out, Z = Σ o W_o(rounded), W = Σ o W_o, V = Σ o · w_or (o the
+    kernel's), O = Σ o* · w_or and E = Σ A* vr with A* the exact attention
+    weights and o* = A* v, X = Σ o_extra — all float64 from the operands.
+    Each step is one rounding: the f32 sum of out, out's rounding (and B4's
+    f32 accumulation), W_o's, the f32 fold w_or, the attention output's (p
+    and o rounded), vr's, the column's p rounding, the f32 sum of o_extra.
+    Each step's ratio is |step| over one unit roundoff of the |terms| it
+    rounds; ``rounding`` (every ratio ≤ 1) holds for rounding, not for a
+    wrong output or column beyond it."""
+    f64 = torch.float64
+    b, t, h, dh = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    ke = k.to(f64).repeat_interleave(h // kh, dim=2)
+    ve = v.to(f64).repeat_interleave(h // kh, dim=2)
+    sc = torch.einsum("bthd,bshd->bhts", q.to(f64), ke) * dh ** -0.5
+    i = torch.arange(t, device=q.device)[:, None]
+    j = torch.arange(s, device=q.device)[None, :]
+    ok = (j <= i) & (j > i - window) if window else j <= i
+    att = torch.softmax(sc.masked_fill(~ok, float("-inf")), dim=-1)
+    att = torch.nan_to_num(att)          # a row with no key attends to none
+    vr64 = vr.to(f64)
+    o_star = torch.einsum("bhts,bshd->bthd", att, ve)
+    a_v = torch.einsum("bhts,bshd->bthd", att, ve.abs())
+    a_vr = float(torch.einsum("bhts,bsh->", att, vr64.abs()))
+    wor = w_or.to(f64).reshape(h, dh)
+    wo64 = wo.to(f64)
+    ok64 = o.to(f64).reshape(b * t, h * dh)
+    out64, ex64 = out.to(f64), ex.to(f64)
+    pred, act = float(chk.predicted), float(chk.actual)
+    y = float(out64.sum())
+    z = float((ok64 @ wo.to(o.dtype).to(f64)).sum())
+    w = float((ok64 @ wo64).sum())
+    vv = float((ok64.reshape(b, t, h, dh) * wor).sum())
+    oo = float((o_star * wor).sum())
+    e = float(torch.einsum("bhts,bsh->", att, vr64))
+    x = float(ex64.sum())
+    s_out = float(out64.abs().sum())
+    s_ow = float((ok64.abs() @ wo64.abs().sum(1)).sum())
+    s_att = float(((ok64.abs().reshape(b, t, h, dh) + a_v)
+                   * wor.abs()).sum())
+    steps = dict(sum=(act - y, U32 * s_out), output=(y - z, U_BF16 * s_out),
+                 w_o=(z - w, U_BF16 * s_ow), fold=(w - vv, U32 * s_ow),
+                 attention=(vv - oo, U_BF16 * s_att),
+                 carried=(oo - e, U_BF16 * a_vr),
+                 column=(e - x, U_BF16 * a_vr),
+                 predicted_sum=(x - pred, U32 * float(ex64.abs().sum())))
+    terms = {name: dict(value=val, ratio=abs(val) / scale if scale else
+                        (0.0 if val == 0 else float("inf")))
+             for name, (val, scale) in steps.items()}
+    max_ratio = max(tm["ratio"] for tm in terms.values())
+    return dict(gap=act - pred, terms_sum=sum(val for val, _ in
+                                              steps.values()),
+                terms=terms, max_ratio=max_ratio, rounding=max_ratio <= 1.0)
+
+
 def check_flash_shape(torch, b, t, s, h, kh, dh, dtype, gen, timed,
                       window=0):
     """flash_checksum kernel vs plain (with and without the column), the
@@ -2125,8 +2345,15 @@ def check_flash_shape(torch, b, t, s, h, kh, dh, dtype, gen, timed,
     out, _ = matmul_abft(o.reshape(b * t, h * dh), wo_t, with_check=False)
     chk = chain_check(ex, out)
     rel = corner_rel(chk.predicted, chk.actual)
-    if not rel <= (CORNER_RTOL if dtype == torch.float32 else 5e-2):
-        raise AssertionError(f"{tag}: clean chain divergence {rel:.3e}")
+    # bf16: the float64 witness of the corner, reported at every case and
+    # deciding one over BF16_CORNER_RTOL
+    witness = None if dtype == torch.float32 else chain_witness(
+        torch, q, k, v, vr, wo, w_or, o, ex, out, chk, window)
+    if not (rel <= (CORNER_RTOL if witness is None else BF16_CORNER_RTOL)
+            or (witness is not None and witness["rounding"])):
+        raise AssertionError(f"{tag}: clean chain divergence {rel:.3e}"
+                             + ("" if witness is None else
+                                f"; witness {witness}"))
     # upset the accumulator element whose W_o row sum is largest, so the
     # chain's change (25 x that sum) cannot fall under tau by chance
     bad = o.clone()
@@ -2141,6 +2368,8 @@ def check_flash_shape(torch, b, t, s, h, kh, dh, dtype, gen, timed,
     entry = dict(b=b, t=t, s=s, h=h, kh=kh, dh=dh, window=window,
                  dtype=str(dtype), max_abs_err=worst, max_rel_corner=rel,
                  corrupted_divergence=div, repeat_bitwise=True)
+    if witness is not None:
+        entry["chain_witness"] = witness
     if timed:
         bound, by, n_bytes, n_ops = flash_bound(torch, b, t, s, h, kh, dh,
                                                 dtype, window)
@@ -2203,39 +2432,92 @@ def phase_lm_kernels(torch):
         for dt in (torch.float32, torch.bfloat16)]
 
     # the other served models: B4 at every launch shape they add (f32,
-    # prefill and decode, the untied heads), B5 at each served prefill
-    # attention (danube's with its window), then windowed B5 at small
-    # ragged shapes, f32 and bf16
+    # prefill and decode, the untied heads, the MoE routers and shared
+    # experts), the grouped B4 at every expert shape (f32 timed, and bf16),
+    # B5 at each served prefill attention (danube's with its window), then
+    # windowed B5 at small ragged shapes, f32 and bf16
     checked = {(e["m"], e["k"], e["n"], e["trans_b"]): e for e in per_shape}
+    grouped, grouped_bf16 = {}, []
     arch_steps, flash_archs = {}, []
+    # the MoE models' operands come from a generator of their own, so the
+    # dense models' checks and the windowed ones after them see the inputs
+    # they saw before the MoE models were added
+    moe_gen = torch.Generator(device="cuda").manual_seed(8)
     for spec in ARCHS:
-        acfg = arch_config(spec["arch"])
+        acfg = arch_config(spec["arch"], spec.get("layers"))
+        agen = gen if acfg.moe is None else moe_gen
         ashapes = lm_matmul_shapes(acfg, spec["batch"], spec["prompt"])
         for key, counts in ashapes.items():
             if key not in checked:
                 checked[key] = check_matmul_shape(torch, *key, torch.float32,
-                                                  gen, True)
+                                                  agen, True)
             checked[key].setdefault("launches_per_step_by_arch", {})[
                 acfg.name] = counts
+        gshapes = lm_grouped_shapes(acfg, spec["batch"], spec["prompt"])
+        for key, counts in gshapes.items():
+            if key not in grouped:
+                grouped[key] = check_grouped_shape(torch, *key,
+                                                   torch.float32, agen, True)
+                grouped_bf16.append(check_grouped_shape(
+                    torch, *key, torch.bfloat16, agen, False))
+            grouped[key].setdefault("launches_per_step_by_arch", {})[
+                acfg.name] = counts
+        both = [(checked[key], c) for key, c in ashapes.items()] + \
+            [(grouped[key], c) for key, c in gshapes.items()]
         arch_steps[acfg.name] = {
-            step: {k: sum(checked[key][k] * c[step]
-                          for key, c in ashapes.items() if c[step])
+            step: {k: sum(e[k] * c[step] for e, c in both if c[step])
                    for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
             for step in ("prefill", "decode")}
         arch_steps[acfg.name]["decode"]["device_ms"] = sum(
-            checked[key]["device_ms"] * c["decode"]
-            for key, c in ashapes.items() if c["decode"])
+            e["device_ms"] * c["decode"] for e, c in both if c["decode"])
+        if gshapes:
+            arch_steps[acfg.name]["grouped"] = {
+                step: {k: sum(grouped[key][k] * c[step]
+                              for key, c in gshapes.items())
+                       for k in ("ms", "device_ms", "library_ms",
+                                 "library_device_ms", "bound_ms")}
+                for step in ("prefill", "decode")}
         flash_archs.append(check_flash_shape(
             torch, spec["batch"], spec["prompt"], spec["prompt"],
-            acfg.n_heads, acfg.n_kv_heads, acfg.hd, torch.float32, gen, True,
+            acfg.n_heads, acfg.n_kv_heads, acfg.hd, torch.float32, agen, True,
             window=acfg.window))
         flash_archs[-1]["arch"] = acfg.name
     arch_matmul = [e for key, e in checked.items() if key not in shapes]
+    # the grouped kernel at ragged shapes, 5 groups, both tile paths: K not
+    # a multiple of 4 (each group's b_r then starts off 16-byte alignment),
+    # of 32 or of the split, N not a multiple of 4; a generator of its own
+    rgen = torch.Generator(device="cuda").manual_seed(9)
+    grouped_ragged = [
+        check_grouped_shape(torch, 5, m, k, n, dt, rgen, False)
+        for m, k, n in ((1, 33, 65), (6, 100, 72), (8, 70, 130),
+                        (16, 2050, 130), (17, 33, 65), (120, 70, 130),
+                        (129, 99, 131))
+        for dt in (torch.float32, torch.bfloat16)]
     flash_window = [
         check_flash_shape(torch, *shape, dt, gen, False, window=w)
         for shape, windows in (((1, 257, 257, 4, 2, 64), FLASH_WINDOWS),
                                ((1, 300, 300, 8, 2, 120), (64,)))
         for w in windows for dt in (torch.float32, torch.bfloat16)]
+    # the windowed bf16 cases again on FLASH_SEEDS streams, a generator
+    # each: the chain corner's gate must hold on more than one input
+    seed_cases = []
+    for seed in FLASH_SEEDS:
+        sgen = torch.Generator(device="cuda").manual_seed(seed)
+        for w in FLASH_WINDOWS:
+            e = check_flash_shape(torch, 1, 257, 257, 4, 2, 64,
+                                  torch.bfloat16, sgen, False, window=w)
+            wit = e["chain_witness"]
+            seed_cases.append(dict(
+                seed=seed, window=w, rel=e["max_rel_corner"],
+                max_ratio=wit["max_ratio"],
+                largest_step=max(wit["terms"],
+                                 key=lambda n: wit["terms"][n]["ratio"])))
+    flash_seeds = dict(
+        shape=dict(b=1, t=257, s=257, h=4, kh=2, dh=64), dtype="bfloat16",
+        seeds=list(FLASH_SEEDS), windows=list(FLASH_WINDOWS),
+        over_rtol=sum(c["rel"] > BF16_CORNER_RTOL for c in seed_cases),
+        max_rel=max(c["rel"] for c in seed_cases),
+        max_ratio=max(c["max_ratio"] for c in seed_cases), cases=seed_cases)
 
     def step_ms(key, step):
         return sum(e[key] * e["launches_per_step"][step] for e in per_shape
@@ -2264,6 +2546,10 @@ def phase_lm_kernels(torch):
                for e in per_shape if e["launches_per_step"]["prefill"]]
     main = max(per_shape, key=lambda e: e["flops"] * e["launches_per_step"][
         "prefill"])
+    # the grouped kernel's line: deepseek-moe-16b's prefill up/gate shape,
+    # the expert product that does the most work a prefill
+    gmain = max(grouped.values(), key=lambda e: e["flops"] * max(
+        c["prefill"] for c in e["launches_per_step_by_arch"].values()))
     entries = {
         "matmul_abft": dict(
             name="matmul_abft", route="cuda",
@@ -2276,6 +2562,18 @@ def phase_lm_kernels(torch):
             library_note="torch.matmul(a, [b | b_r]) at the same shape",
             shape=dict(m=main["m"], k=main["k"], n=main["n"]),
             per_step_ms=per_step),
+        "matmul_abft_grouped": dict(
+            name="matmul_abft_grouped", route="cuda",
+            source="src/repro_torch/kernels/csrc/matmul_abft.cu",
+            replaces="src/repro/kernels/matmul_abft/kernel.py:65",
+            max_abs_err=max(e["max_abs_err"] for e in grouped.values()),
+            ms=gmain["ms"], device_ms=gmain["device_ms"],
+            plain_ms=gmain["plain_ms"], bound_ms=gmain["bound_ms"],
+            bound_by=gmain["bound_by"], library_ms=gmain["library_ms"],
+            library_note=gmain["library_note"],
+            library_blas=gmain["library_blas"],
+            shape=dict(groups=gmain["groups"], m=gmain["m"], k=gmain["k"],
+                       n=gmain["n"])),
         "flash_checksum": dict(
             name="flash_checksum", route="cuda",
             source="src/repro_torch/kernels/csrc/flash_checksum.cu",
@@ -2294,12 +2592,16 @@ def phase_lm_kernels(torch):
             blocks_per_sm=flash_blocks_per_sm(dh),
             shape=dict(b=b, t=t, s=t, h=h, kh=kh, dh=dh))}
     emit("lm_kernels", tolerance=dict(f32=OUT_ATOL, bf16=BF16_TOL,
-                                      corner_rtol=CORNER_RTOL),
+                                      corner_rtol=CORNER_RTOL,
+                                      bf16_corner_rtol=BF16_CORNER_RTOL),
          matmul_f32=per_shape, matmul_bf16=bf16, matmul_ragged=ragged,
          flash_f32=flash_main, flash_other=flash_other, per_step=per_step,
          matmul_archs=arch_matmul, arch_per_step=arch_steps,
+         matmul_grouped=list(grouped.values()),
+         matmul_grouped_bf16=grouped_bf16,
+         matmul_grouped_ragged=grouped_ragged,
          flash_archs=flash_archs, flash_window=flash_window,
-         prefill_shapes=prefill, thin_ptxas=thin_ptxas,
+         flash_window_seeds=flash_seeds, prefill_shapes=prefill, thin_ptxas=thin_ptxas,
          wide_ptxas=wide_ptxas, flash_ptxas=flash_ptxas,
          kernels=list(entries.values()))
     spills = {name: v for name, v in flash_ptxas.items()
@@ -2343,7 +2645,9 @@ def lm_gates(torch, cfg, params, spec, cache_len):
     product on matmul_abft and every prefill attention on flash_checksum;
     an accumulator upset on a decode step and a wq bit flip each detected
     and repaired bit for bit; then the same params cut to 2 layers, the
-    card against the CPU (the plain versions).  Returns the measurements;
+    card against the CPU (the plain versions) — for an MoE model with the
+    same routing on both and its smallest top-k margin reported (the
+    expert products on the grouped matmul_abft).  Returns the measurements;
     raises on any gate but the cut's, which :func:`_raise_unless_cut_ok`
     holds after the caller has printed the numbers."""
     from repro_torch.core.abft import ABFTConfig
@@ -2359,7 +2663,7 @@ def lm_gates(torch, cfg, params, spec, cache_len):
     gen = torch.Generator(device="cuda").manual_seed(spec["seed"] + 1)
     tokens = torch.randint(1, cfg.vocab_size, (spec["batch"], spec["prompt"]),
                            generator=gen, device="cuda", dtype=torch.int32)
-    per_prefill = cfg.n_layers * 7 + 1
+    per_step, layer_checks = lm_step_launches(cfg)
     torch.cuda.reset_peak_memory_stats()
 
     # the bit-identity baseline: unguarded mode="none" on the master params
@@ -2389,8 +2693,9 @@ def lm_gates(torch, cfg, params, spec, cache_len):
     logits, toks, step_ms = lm_trajectory(torch, g_prefill, g_decode, tokens,
                                           spec["new"])
     counts, plain = runtime.launch_counts(), runtime.plain_counts()
-    want = {"matmul_abft": per_prefill * (spec["new"] + 1),
-            "flash_checksum": cfg.n_layers}
+    want = {name: n * (spec["new"] + 1) for name, n in per_step.items()
+            if n}
+    want["flash_checksum"] = cfg.n_layers
     others = {k: v for k, v in counts.items() if k not in want}
     if {k: counts[k] for k in want} != want or any(others.values()) \
             or any(plain.values()) or ref_counts != counts:
@@ -2402,8 +2707,8 @@ def lm_gates(torch, cfg, params, spec, cache_len):
         raise AssertionError(f"{tag}: guarded trajectory bit-identical "
                              f"{identical}, clean flags {eng.guard.flags}")
     ids = metrics[0]["abft_op_ids"]
-    if len(ids) != 7 * cfg.n_layers + 1 or ids[0] != "op0:L0" \
-            or ids[-1] != "op7":
+    if len(ids) != layer_checks * cfg.n_layers + 1 or ids[0] != "op0:L0" \
+            or ids[-1] != f"op{layer_checks}":
         raise AssertionError(f"{tag}: op ids {ids[:3]}..{ids[-2:]}")
     max_rel = max(float(m["abft_max_rel"]) for m in metrics)
     witness = clean_witness(torch, cfg, eng.params, abft, tokens, toks,
@@ -2478,18 +2783,19 @@ def lm_gates(torch, cfg, params, spec, cache_len):
         p_dev = _tree_to(cut, dev)
         folded = fold_lm_w_r(p_dev, cut_cfg, abft)
         t0 = time.perf_counter()
-        lg, st, rep = model_prefill(folded, cut_cfg,
-                                    {"tokens": cut_tokens.to(dev)}, abft,
-                                    cut_len)
-        outs, flags = [lg], [bool(rep.flag)]
-        for i in range(spec["cut_decode"]):
-            nxt = _argmax_tokens(torch, outs[-1])
-            lg, st, rep = model_decode(folded, cut_cfg, st, nxt,
-                                       spec["cut_prompt"] + i, abft)
-            outs.append(lg)
-            flags.append(bool(rep.flag))
+        with routing_record() as routes:
+            lg, st, rep = model_prefill(folded, cut_cfg,
+                                        {"tokens": cut_tokens.to(dev)}, abft,
+                                        cut_len)
+            outs, flags = [lg], [bool(rep.flag)]
+            for i in range(spec["cut_decode"]):
+                nxt = _argmax_tokens(torch, outs[-1])
+                lg, st, rep = model_decode(folded, cut_cfg, st, nxt,
+                                           spec["cut_prompt"] + i, abft)
+                outs.append(lg)
+                flags.append(bool(rep.flag))
         runs[dev] = dict(logits=[x.cpu() for x in outs], flags=flags,
-                         seconds=time.perf_counter() - t0)
+                         seconds=time.perf_counter() - t0, routes=routes)
         del p_dev, folded, st
     pairs = [(a[..., :cfg.vocab_size], b[..., :cfg.vocab_size])
              for a, b in zip(runs["cuda"]["logits"], runs["cpu"]["logits"])]
@@ -2497,8 +2803,20 @@ def lm_gates(torch, cfg, params, spec, cache_len):
     # max |card - CPU| / (atol + rtol |CPU|): at most 1 passes
     cut_ratio = [float(((a - b).abs() / (LOGIT_ATOL + LM_LOGIT_RTOL
                                           * b.abs())).max()) for a, b in pairs]
+    routing = None
+    if cfg.moe is not None:
+        card, cpu = runs["cuda"]["routes"], runs["cpu"]["routes"]
+        routing = dict(
+            calls=len(card),
+            equal=len(card) == len(cpu) and all(
+                torch.equal(x["experts"], y["experts"])
+                for x, y in zip(card, cpu)),
+            min_topk_margin_card=min(x["margin"] for x in card),
+            min_topk_margin_cpu=min(x["margin"] for x in cpu),
+            tokens=[int(x["experts"].shape[0]) for x in card])
     cut_ok = max(cut_ratio) <= 1.0 and not any(runs["cuda"]["flags"]) \
-        and not any(runs["cpu"]["flags"])
+        and not any(runs["cpu"]["flags"]) \
+        and (routing is None or routing["equal"])
     prefill_ms, decode_ms = step_ms[0], step_ms[1:]
     return dict(
         eng=eng, tokens=tokens, toks=toks, counts=counts, want=want,
@@ -2512,9 +2830,9 @@ def lm_gates(torch, cfg, params, spec, cache_len):
             batch=spec["batch"], prompt=spec["prompt"], new=spec["new"],
             cache_len=cache_len, launches=counts, plain_calls=plain,
             launches_per_step=dict(
-                prefill=dict(matmul_abft=per_prefill,
-                             flash_checksum=cfg.n_layers),
-                decode=dict(matmul_abft=per_prefill, flash_checksum=0)),
+                prefill=dict(per_step, flash_checksum=cfg.n_layers),
+                decode=dict(per_step, flash_checksum=0)),
+            checks_per_layer=layer_checks, moe=moe_fields(cfg, spec),
             clean=dict(bitwise_identical=identical, flags=0, max_rel=max_rel,
                        op_ids=len(ids), over_tol=witness["over_tol"],
                        largest=witness["largest"]),
@@ -2531,6 +2849,7 @@ def lm_gates(torch, cfg, params, spec, cache_len):
                      max_abs_logit=max(float(b.abs().max())
                                        for _, b in pairs),
                      tolerance=dict(atol=LOGIT_ATOL, rtol=LM_LOGIT_RTOL),
+                     routing=routing,
                      card_seconds=runs["cuda"]["seconds"],
                      cpu_seconds=runs["cpu"]["seconds"])))
 
@@ -2638,7 +2957,50 @@ def _raise_unless_cut_ok(run) -> None:
         raise AssertionError(
             f"{run['fields']['model']}: 2-layer logits card vs CPU, per "
             f"step: {run['cut_errs']} (atol {LOGIT_ATOL}, rtol "
-            f"{LM_LOGIT_RTOL}); flags {run['cut_flags']}")
+            f"{LM_LOGIT_RTOL}); flags {run['cut_flags']}; routing "
+            f"{run['fields']['cut']['routing']}")
+
+
+class routing_record:
+    """Records every MoE routing while it is entered: each call of
+    ``models.moe.route`` appends its experts [N, k] (on the host) and its
+    smallest top-k margin, the k-th largest router probability minus the
+    (k+1)-th, the distance to a flip of the routing."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+        self.moe, self.route, self.rows = moe, moe.route, []
+
+        def recorded(p, xt, cfg, abft):
+            probs, gates, experts, checks = self.route(p, xt, cfg, abft)
+            top = torch.topk(probs, cfg.moe.top_k + 1, dim=-1).values
+            self.rows.append(dict(experts=experts.cpu(), margin=float(
+                (top[:, -2] - top[:, -1]).min())))
+            return probs, gates, experts, checks
+        moe.route = recorded
+        return self.rows
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+        return False
+
+
+def moe_fields(cfg, spec):
+    """An MoE model's routing shape and each step's capacity (None for a
+    dense MLP)."""
+    if cfg.moe is None:
+        return None
+    from repro_torch.models.moe import _capacity
+    mc = cfg.moe
+    return dict(experts=mc.n_experts, top_k=mc.top_k,
+                d_ff_expert=mc.d_ff_expert, shared=mc.n_shared,
+                d_ff_shared=mc.d_ff_shared,
+                capacity_factor=mc.capacity_factor,
+                capacity=dict(prefill=_capacity(
+                    spec["batch"] * spec["prompt"], mc),
+                    decode=_capacity(spec["batch"], mc)))
 
 
 def phase_lm_serve(torch, smi):
@@ -2676,28 +3038,40 @@ def phase_lm_serve(torch, smi):
 
 
 def phase_lm_archs(torch, smi):
-    """qwen1.5-4b, chatglm3-6b and h2o-danube-3-4b served at full width,
-    all layers, f32, seeded weights, one at a time through
-    :func:`lm_gates` (each master freed before the next).  Returns the B4
-    and B5 launches of the three guarded clean runs."""
+    """qwen1.5-4b, chatglm3-6b, h2o-danube-3-4b, deepseek-moe-16b (all
+    layers) and qwen3-moe-30b-a3b (24 of 48 layers) served at full width,
+    f32, seeded weights, one at a time through :func:`lm_gates` (each
+    master freed before the next); one guarded decode step of each MoE
+    model traced on the device.  Returns the B4, grouped B4 and B5
+    launches of the guarded clean runs."""
     from repro_torch.models.transformer import init_model
 
-    launches = {"matmul_abft": 0, "flash_checksum": 0}
+    launches = {"matmul_abft": 0, "matmul_abft_grouped": 0,
+                "flash_checksum": 0}
     for spec in ARCHS:
-        cfg = arch_config(spec["arch"])
+        cfg = arch_config(spec["arch"], spec.get("layers"))
         t0 = time.perf_counter()
         params = init_model(cfg, LM["seed"], device="cuda")
         torch.cuda.synchronize()
         t_init = time.perf_counter() - t0
         n_params = sum(x.numel() for x in _leaves(params))
         run = lm_gates(torch, cfg, params, spec, spec["cache"])
+        trace = None
+        if cfg.moe is not None:
+            eng = run["eng"]
+            _, st0, _ = eng.prefill(run["tokens"])
+            trace = decode_trace(torch, lambda: eng.decode(
+                st0, run["toks"][0], spec["prompt"], inject=0.0))
+            del eng, st0
+        from repro_torch.configs import get_config
         emit("lm_archs", nvidia_smi=smi, init_seconds=t_init,
-             params=n_params, weight_gb=4 * n_params / 1e9, **run["fields"],
-             guard=run["eng"].stats(),
+             params=n_params, weight_gb=4 * n_params / 1e9,
+             published_layers=get_config(spec["arch"]).n_layers,
+             **run["fields"], decode_trace=trace, guard=run["eng"].stats(),
              seconds=time.perf_counter() - t0)
         _raise_unless_cut_ok(run)
         for name in launches:
-            launches[name] += run["want"][name]
+            launches[name] += run["want"].get(name, 0)
         # the engine and its guard hold each other (the guard's restore_fn
         # is the engine's method): only the cycle collector frees the master
         del run, params

@@ -1,10 +1,11 @@
 """Config registry: the architectures the port can run.
 
 Counterpart of the JAX package's ``repro/configs/__init__.py``.  Only the
-attention decoders with dense MLPs are registered — gemma-2b, qwen1.5-4b,
-chatglm3-6b and h2o-danube-3-4b (sliding window); the other architectures
-of the JAX package need MoE, RWKV, RG-LRU or an encoder-decoder, which are
-still to port (ROADMAP A10).
+attention decoders are registered — gemma-2b, qwen1.5-4b, chatglm3-6b and
+h2o-danube-3-4b (sliding window) with dense MLPs, deepseek-moe-16b and
+qwen3-moe-30b-a3b with mixture-of-experts MLPs; the other architectures of
+the JAX package need RWKV, RG-LRU or an encoder-decoder, which are still to
+port (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -38,7 +39,9 @@ def _ensure_loaded() -> None:
         return
     from . import (  # noqa: F401
         chatglm3_6b,
+        deepseek_moe_16b,
         gemma_2b,
         h2o_danube3_4b,
+        qwen3_moe_30b_a3b,
         qwen15_4b,
     )

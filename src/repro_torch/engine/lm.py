@@ -52,7 +52,10 @@ def fold_lm_w_r(params: Params, cfg: ModelConfig, abft: ABFTConfig) -> Params:
     consumes.  The head folds flat.  Folds are taken through the compute
     dtype so the comparison sees the quantization the product does.  The
     embed table is left alone — the tied head checks against the table
-    directly.  Returns a new tree that shares the weight tensors with
+    directly.  In an MoE layer the router and the shared experts fold (their
+    ``"w"`` leaves); the stacked expert weights ``w_up``, ``w_gate``,
+    ``w_down`` are not ``"w"`` leaves and do not, as in the reference —
+    ``moe_block`` sums their ``b_r`` on every call.  Returns a new tree that shares the weight tensors with
     ``params``; ``params`` is not mutated (so a fault must replace a leaf of
     the returned tree, never write into a shared tensor)."""
     if not abft.enabled:

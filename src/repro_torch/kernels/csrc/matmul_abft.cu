@@ -83,9 +83,23 @@
 //  What holds it back: two launches and a ring to fill per product, which
 //  the narrow products (k/v, q/o) do not amortise, and one chunk of
 //  arithmetic per barrier.
+//
+// Grouped launch (`matmul_abft_grouped_launch`): G products of one shape
+// over contiguous [G, ...] operands — an MoE layer's experts, up, gate or
+// down for all E at once.  The group is blockIdx.z of the wide grid, and
+// the outermost axis of the thin path's (group, tile, split) items (and
+// blockIdx.y of thin_reduce); each group's pointers are offset, nothing
+// else changes, so group g's outputs are bit for bit a single launch's.
+// Group g's b_r lies g K floats in, 16-byte aligned only when K % 4 == 0:
+// a ragged K reads b_r a float at a time (`fetch_br`), so any K is taken.
+// The shared memory, tile and split count are the single product's.  What
+// holds it back beyond the single launch: the capacity rows an expert does
+// not fill are multiplied all the same (the tile skips nothing), and at
+// M <= 16 every group's split sums pass through the workspace.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <type_traits>
 
 namespace {
@@ -169,6 +183,22 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// b_r's 4 values [k, k + 4) of a group's row `row` (zeros past K) into
+// shared memory.  Group g's row lies g K floats in, so it starts 16-byte
+// aligned only when K % 4 == 0: then one cp.async, else a float at a time
+// (the stage is not read before a later barrier).  `base` is any valid
+// address for an empty copy.
+__device__ __forceinline__ void fetch_br(float* dst, const float* base,
+                                         const float* row, int k, int K) {
+  const int valid = max(0, min(K - k, 4));
+  if (K % 4 == 0) {
+    cp_async16(dst, valid ? row + k : base, 4 * valid);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dst[j] = j < valid ? row[k + j] : 0.f;
+  }
+}
+
 // One pipeline stage in shared memory, raw operand elements: the chunk of B
 // ([32 k][256 n] for B, [256 n][32 k + pad] for B^T: 16-byte rows, and
 // conflict-free 16-byte row reads by neighbouring threads), A's [MT][32 + 8]
@@ -190,20 +220,24 @@ constexpr int thin_smem_bytes() {
   return kStages * ThinStage<T, MT, TRANS>::BYTES;
 }
 
-// Persistent blocks over the (tile, split) items: item i is column tile
-// i % tiles (256 columns, thread t owns column 256 tile + t, all M rows; MT
-// >= M is the compile-time row count) and split i / tiles (K [s kc,
-// min((s + 1) kc, K))).  A block takes items blockIdx.x, + gridDim.x, ...,
+// Persistent blocks over the (group, tile, split) items: item i is group
+// i / (tiles S) (a grouped launch's product; 0 for one product), and its
+// rest r is column tile r % tiles (256 columns, thread t owns column
+// 256 tile + t, all M rows; MT >= M is the compile-time row count) and split
+// r / tiles (K [s kc, min((s + 1) kc, K))).  Group g's operands lie g
+// products in: A + g M K, B + g K N, b_r + g K, its sums at ws + g S M (N + 1).
+// A block takes items blockIdx.x, + gridDim.x, ...,
 // and walks their chunks as one stream through a kStages-deep cp.async
 // ring, so the next item's first chunks are in flight while the current
-// item's last one is multiplied.  An item's sums go to ws[s, m, n] and, for
-// tile 0 with br, A @ b_r's to ws[S M N + s M + m].  Which block runs which
-// item changes no sum.
+// item's last one is multiplied.  An item's sums go to its group's
+// ws[s, m, n] and, for tile 0 with br, A @ b_r's to ws[S M N + s M + m].
+// Which block runs which item changes no sum, so a group's outputs are bit
+// for bit those of a launch of that product alone.
 template <typename T, int MT, bool TRANS>
 __global__ void __launch_bounds__(kThreads)
 thin_split_kernel(const T* __restrict__ A, const T* __restrict__ B,
                   const float* __restrict__ br, float* __restrict__ ws,
-                  int M, int N, int K, int kc, int splits) {
+                  int M, int N, int K, int kc, int splits, int groups) {
   using P = Piece<T>;
   using St = ThinStage<T, MT, TRANS>;
   constexpr int V = P::V;
@@ -214,7 +248,9 @@ thin_split_kernel(const T* __restrict__ A, const T* __restrict__ B,
 
   const int t = threadIdx.x;
   const int tiles = (N + kThinN - 1) / kThinN;
-  const int items = tiles * splits;
+  const int items = tiles * splits;        // of one group
+  const int total = items * groups;
+  const size_t ws_group = (size_t)splits * M * (N + 1);
   // every row of the operand starts 16-byte aligned (the bases are: the
   // wrapper checks it), so pieces are whole or wholly outside
   const bool vec_a = K % V == 0;
@@ -228,15 +264,18 @@ thin_split_kernel(const T* __restrict__ A, const T* __restrict__ B,
     return reinterpret_cast<float*>(stage_a(st) + St::A_ELEMS);
   };
   auto chunks_of = [&](int item) {
-    const int k0 = (item / tiles) * kc;
+    const int k0 = (item % items / tiles) * kc;
     return (min(k0 + kc, K) - k0 + kBK - 1) / kBK;
   };
 
   // copy chunk `ch` of `item` into stage `st` (the scalar tail stores
   // directly: the stage is not read before a later barrier)
   auto fetch = [&](int st, int item, int ch) {
-    const int n0 = (item % tiles) * kThinN;
-    const int k0 = (item / tiles) * kc + ch * kBK;
+    const int g = item / items, r = item % items;
+    const int n0 = (r % tiles) * kThinN;
+    const int k0 = (r / tiles) * kc + ch * kBK;
+    const T* Bg = B + (size_t)g * K * N;
+    const T* Ag = A + (size_t)g * M * K;
     T* bs = stage_b(st);
 #pragma unroll
     for (int e = 0; e < NP; ++e) {
@@ -245,7 +284,7 @@ thin_split_kernel(const T* __restrict__ A, const T* __restrict__ B,
       const int n = TRANS ? n0 + row : n0 + col;
       const int k = TRANS ? k0 + col : k0 + row;
       T* dst = bs + (TRANS ? row * St::LDT + col : row * kThinN + col);
-      const T* src = TRANS ? B + (size_t)n * K + k : B + (size_t)k * N + n;
+      const T* src = TRANS ? Bg + (size_t)n * K + k : Bg + (size_t)k * N + n;
       // elements of this piece inside the matrix
       int valid = TRANS ? (n < N ? K - k : 0) : (k < K ? N - n : 0);
       valid = max(0, min(valid, V));
@@ -260,7 +299,7 @@ thin_split_kernel(const T* __restrict__ A, const T* __restrict__ B,
     for (int p = t; p < AP; p += kThreads) {
       const int m = p / (kBK / V), col = (p % (kBK / V)) * V;
       const int valid = m < M ? max(0, min(K - (k0 + col), V)) : 0;
-      const T* src = A + (size_t)m * K + k0 + col;
+      const T* src = Ag + (size_t)m * K + k0 + col;
       T* dst = as + m * St::LDA + col;
       if (vec_a) {
         cp_async16(dst, valid ? src : A, valid * (int)sizeof(T));
@@ -269,17 +308,14 @@ thin_split_kernel(const T* __restrict__ A, const T* __restrict__ B,
         for (int j = 0; j < V; ++j) dst[j] = j < valid ? src[j] : from_f<T>(0.f);
       }
     }
-    if (br != nullptr && n0 == 0 && t < kBK / 4) {
-      const int k = k0 + 4 * t;
-      const int valid = max(0, min(K - k, 4));
-      cp_async16(stage_br(st) + 4 * t, valid ? br + k : br, 4 * valid);
-    }
+    if (br != nullptr && n0 == 0 && t < kBK / 4)
+      fetch_br(stage_br(st) + 4 * t, br, br + (size_t)g * K, k0 + 4 * t, K);
   };
 
   // the fetch cursor runs kStages - 1 chunks ahead of the compute cursor
   int item_i = blockIdx.x, ch_i = 0;
   auto fetch_next = [&](int st) {
-    if (item_i < items) {
+    if (item_i < total) {
       fetch(st, item_i, ch_i);
       if (++ch_i == chunks_of(item_i)) {
         ch_i = 0;
@@ -296,7 +332,7 @@ thin_split_kernel(const T* __restrict__ A, const T* __restrict__ B,
   for (int i = 0; i < MT; ++i) acc[i] = 0.f;
   float ex = 0.f;
   int st = 0;
-  for (int item = blockIdx.x, ch = 0; item < items;) {
+  for (int item = blockIdx.x, ch = 0; item < total;) {
     cp_async_wait<kStages - 2>();    // this thread's copies of the chunk
     __syncthreads();                 // everyone's; the last stage is free
     fetch_next((st + kStages - 1) % kStages);
@@ -329,7 +365,7 @@ thin_split_kernel(const T* __restrict__ A, const T* __restrict__ B,
 #pragma unroll
     for (int i = 0; i < MT; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
 
-    const int tile = item % tiles, split = item / tiles;
+    const int tile = item % items % tiles, split = item % items / tiles;
     const bool with_extra = br != nullptr && tile == 0;
     if (with_extra && t < MT) {
       const float* brs = stage_br(st);
@@ -341,14 +377,15 @@ thin_split_kernel(const T* __restrict__ A, const T* __restrict__ B,
     }
 
     if (++ch == chunks_of(item)) {   // the item's last chunk: its sums
+      float* wsg = ws + (size_t)(item / items) * ws_group;
       const int n = tile * kThinN + t;
       if (n < N) {
 #pragma unroll
         for (int i = 0; i < MT; ++i)
-          if (i < M) ws[((size_t)split * M + i) * N + n] = acc[i];
+          if (i < M) wsg[((size_t)split * M + i) * N + n] = acc[i];
       }
       if (with_extra && t < M)
-        ws[(size_t)splits * M * N + (size_t)split * M + t] = ex;
+        wsg[(size_t)splits * M * N + (size_t)split * M + t] = ex;
 #pragma unroll
       for (int i = 0; i < MT; ++i) acc[i] = 0.f;
       ex = 0.f;
@@ -360,7 +397,9 @@ thin_split_kernel(const T* __restrict__ A, const T* __restrict__ B,
   cp_async_wait<0>();                // no copy outlives the block
 }
 
-// Block ni: columns [256 ni, 256 ni + 256).  C = the S split sums added in
+// Block (ni, g): columns [256 ni, 256 ni + 256) of group g's product (its
+// workspace, C, block_sums and extra lie g products in).  C = the S split
+// sums added in
 // split order, in the operand dtype; block_sums[4 ni + j] = their f32 sum
 // over the 64-column tile j (per thread in row order, a warp shuffle tree,
 // then the tile's two warps in order); block 0 adds the extra column's split
@@ -375,6 +414,11 @@ thin_reduce_kernel(const float* __restrict__ ws, T* __restrict__ C,
   const int t = threadIdx.x;
   const int n = blockIdx.x * kThinN + t;
   const size_t plane = (size_t)M * N;
+  const size_t g = blockIdx.y;
+  ws += g * S * (plane + M);
+  C += g * plane;
+  block_sums += g * ((N + kSumN - 1) / kSumN);
+  if (extra != nullptr) extra += g * M;
   float s = 0.f;
   if (n < N) {
     float v[MT];
@@ -448,32 +492,35 @@ int thin_capacity() {
 
 template <typename T, int MT, bool TRANS>
 int launch_thin_split(const T* a, const T* b, const float* br, float* ws,
-                      int m, int n, int k, int kc, int splits,
+                      int groups, int m, int n, int k, int kc, int splits,
                       cudaStream_t stream) {
   const int capacity = thin_capacity<T, MT, TRANS>();
   if (capacity <= 0) return (int)cudaErrorInvalidConfiguration;
-  const int items = ((n + kThinN - 1) / kThinN) * splits;
-  const int grid = items < capacity ? items : capacity;
+  const long long items =
+      (long long)groups * ((n + kThinN - 1) / kThinN) * splits;
+  if (items > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int grid = items < capacity ? (int)items : capacity;
   thin_split_kernel<T, MT, TRANS>
       <<<grid, kThreads, thin_smem_bytes<T, MT, TRANS>(), stream>>>(
-          a, b, br, ws, m, n, k, kc, splits);
+          a, b, br, ws, m, n, k, kc, splits, groups);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int MT>
 int launch_thin(const T* a, const T* b, const float* br, T* c, float* sums,
-                float* extra, float* ws, int m, int n, int k, int trans_b,
-                cudaStream_t stream) {
+                float* extra, float* ws, int groups, int m, int n, int k,
+                int trans_b, cudaStream_t stream) {
   const int kc = kBK * split_chunks(m, n, k);
   const int splits = (k + kc - 1) / kc;
   const int err =
-      trans_b ? launch_thin_split<T, MT, true>(a, b, br, ws, m, n, k, kc,
-                                               splits, stream)
-              : launch_thin_split<T, MT, false>(a, b, br, ws, m, n, k, kc,
-                                                splits, stream);
+      trans_b ? launch_thin_split<T, MT, true>(a, b, br, ws, groups, m, n, k,
+                                               kc, splits, stream)
+              : launch_thin_split<T, MT, false>(a, b, br, ws, groups, m, n,
+                                                k, kc, splits, stream);
   if (err != cudaSuccess) return err;
-  thin_reduce_kernel<T, MT><<<(n + kThinN - 1) / kThinN, kThreads, 0,
-                              stream>>>(ws, c, sums, extra, m, n, splits);
+  const dim3 grid((n + kThinN - 1) / kThinN, groups);
+  thin_reduce_kernel<T, MT><<<grid, kThreads, 0, stream>>>(
+      ws, c, sums, extra, m, n, splits);
   return (int)cudaGetLastError();
 }
 
@@ -547,6 +594,9 @@ constexpr int wide_smem_bytes() {
 // tile, rows i >= 4 rows 64-127: each half's f32 sum is one block_sums
 // entry (per thread i then j, a warp shuffle tree, then warp by warp).  The
 // ni == 0 blocks also sum A @ b_r, one row a thread, in the same chunks.
+// blockIdx.z is the group of a grouped launch (0 for one product): its
+// operands and outputs lie g products in, and nothing else changes, so a
+// group's outputs are bit for bit those of a launch of that product alone.
 template <typename T, int BM, bool TRANS>
 __global__ void __launch_bounds__(kThreads, 1)
 wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
@@ -571,6 +621,15 @@ wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
   const int ty = (warp >> 1) * 4 + (lane >> 3);
   const int ni = blockIdx.x, mi = blockIdx.y;
   const int m0 = mi * BM, n0 = ni * kWideN;
+  {
+    const size_t g = blockIdx.z;
+    A += g * M * K;
+    B += g * K * N;
+    C += g * M * N;
+    block_sums += g * ((M + kWideSumM - 1) / kWideSumM) * gridDim.x;
+    if (br != nullptr) br += g * K;
+    if (extra != nullptr) extra += g * M;
+  }
   const bool with_extra = br != nullptr && ni == 0;
   // every row of the operand starts 16-byte aligned (the bases are: the
   // wrapper checks it), so pieces are whole or wholly outside
@@ -619,7 +678,7 @@ wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
       for (int e = 0; e < BP; ++e)
         cp_async16(stage_b(st) + sb + e * BR * kWideN,
                    gb + (size_t)(k0 + e * BR) * N, 16);
-      if (with_extra && t < kBK / 4)
+      if (with_extra && t < kBK / 4)   // interior: K % V == 0, b_r aligned
         cp_async16(stage_br(st) + 4 * t, br + k0 + 4 * t, 16);
       return;
     }
@@ -648,11 +707,8 @@ wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
               valid, vec_b);
       }
     }
-    if (with_extra && t < kBK / 4) {
-      const int k = k0 + 4 * t;
-      const int valid = max(0, min(K - k, 4));
-      cp_async16(stage_br(st) + 4 * t, valid ? br + k : br, 4 * valid);
-    }
+    if (with_extra && t < kBK / 4)
+      fetch_br(stage_br(st) + 4 * t, br, br, k0 + 4 * t, K);
   };
 
   const int chunks = (K + kBK - 1) / kBK;
@@ -777,7 +833,8 @@ wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
 // at every later launch).
 template <typename T, int BM, bool TRANS>
 int launch_wide(const T* a, const T* b, const float* br, T* c, float* sums,
-                float* extra, int m, int n, int k, cudaStream_t stream) {
+                float* extra, int groups, int m, int n, int k,
+                cudaStream_t stream) {
   constexpr int bytes = wide_smem_bytes<T, BM, TRANS>();
   static const cudaError_t attr = [] {
     auto* fn = wide_kernel<T, BM, TRANS>;
@@ -788,7 +845,7 @@ int launch_wide(const T* a, const T* b, const float* br, T* c, float* sums,
     return err;
   }();
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((n + kWideN - 1) / kWideN, (m + BM - 1) / BM);
+  const dim3 grid((n + kWideN - 1) / kWideN, (m + BM - 1) / BM, groups);
   wide_kernel<T, BM, TRANS><<<grid, kThreads, bytes, stream>>>(
       a, b, br, c, sums, extra, m, n, k);
   return (int)cudaGetLastError();
@@ -806,23 +863,40 @@ template <typename F> int with_rows(int m, F&& f) {
 
 template <typename T>
 int launch_typed(const void* a, const void* b, const float* br, void* c,
-                 float* sums, float* extra, float* ws, int m, int n, int k,
-                 int trans_b, cudaStream_t stream) {
+                 float* sums, float* extra, float* ws, int groups, int m,
+                 int n, int k, int trans_b, cudaStream_t stream) {
   if (m <= kSmallM) {
     if (ws == nullptr) return (int)cudaErrorInvalidValue;
     return with_rows(m, [&](auto rows) {
       return launch_thin<T, decltype(rows)::value>(
           static_cast<const T*>(a), static_cast<const T*>(b), br,
-          static_cast<T*>(c), sums, extra, ws, m, n, k, trans_b, stream);
+          static_cast<T*>(c), sums, extra, ws, groups, m, n, k, trans_b,
+          stream);
     });
   }
   auto ta = static_cast<const T*>(a);
   auto tb = static_cast<const T*>(b);
   auto tc = static_cast<T*>(c);
   return trans_b ? launch_wide<T, kWideM, true>(ta, tb, br, tc, sums, extra,
-                                                m, n, k, stream)
+                                                groups, m, n, k, stream)
                  : launch_wide<T, kWideM, false>(ta, tb, br, tc, sums, extra,
-                                                 m, n, k, stream);
+                                                 groups, m, n, k, stream);
+}
+
+int launch_any(const void* a, const void* b, const float* br, void* c,
+               float* sums, float* extra, float* ws, int groups, int m, int n,
+               int k, int trans_b, int dtype, void* stream) {
+  if (groups <= 0 || groups > 65535 || m <= 0 || n <= 0 || k <= 0 ||
+      (br == nullptr) != (extra == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_typed<float>(a, b, br, c, sums, extra, ws, groups, m, n, k,
+                               trans_b, s);
+  if (dtype == 1)
+    return launch_typed<__nv_bfloat16>(a, b, br, c, sums, extra, ws, groups,
+                                       m, n, k, trans_b, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T> int thin_smem_typed(int m, int trans_b) {
@@ -899,14 +973,26 @@ extern "C" int matmul_abft_launch(const void* a, const void* b,
                                   float* extra, float* ws, int m, int n,
                                   int k, int trans_b, int dtype,
                                   void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || (br == nullptr) != (extra == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_typed<float>(a, b, br, c, sums, extra, ws, m, n, k,
-                               trans_b, s);
-  if (dtype == 1)
-    return launch_typed<__nv_bfloat16>(a, b, br, c, sums, extra, ws, m, n, k,
-                                       trans_b, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_any(a, b, br, c, sums, extra, ws, 1, m, n, k, trans_b, dtype,
+                    stream);
+}
+
+// `groups` independent products A_g [M, K] @ B_g [K, N] (B_g^T [N, K] with
+// trans_b) in one launch, over contiguous [groups, ...] operands: b_r
+// [groups, K], C [groups, M, N], sums [groups, ceil(M/tm), ceil(N/tn)],
+// extra [groups, M] and, when M <= 16, ws of groups * S * M * (N + 1)
+// floats.  The group is one more grid axis (wide path) or the outermost
+// item axis (thin path); the per-tile code and every association are the
+// single launch's, so group g's outputs are bit for bit those of
+// matmul_abft_launch on product g.  1 <= groups <= 65535.  The Python
+// wrappers launch a single product through this entry too (groups = 1,
+// which is matmul_abft_launch exactly).
+extern "C" int matmul_abft_grouped_launch(const void* a, const void* b,
+                                          const float* br, void* c,
+                                          float* sums, float* extra,
+                                          float* ws, int groups, int m, int n,
+                                          int k, int trans_b, int dtype,
+                                          void* stream) {
+  return launch_any(a, b, br, c, sums, extra, ws, groups, m, n, k, trans_b,
+                    dtype, stream);
 }

@@ -21,6 +21,11 @@ in order.
 ``trans_b=True`` takes B as its transpose ``[N, K]`` (the tied LM head's
 embedding table as it lies).  ``br=None`` skips the extra column — an
 unchecked product — and leaves ``c`` unchanged.
+
+:func:`matmul_abft_grouped_kernel` runs ``G`` independent products of one
+shape in one launch (an MoE layer's experts): the group is one more grid
+axis, nothing else changes, so group ``g``'s outputs are bit for bit those
+of :func:`matmul_abft_kernel` on product ``g``.
 """
 from __future__ import annotations
 
@@ -75,6 +80,11 @@ def matmul_abft_plain(a: Tensor, b: Tensor, br: Optional[Tensor] = None, *,
     port's CPU runs use this; on a GPU it is the yardstick the kernel is
     held against, never the serving path."""
     matmul_abft_plain.calls += 1
+    return _plain(a, b, br, trans_b)
+
+
+def _plain(a: Tensor, b: Tensor, br: Optional[Tensor], trans_b: bool
+           ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
     m, n, k = _check_shapes(a, b, br, trans_b)
     bk = b.t() if trans_b else b
     brc = None if br is None else br.reshape(k, 1)
@@ -125,6 +135,43 @@ def _agreed_with_library(lib, what: str, m: int, n: int, k: int, a: Tensor,
     return ours[:3]
 
 
+def _launch(what: str, a: Tensor, b: Tensor, br: Optional[Tensor],
+            trans_b: bool, g: int, m: int, n: int, k: int
+            ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """One launcher call over ``g`` products of one shape: a [g, M, K], b
+    [g, K, N] (or [g, N, K]), br g·K floats or None; returns (c [g, M, N],
+    block_sums [g, mt, nt], extra [g, M, 1] | None)."""
+    from repro_torch.kernels import runtime
+
+    runtime.require_cuda_operands(what, allow=DTYPES, a=a, b=b)
+    if br is not None:
+        runtime.require_cuda_operands(what, br=br)
+        if br.device != a.device:
+            raise ValueError(f"{what}: br lies on {br.device}, a on "
+                             f"{a.device}")
+    lib = runtime.load_library()
+    tm, tn, splits = _agreed_with_library(lib, what, m, n, k, a, trans_b)
+    dev = a.device
+    c = torch.empty((g, m, n), dtype=a.dtype, device=dev)
+    sums = torch.empty((g, -(-m // tm), -(-n // tn)), dtype=torch.float32,
+                       device=dev)
+    extra = None if br is None else torch.empty(
+        (g, m, 1), dtype=torch.float32, device=dev)
+    # the thin path's split sums [S, M, N] and extra column [S, M], a group
+    ws = torch.empty(g * splits * m * (n + 1), dtype=torch.float32,
+                     device=dev) if m <= MATMUL_SMALL_M else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.matmul_abft_grouped_launch(
+            a.data_ptr(), b.data_ptr(),
+            None if br is None else br.data_ptr(), c.data_ptr(),
+            sums.data_ptr(), None if extra is None else extra.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            g, m, n, k, int(trans_b), DTYPES.index(a.dtype), stream)
+    runtime.check_launch(code, what)
+    return c, sums, extra
+
+
 def matmul_abft_kernel(a: Tensor, b: Tensor, br: Optional[Tensor] = None,
                        *, trans_b: bool = False
                        ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
@@ -139,38 +186,76 @@ def matmul_abft_kernel(a: Tensor, b: Tensor, br: Optional[Tensor] = None,
     CPU take :func:`matmul_abft_plain`."""
     if a.device.type == "cpu":
         return matmul_abft_plain(a, b, br, trans_b=trans_b)
-    from repro_torch.kernels import runtime
-
-    what = "matmul_abft_kernel"
     m, n, k = _check_shapes(a, b, br, trans_b)
-    runtime.require_cuda_operands(what, allow=DTYPES, a=a, b=b)
-    if br is not None:
-        runtime.require_cuda_operands(what, br=br)
-        if br.device != a.device:
-            raise ValueError(f"{what}: br lies on {br.device}, a on "
-                             f"{a.device}")
-    lib = runtime.load_library()
-    tm, tn, splits = _agreed_with_library(lib, what, m, n, k, a, trans_b)
-    dev = a.device
-    c = torch.empty((m, n), dtype=a.dtype, device=dev)
-    sums = torch.empty((-(-m // tm), -(-n // tn)), dtype=torch.float32,
-                       device=dev)
-    extra = None if br is None else torch.empty((m, 1), dtype=torch.float32,
-                                                device=dev)
-    # the thin path's split sums [S, M, N] and extra column [S, M]
-    ws = torch.empty(splits * m * (n + 1), dtype=torch.float32, device=dev) \
-        if m <= MATMUL_SMALL_M else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.matmul_abft_launch(
-            a.data_ptr(), b.data_ptr(),
-            None if br is None else br.data_ptr(), c.data_ptr(),
-            sums.data_ptr(), None if extra is None else extra.data_ptr(),
-            None if ws is None else ws.data_ptr(),
-            m, n, k, int(trans_b), DTYPES.index(a.dtype), stream)
-    runtime.check_launch(code, what)
+    c, sums, extra = _launch("matmul_abft_kernel", a[None], b[None], br,
+                             trans_b, 1, m, n, k)
     matmul_abft_kernel.launches += 1
-    return c, sums, extra
+    return c[0], sums[0], None if extra is None else extra[0]
 
 
 matmul_abft_kernel.launches = 0
+
+
+def _check_grouped(a: Tensor, b: Tensor, br: Optional[Tensor],
+                   trans_b: bool) -> Tuple[int, int, int, int]:
+    if a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0]:
+        raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must be "
+                         f"3-D with one group count")
+    g = a.shape[0]
+    if g < 1:
+        raise ValueError("a grouped product needs at least one group")
+    m, n, k = _check_shapes(a[0], b[0], None, trans_b)
+    if br is not None:
+        if br.numel() != g * k:
+            raise ValueError(f"br has {br.numel()} entries, G x K = {g} x {k}")
+        if br.dtype != torch.float32:
+            raise ValueError(f"br has dtype {br.dtype}; it is float32")
+    return g, m, n, k
+
+
+def matmul_abft_grouped_plain(a: Tensor, b: Tensor,
+                              br: Optional[Tensor] = None, *,
+                              trans_b: bool = False
+                              ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """Plain PyTorch version of :func:`matmul_abft_grouped_kernel`: the
+    single product's plain version on each group in turn, stacked."""
+    matmul_abft_grouped_plain.calls += 1
+    g, _m, _n, k = _check_grouped(a, b, br, trans_b)
+    brg = None if br is None else br.reshape(g, k)
+    outs = [_plain(a[i], b[i], None if brg is None else brg[i], trans_b)
+            for i in range(g)]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]),
+            None if br is None else torch.stack([o[2] for o in outs]))
+
+
+matmul_abft_grouped_plain.calls = 0
+
+
+def matmul_abft_grouped_kernel(a: Tensor, b: Tensor,
+                               br: Optional[Tensor] = None, *,
+                               trans_b: bool = False
+                               ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """``G`` products of one shape in one launch.  a: [G, M, K]; b:
+    [G, K, N] (or [G, N, K] with ``trans_b``), both float32 or both
+    bfloat16; br: [G, K] (or [G, K, 1]) float32, or None.  Returns
+    (c [G, M, N], block_sums [G, ceil(M/tm), ceil(N/tn)],
+    extra [G, M, 1] | None); group g's are bit for bit
+    ``matmul_abft_kernel(a[g], b[g], br[g])``'s.
+
+    Operands on a CUDA device launch the CUDA kernel (one launcher call,
+    counted once in ``matmul_abft_grouped_kernel.launches``) or raise; only
+    operands that lie on the CPU take :func:`matmul_abft_grouped_plain`.
+    The group is a grid axis: the tile, the split count and the shared
+    memory are the single product's, held against ``analysis.vmem`` as
+    :func:`matmul_abft_kernel` holds them."""
+    if a.device.type == "cpu":
+        return matmul_abft_grouped_plain(a, b, br, trans_b=trans_b)
+    g, m, n, k = _check_grouped(a, b, br, trans_b)
+    out = _launch("matmul_abft_grouped_kernel", a, b, br, trans_b, g, m, n,
+                  k)
+    matmul_abft_grouped_kernel.launches += 1
+    return out
+
+
+matmul_abft_grouped_kernel.launches = 0

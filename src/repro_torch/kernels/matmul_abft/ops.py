@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.core.abft import ABFTConfig, Check, CheckedOp, resolve_w_r
 
-from .kernel import matmul_abft_kernel
+from .kernel import matmul_abft_grouped_kernel, matmul_abft_kernel
 
 Tensor = torch.Tensor
 
@@ -45,6 +45,25 @@ def matmul_abft(a: Tensor, b: Tensor, br: Optional[Tensor] = None, *,
     actual = block_sums.sum()                       # O(#blocks) reduce
     predicted = extra[:, 0].sum()                   # Σ (A b_r) = eᵀA B e
     return c, Check(predicted=predicted, actual=actual, granularity="layer")
+
+
+def matmul_abft_grouped(a: Tensor, b: Tensor, br: Optional[Tensor] = None
+                        ) -> Tuple[Tensor, Optional[Check], Optional[Tensor]]:
+    """C_g = A_g @ B_g for every group g of ``a`` [G, M, K] and ``b``
+    [G, K, N], one launch.  With ``br`` [G, K], each group's B·e, it adds
+    one fused ABFT check over all groups: predicted = Σ_g (eᵀA_g)(B_g e) =
+    Σ extra, actual = Σ_g Σ C_g = Σ of the block sums (the reference's
+    batched-einsum check of an MoE layer's expert products), and returns
+    (C, Check, extra [G, M]).  Without ``br`` the product runs alone and
+    returns ``(C, None, None)`` — C is the same either way."""
+    if br is None:
+        return matmul_abft_grouped_kernel(a, b, None)[0], None, None
+    br = br.reshape(b.shape[0], -1).to(torch.float32).contiguous()
+    c, block_sums, extra = matmul_abft_grouped_kernel(a, b, br)
+    extra = extra[..., 0]
+    chk = Check(predicted=extra.sum(), actual=block_sums.sum(),
+                granularity="layer")
+    return c, chk, extra
 
 
 class MatmulAbftOp(CheckedOp):

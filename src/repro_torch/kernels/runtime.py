@@ -66,6 +66,7 @@ _SIGNATURES = {
     "matmul_abft_wide_tile_n": [_I],
     "matmul_abft_wide_smem_bytes": [_I, _I, _I],
     "matmul_abft_launch": [_P] * 7 + [_I] * 5 + [_P],
+    "matmul_abft_grouped_launch": [_P] * 7 + [_I] * 6 + [_P],
     "flash_checksum_smem_bytes": [_I],
     "flash_checksum_max_dh": [],
     "flash_checksum_block_q": [],
@@ -234,12 +235,16 @@ def _wrappers():
                                    gcn_network_kernel, gcn_network_plain)
     from .flash_checksum.kernel import (flash_checksum_kernel,
                                         flash_checksum_plain)
-    from .matmul_abft.kernel import matmul_abft_kernel, matmul_abft_plain
+    from .matmul_abft.kernel import (matmul_abft_grouped_kernel,
+                                     matmul_abft_grouped_plain,
+                                     matmul_abft_kernel, matmul_abft_plain)
     from .spmm_abft.kernel import spmm_abft_kernel, spmm_abft_plain
     return (("spmm_abft", spmm_abft_kernel, spmm_abft_plain),
             ("gcn_fused", gcn_fused_kernel, gcn_fused_plain),
             ("gcn_network", gcn_network_kernel, gcn_network_plain),
             ("matmul_abft", matmul_abft_kernel, matmul_abft_plain),
+            ("matmul_abft_grouped", matmul_abft_grouped_kernel,
+             matmul_abft_grouped_plain),
             ("flash_checksum", flash_checksum_kernel, flash_checksum_plain))
 
 

@@ -2,8 +2,9 @@
 cache building, one-token decode, the tied LM head.
 
 Counterpart of the JAX package's ``repro/models/transformer.py``, for the
-attention-decoder subset (``block_pattern == ("attn",)``, dense MLPs, no
-encoder).  Layer stacks are grouped into *segments* of a repeating
+attention-decoder subset (``block_pattern == ("attn",)``, dense or
+mixture-of-experts MLPs — :mod:`repro_torch.models.moe` when ``cfg.moe``
+is set —, no encoder).  Layer stacks are grouped into *segments* of a repeating
 block-pattern unit whose params are stacked on a leading axis, as the
 reference's vmapped init makes them; the port applies the units in a
 Python loop (no scan) and stacks each position's per-unit checks into one
@@ -12,7 +13,7 @@ layer a flag fired in with the reference's ``op{i}:L{j}`` ids.  A segment
 of one unit, or ``cfg.scan_layers=False``, keeps its checks flat, as the
 reference's unrolled path does.
 
-``rwkv``, ``rglru``, MoE and encoder-decoder blocks raise
+``rwkv``, ``rglru`` and encoder-decoder blocks raise
 ``NotImplementedError`` (ROADMAP A10).
 """
 from __future__ import annotations
@@ -43,6 +44,7 @@ from repro_torch.models.common import (
     norm_apply,
 )
 from repro_torch.models.mlp import init_mlp, mlp_block
+from repro_torch.models.moe import init_moe, moe_block
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -51,14 +53,12 @@ Params = Dict[str, Any]
 def _unported(what: str):
     return NotImplementedError(
         f"{what} is not ported yet: the port runs attention decoders with "
-        f"dense MLPs (ROADMAP A10)")
+        f"dense or MoE MLPs (ROADMAP A10)")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family != "decoder":
         raise _unported(f"family {cfg.family!r}")
-    if cfg.moe is not None:
-        raise _unported("MoE")
     for bt in cfg.block_pattern:
         if bt != "attn":
             raise _unported(f"block type {bt!r}")
@@ -85,13 +85,15 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, btype: str,
         raise _unported(f"block type {btype!r}")
     if cross:
         raise _unported("cross-attention")
-    if cfg.moe is not None:
-        raise _unported("MoE")
     d = cfg.d_model
-    return {"ln1": init_norm(d, lead, gen_device(gen)),
-            "ln2": init_norm(d, lead, gen_device(gen)),
-            "attn": init_attention(gen, cfg, lead=lead),
-            "mlp": init_mlp(gen, cfg, lead=lead)}
+    p = {"ln1": init_norm(d, lead, gen_device(gen)),
+         "ln2": init_norm(d, lead, gen_device(gen)),
+         "attn": init_attention(gen, cfg, lead=lead)}
+    if cfg.moe is not None:
+        p["moe"] = init_moe(gen, cfg, lead=lead)
+    else:
+        p["mlp"] = init_mlp(gen, cfg, lead=lead)
+    return p
 
 
 def init_unit(gen: torch.Generator, cfg: ModelConfig,
@@ -195,8 +197,9 @@ def layer_apply_seq(lp: Params, x: Tensor, btype: str, cfg: ModelConfig,
     checks += cs
     h = norm_apply(x, lp["ln2"], cfg)
     if "moe" in lp:
-        raise _unported("MoE")
-    y, cs = mlp_block(lp["mlp"], h, cfg, abft)
+        y, cs, aux = moe_block(lp["moe"], h, cfg, abft)
+    else:
+        y, cs = mlp_block(lp["mlp"], h, cfg, abft)
     x = x + y
     checks += cs
     new_state = None
@@ -231,7 +234,10 @@ def layer_apply_decode(lp: Params, x: Tensor, btype: str, cfg: ModelConfig,
                                             abft, window=window)
     x = x + y
     h = norm_apply(x, lp["ln2"], cfg)
-    y, cs = mlp_block(lp["mlp"], h, cfg, abft)
+    if "moe" in lp:
+        y, cs, _ = moe_block(lp["moe"], h, cfg, abft)
+    else:
+        y, cs = mlp_block(lp["mlp"], h, cfg, abft)
     x = x + y
     return x, checks + cs, new_state
 

@@ -1,10 +1,12 @@
-"""qwen1.5-4b, chatglm3-6b and h2o-danube-3-4b in the port against the JAX
-package.
+"""qwen1.5-4b, chatglm3-6b, h2o-danube-3-4b, deepseek-moe-16b and
+qwen3-moe-30b-a3b in the port against the JAX package.
 
-The three configs are copies of the reference's; their full-width fields
+The five configs are copies of the reference's; their full-width fields
 must equal it.  Their smoke twins (``smoke_config``: 2 layers, d 64, the
 same block flavour — QKV bias, MHA / GQA, partial RoPE, SwiGLU, an untied
-head, danube's sliding window cut to 32) run the JAX ``LMEngine`` and the
+head, danube's sliding window cut to 32, the MoE twins' 8 experts top-2 at
+the published capacity factor 1.25, deepseek's with a shared expert) run
+the JAX ``LMEngine`` and the
 port's on the same numpy weights (carried across by ``repro_torch.convert``):
 prefill and decode logits within ``atol 1e-4``, every checksum corner
 within ``atol 1e-4 + rtol 1e-6`` (the same f32 sums in another order), the
@@ -13,6 +15,8 @@ longer than its smoke window, so its prefill masks by the window (the
 flash path's plain version) and so does every decode step.  Within the
 port: guarded == unguarded bit for bit.  Everything runs on the CPU (the
 kernels' plain versions)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +39,8 @@ from repro_torch.engine.lm import LMEngine, fold_lm_w_r
 from repro_torch.kernels import runtime
 from repro_torch.models.transformer import model_decode, model_prefill
 
-ARCHS = ["qwen1.5-4b", "chatglm3-6b", "h2o-danube-3-4b"]
+ARCHS = ["qwen1.5-4b", "chatglm3-6b", "h2o-danube-3-4b", "deepseek-moe-16b",
+         "qwen3-moe-30b-a3b"]
 # danube's smoke window is 32: the prompt runs past it, decode further
 PROMPT, CACHE, BATCH, NEW = 40, 48, 2, 3
 ATOL = 1e-4
@@ -62,6 +67,17 @@ def setup(request):
                 params=params, jabft=jabft, abft=abft, tokens=tokens)
 
 
+def _per_layer(cfg):
+    """(checks, matmul_abft launches, grouped launches) of one layer of a
+    fused-mode step: attention's four; a dense MLP's three, or an MoE
+    layer's router, up, gate and fused combine checks (the three expert
+    products on the grouped kernel) and its shared expert's three."""
+    if cfg.moe is None:
+        return 7, 7, 0
+    shared = 3 if cfg.moe.n_shared else 0
+    return 4 + 4 + shared, 4 + 1 + shared, 3
+
+
 def _close_corner(got, want, what):
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-6, atol=ATOL,
@@ -81,6 +97,9 @@ def test_full_width_config_fields_equal_the_reference(name):
     for f in FIELDS:
         assert getattr(cfg, f) == getattr(jcfg, f), f
     assert cfg.name == name and cfg.attention_free is False
+    assert (cfg.moe is None) == (jcfg.moe is None)
+    if cfg.moe is not None:
+        assert dataclasses.asdict(cfg.moe) == dataclasses.asdict(jcfg.moe)
 
 
 def test_smoke_twin_blocks_are_the_architecture_s(setup):
@@ -91,8 +110,12 @@ def test_smoke_twin_blocks_are_the_architecture_s(setup):
     assert cfg.qkv_bias == full.qkv_bias and cfg.rope_frac == full.rope_frac
     assert not cfg.tie_embeddings and "head" in setup["params"]
     assert cfg.window == (32 if full.window else 0) and cfg.window < PROMPT
-    wq = setup["params"]["segments"][0]["b0"]["attn"]["wq"]
-    assert ("b" in wq) == full.qkv_bias
+    b0 = setup["params"]["segments"][0]["b0"]
+    assert ("b" in b0["attn"]["wq"]) == full.qkv_bias
+    assert ("moe" in b0) == (full.moe is not None) != ("mlp" in b0)
+    if full.moe is not None:
+        assert cfg.moe.capacity_factor == full.moe.capacity_factor == 1.25
+        assert ("shared" in b0["moe"]) == bool(full.moe.n_shared)
 
 
 def test_prefill_and_decode_match_the_jax_model(setup):
@@ -124,7 +147,8 @@ def test_prefill_and_decode_match_the_jax_model(setup):
                                    rtol=0)
         jids, jflags, _ = jper_op_report(jchecks, s["jabft"])
         tids, tflags, _ = per_op_report(tchecks, s["abft"])
-        assert tids == tuple(jids) and len(tids) == 2 * 7 + 1
+        assert tids == tuple(jids)
+        assert len(tids) == 2 * _per_layer(s["cfg"])[0] + 1
         assert tflags.tolist() == np.asarray(jflags).tolist()
         assert not tflags.any()
         for (tp_, ta), (jp_, ja) in zip(_corners(tchecks),
@@ -180,8 +204,12 @@ def test_guarded_logits_bit_identical_to_unguarded(setup):
         assert torch.equal(logits, ref[i + 1]) and not bool(m["abft_flag"])
     assert eng.guard.flags == 0
     # every product (the untied head's too) went through matmul_abft's
-    # wrapper, every prefill attention through flash_checksum's — danube's
-    # windowed one included — their plain versions on the CPU
-    per_step = 2 * 7 + 1
-    assert runtime.plain_counts()["matmul_abft"] == (NEW + 1) * per_step
+    # wrapper — an MoE layer's expert products through its grouped one —,
+    # every prefill attention through flash_checksum's — danube's windowed
+    # one included — their plain versions on the CPU
+    _, single, grouped = _per_layer(s["cfg"])
+    assert runtime.plain_counts()["matmul_abft"] == \
+        (NEW + 1) * (2 * single + 1)
+    assert runtime.plain_counts()["matmul_abft_grouped"] == \
+        (NEW + 1) * 2 * grouped
     assert runtime.plain_counts()["flash_checksum"] == s["cfg"].n_layers

@@ -71,8 +71,9 @@ def _close_corner(got, want, what):
 # ---------------------------------------------------------------------------
 
 def test_the_registry_lists_what_the_port_runs():
-    assert list_archs() == ["chatglm3-6b", "gemma-2b", "h2o-danube-3-4b",
-                            "qwen1.5-4b"]
+    assert list_archs() == ["chatglm3-6b", "deepseek-moe-16b", "gemma-2b",
+                            "h2o-danube-3-4b", "qwen1.5-4b",
+                            "qwen3-moe-30b-a3b"]
     cfg = get_config("gemma-2b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
             cfg.d_ff, cfg.vocab_size) == (18, 2048, 8, 1, 256, 16384, 256000)

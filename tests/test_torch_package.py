@@ -126,7 +126,8 @@ def test_cpu_runs_only_when_asked_for():
 
 
 @pytest.mark.parametrize("kernel", ["spmm_abft", "gcn_fused", "gcn_network",
-                                    "matmul_abft", "flash_checksum"])
+                                    "matmul_abft", "matmul_abft_grouped",
+                                    "flash_checksum"])
 def test_wrapper_never_takes_the_plain_version_off_the_cpu(kernel):
     """Tensors on any device other than the CPU go to the launch path, which
     raises when it cannot launch; the plain version is not consulted."""
@@ -146,6 +147,9 @@ def test_wrapper_never_takes_the_plain_version_off_the_cpu(kernel):
                 cols, vals, x, [torch.zeros((4, 8), device=dev)], [wr])
         elif kernel == "matmul_abft":
             mm_kernel.matmul_abft_kernel(x, w, wr[:, 0])
+        elif kernel == "matmul_abft_grouped":
+            mm_kernel.matmul_abft_grouped_kernel(x[None], w[None],
+                                                 wr[:, 0][None])
         else:
             q = torch.zeros((1, 4, 2, 8), device=dev)
             kv = torch.zeros((1, 4, 1, 8), device=dev)
@@ -156,7 +160,7 @@ def test_wrapper_never_takes_the_plain_version_off_the_cpu(kernel):
 def test_launch_and_plain_counters():
     runtime.reset_counts()
     zero = {"spmm_abft": 0, "gcn_fused": 0, "gcn_network": 0,
-            "matmul_abft": 0, "flash_checksum": 0}
+            "matmul_abft": 0, "matmul_abft_grouped": 0, "flash_checksum": 0}
     assert runtime.launch_counts() == zero
     cols = torch.zeros((1, 1), dtype=torch.int32)
     vals = torch.ones((1, 1, 4, 4))
@@ -167,11 +171,15 @@ def test_launch_and_plain_counters():
     fused_kernel.gcn_network_kernel(cols, vals, torch.ones(4, 3),
                                     [torch.ones(3, 8)], [torch.ones(3, 1)])
     mm_kernel.matmul_abft_kernel(torch.ones(3, 4), torch.ones(4, 5))
+    # the grouped plain version loops the single one uncounted
+    mm_kernel.matmul_abft_grouped_kernel(torch.ones(2, 3, 4),
+                                         torch.ones(2, 4, 5))
     flash_kernel.flash_checksum_kernel(torch.ones(1, 3, 2, 4),
                                        torch.ones(1, 3, 1, 4),
                                        torch.ones(1, 3, 1, 4))
     assert runtime.plain_counts() == {"spmm_abft": 1, "gcn_fused": 1,
                                       "gcn_network": 1, "matmul_abft": 1,
+                                      "matmul_abft_grouped": 1,
                                       "flash_checksum": 1}
     assert runtime.launch_counts() == zero
     runtime.reset_counts()
@@ -201,6 +209,7 @@ def test_cuda_sources_exist_and_carry_their_notes():
     assert set(runtime._SIGNATURES) >= {"spmm_abft_launch", "gcn_fused_launch",
                                         "gcn_network_launch",
                                         "matmul_abft_launch",
+                                        "matmul_abft_grouped_launch",
                                         "flash_checksum_launch"}
 
 
