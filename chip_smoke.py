@@ -18,7 +18,10 @@ kernels, then the same at the full widths of qwen1.5-4b, chatglm3-6b,
 h2o-danube-3-4b (``lm_archs``; danube's 5120-token prompt runs past its
 4096-key sliding window, which ``flash_checksum`` masks), deepseek-moe-16b
 (all 28 layers) and qwen3-moe-30b-a3b (24 of its 48 layers), whose expert
-products run on ``matmul_abft``'s grouped launch, and guarded GAT
+products run on ``matmul_abft``'s grouped launch, rwkv6-7b (attention-free,
+32 layers) and recurrentgemma-9b (38 layers, RG-LRU gates on the grouped
+launch, local attention on ``flash_checksum`` with its 2048-key window;
+the recurrent scans timed), and guarded GAT
 serving on ``matmul_abft`` over full Cora and full PubMed (``gat``) —
 through the entry points a user would call.  Any phase that fails
 raises and the run exits non-zero; without a CUDA device it exits non-zero
@@ -46,11 +49,13 @@ at 1, 2 and 4 shards through B1 and B2, one launch a shard, rows and stripe
 corners bit for bit the unsharded run's.
 
 ``lm_kernels`` also holds B4 at every launch shape the other LMs add, the
-grouped B4 at every served expert shape (bit for bit one single launch a
-group, timed beside ``torch.bmm``) and at ragged shapes, and B5 at each of
-their served prefill attentions (danube's with its window) and at small
-ragged windowed shapes, the bfloat16 ones also on ``FLASH_SEEDS`` input
-streams, each chain corner with its float64 witness (``chain_witness``).
+grouped B4 at every served expert and RG-LRU gate shape (bit for bit one
+single launch a group, timed beside ``torch.bmm``) and at ragged shapes,
+and B5 at each of their served prefill attentions (danube's with its
+window, recurrentgemma's with its local window, also in bfloat16 on
+``FLASH_SEEDS`` input streams) and at small ragged windowed shapes, the
+bfloat16 ones also on ``FLASH_SEEDS``, each chain corner with its float64
+witness (``chain_witness``).
 
 One JSON object per phase is printed (``env``, ``build``, ``kernel_checks``,
 ``lm_kernels``, ``serve``, ``fault``, ``stream``, ``full_graph``,
@@ -92,6 +97,10 @@ CORNER_RTOL = 1e-4               # clean |pred - actual| / max(1, |actual|)
 # witness (clean_witness): each f32 rounding step between its two sides
 # within one unit roundoff of the sum of |terms| that step rounds
 U32 = 2.0 ** -24
+# B4's block sums: an element over OUT_ATOL + OUT_RTOL · |want| passes (in
+# float32) only within SUM_ULPS unit roundoffs of its tile's Σ|c| of the
+# float64 sum of the kernel's own C (check_block_sums)
+SUM_ULPS = 4
 # B5's chain corner in bfloat16: over 5e-2 it passes only with its float64
 # witness (chain_witness), each rounding step within one unit roundoff
 # (bf16's or f32's) of the sum of |terms| that step rounds; FLASH_SEEDS are
@@ -123,14 +132,25 @@ BF16_TOL = dict(matmul_abft=2e-2, flash_checksum=3e-2)   # the JAX tests'
 # published capacity factor 1.25 (prefill drops assignments): deepseek-moe-16b
 # with all 28 layers (67.5 GB of weights), qwen3-moe-30b-a3b with 24 of its
 # 48 layers — all 48 would be 122 GB at f32, past the card's 80 GB
-# (``layers`` is the cut).
+# (``layers`` is the cut).  Then the recurrent families, all layers, f32:
+# rwkv6-7b (attention-free, 28.1 GB) and recurrentgemma-9b (the (rglru,
+# rglru, attn) pattern, 38 = 12 x 3 + 2 layers, 34.3 GB; its 2560-token
+# prompt runs 512 past the 2048-key local window), whose card-vs-CPU cut is
+# one whole unit (``cut_layers`` 3: both RG-LRU layers and the attention).
 ARCHS = (
     dict(arch="qwen1.5-4b", batch=2, prompt=512, cache=528, new=8),
     dict(arch="chatglm3-6b", batch=2, prompt=512, cache=528, new=8),
     dict(arch="h2o-danube-3-4b", batch=1, prompt=5120, cache=5136, new=8),
     dict(arch="deepseek-moe-16b", batch=2, prompt=512, cache=528, new=8),
     dict(arch="qwen3-moe-30b-a3b", batch=2, prompt=512, cache=528, new=8,
-         layers=24))
+         layers=24),
+    dict(arch="rwkv6-7b", batch=2, prompt=512, cache=528, new=8),
+    dict(arch="recurrentgemma-9b", batch=1, prompt=2560, cache=2576, new=8,
+         cut_layers=3))
+# the leaf a weight bit flip goes into: the first dense weight of unit
+# ``flip_layer``'s first block
+FLIP_LEAF = {"attn": ("attn", "wq"), "rwkv": ("tm", "wr"),
+             "rglru": ("rglru", "proj_x")}
 # B5's sliding window at small ragged shapes: T = S = 257 (B, H, Kh, dh),
 # and danube's head dim at a short window
 FLASH_WINDOWS = (1, 31, 32, 33, 100, 300)
@@ -260,6 +280,55 @@ def assert_close(name, got, want, atol=OUT_ATOL, rtol=OUT_RTOL) -> float:
         raise AssertionError(f"{name}: max abs err {max_err(got, want):.3e} "
                              f"over atol={atol} rtol={rtol}")
     return max_err(got, want)
+
+
+def check_block_sums(torch, name, c, got, want) -> dict:
+    """B4's block sums ``got`` against the plain version's ``want`` (both
+    [..., tiles of M, tiles of N]; ``c`` [..., M, N] the kernel's output),
+    element by element within OUT_ATOL + OUT_RTOL · |want|.  In float32 an
+    element over it passes only with its float64 witness: the kernel's
+    block sum within SUM_ULPS unit roundoffs of its tile's Σ|c| of the
+    float64 sum of the kernel's own tile of C (C itself is held against the
+    plain version's).  A tile of large outputs that cancels (the 4096-wide
+    tied head, |c| ~ 64) rounds its sum past 1e-4 (ROADMAP C5), at a
+    witness ratio far under 1.  Every call also plants the fault the rule
+    exists for — every block sum moved by C's mean |c|, one dropped or
+    doubled typical element, about 2^24 / (SUM_ULPS · n) times the witness
+    bound of an n-element tile — and fails unless the rule rejects each
+    planted sum.  Returns the max abs error, the elements over the
+    tolerance and the largest witness ratio of all (float32)."""
+    from repro_torch.kernels.matmul_abft.kernel import tile_sums
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}, or non-finite values")
+    f32 = c.dtype == torch.float32
+    if f32:
+        m, n = c.shape[-2:]
+        cs = c.reshape(-1, m, n).to(torch.float64)
+        exact = torch.stack([tile_sums(x, m, n) for x in cs]).reshape(
+            got.shape)
+        scale = SUM_ULPS * U32 * torch.stack(
+            [tile_sums(x.abs(), m, n) for x in cs]).reshape(got.shape)
+
+    def witness(sums):
+        return (sums.to(torch.float64) - exact).abs() / scale
+
+    def rejected(sums):
+        over = (sums - want).abs() > OUT_ATOL + OUT_RTOL * want.abs()
+        return over & (witness(sums) > 1.0) if f32 else over
+    bad = rejected(got)
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} block sums over "
+                             f"atol={OUT_ATOL} rtol={OUT_RTOL}, max abs err "
+                             f"{max_err(got, want):.3e}, and over "
+                             f"{SUM_ULPS} unit roundoffs of Σ|c| from the "
+                             f"float64 sum of the kernel's C")
+    if not rejected(got + c.float().abs().mean()).all():
+        raise AssertionError(f"{name}: the rule let a block sum off by one "
+                             f"typical |c| pass")
+    over = (got - want).abs() > OUT_ATOL + OUT_RTOL * want.abs()
+    return dict(max_abs_err=max_err(got, want), over_tol=int(over.sum()),
+                max_witness_ratio=float(witness(got).max()) if f32 else None)
 
 
 def corner_rel(pred, actual) -> float:
@@ -1890,9 +1959,10 @@ def arch_config(name, layers=None):
 
 
 def _mlp_products(cfg):
-    """(K, N) of each matmul_abft launch of one layer's MLP: a gated MLP's
-    three, or an MoE layer's router and its shared experts' three (the
-    experts themselves are grouped launches, :func:`lm_grouped_shapes`)."""
+    """(K, N) of each matmul_abft launch of one attention or RG-LRU
+    layer's MLP: a gated MLP's three, or an MoE layer's router and its
+    shared experts' three (the experts themselves are grouped launches,
+    :func:`lm_grouped_shapes`)."""
     d = cfg.d_model
     if cfg.moe is None:
         return [(d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
@@ -1904,34 +1974,100 @@ def _mlp_products(cfg):
     return out
 
 
+def layer_products(cfg, btype):
+    """(K, N) of each matmul_abft launch of one layer of type ``btype``:
+    attention's q, k, v, o; RWKV6's r, k, v, g, o and its channel mix's
+    two; the RG-LRU's proj_x, proj_gate, proj_out (its gates are grouped
+    launches); then the MLP's."""
+    d = cfg.d_model
+    if btype == "rwkv":
+        return [(d, d)] * 5 + [(d, cfg.d_ff), (cfg.d_ff, d)]
+    if btype == "rglru":
+        dr = cfg.rglru_d or d
+        return [(d, dr), (d, dr), (dr, d)] + _mlp_products(cfg)
+    hq, hkv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    return [(d, hq), (d, hkv), (d, hkv), (hq, d)] + _mlp_products(cfg)
+
+
+def layer_checks(cfg, btype):
+    """Checks of one fused-mode layer of type ``btype``: RWKV6's seven;
+    attention's four or the RG-LRU's five (proj_x, proj_gate, the two
+    gates, proj_out), then a gated MLP's three or an MoE layer's router,
+    up, gate and fused combine checks and its shared experts' three."""
+    if btype == "rwkv":
+        return 7
+    mixer = 5 if btype == "rglru" else 4
+    if cfg.moe is None:
+        return mixer + 3
+    return mixer + 4 + (3 if cfg.moe.n_shared else 0)
+
+
+def layer_grouped(cfg, btype):
+    """Grouped matmul_abft launches of one layer: the RG-LRU's two gates,
+    an MoE layer's three expert products."""
+    return (2 if btype == "rglru" else 0) + \
+        (3 if cfg.moe is not None and btype != "rwkv" else 0)
+
+
+def block_types(cfg):
+    return [cfg.block_type(i) for i in range(cfg.n_layers)]
+
+
 def lm_step_launches(cfg):
     """matmul_abft and grouped matmul_abft launches of one prefill or decode
-    step (the head included), and the checks of one layer in fused mode
-    (attention's four; three of a gated MLP; an MoE layer's router, up, gate
-    and fused combine, and its shared experts' three)."""
-    per_layer = 4 + len(_mlp_products(cfg))
-    grouped = 3 if cfg.moe is not None else 0
-    checks = 7 if cfg.moe is None else per_layer + 3
-    return (dict(matmul_abft=cfg.n_layers * per_layer + 1,
-                 matmul_abft_grouped=cfg.n_layers * grouped), checks)
+    step (the head included), and flash_checksum's of a prefill (one an
+    attention layer; decode attention is plain)."""
+    types = block_types(cfg)
+    return dict(
+        matmul_abft=sum(len(layer_products(cfg, bt)) for bt in types) + 1,
+        matmul_abft_grouped=sum(layer_grouped(cfg, bt) for bt in types),
+        flash_checksum=types.count("attn"))
+
+
+def lm_op_ids(cfg):
+    """The per-op ids of one step's checks: a segment of several units
+    stacks each position's checks (``op{i}:L{j}``), a segment of one unit
+    keeps them flat, the head's last."""
+    from repro_torch.models.transformer import seg_structure
+    ids, off = [], 0
+    for pattern, count in seg_structure(cfg):
+        n = sum(layer_checks(cfg, bt) for bt in pattern)
+        if count > 1 and cfg.scan_layers:
+            ids += [f"op{off + i}:L{j}" for i in range(n)
+                    for j in range(count)]
+            off += n
+        else:
+            ids += [f"op{off + i}" for i in range(n * count)]
+            off += n * count
+    return ids + [f"op{off}"]
 
 
 def lm_grouped_shapes(cfg, batch=LM["batch"], prompt=LM["prompt"]):
-    """Every (G, M, K, N) an MoE run of ``cfg`` at ``batch`` x ``prompt``
-    launches the grouped matmul_abft at — G experts, M the capacity of the
-    step's tokens; up and gate [M, d] @ [d, f], down [M, f] @ [f, d] — with
-    its launches per prefill and per decode step; {} without MoE."""
+    """Every (G, M, K, N) a run of ``cfg`` at ``batch`` x ``prompt``
+    launches the grouped matmul_abft at, with its launches per prefill and
+    per decode step: an MoE layer's G experts, M the capacity of the
+    step's tokens (up and gate [M, d] @ [d, f], down [M, f] @ [f, d]); an
+    RG-LRU layer's two gates, 16 blocks [M, dr/16] @ [dr/16, dr/16], M the
+    step's tokens; {} for neither."""
     from repro_torch.models.moe import _capacity
-    if cfg.moe is None:
-        return {}
-    mc, d = cfg.moe, cfg.d_model
+    from repro_torch.models.rglru import GATE_BLOCKS
+    types = block_types(cfg)
     shapes = {}
+
+    def add(key, step, n):
+        shapes.setdefault(key, {"prefill": 0, "decode": 0})
+        shapes[key][step] += n
+    d = cfg.d_model
     for tokens, step in ((batch * prompt, "prefill"), (batch, "decode")):
-        cap = _capacity(tokens, mc)
-        for k, n, per in ((d, mc.d_ff_expert, 2), (mc.d_ff_expert, d, 1)):
-            key = (mc.n_experts, cap, k, n)
-            shapes.setdefault(key, {"prefill": 0, "decode": 0})
-            shapes[key][step] += per * cfg.n_layers
+        if cfg.moe is not None:
+            mc, cap = cfg.moe, _capacity(tokens, cfg.moe)
+            moe_layers = sum(bt != "rwkv" for bt in types)
+            for k, n, per in ((d, mc.d_ff_expert, 2),
+                              (mc.d_ff_expert, d, 1)):
+                add((mc.n_experts, cap, k, n), step, per * moe_layers)
+        if "rglru" in types:
+            r = (cfg.rglru_d or d) // GATE_BLOCKS
+            add((GATE_BLOCKS, tokens, r, r), step, 2 * types.count("rglru"))
     return shapes
 
 
@@ -1939,14 +2075,14 @@ def lm_matmul_shapes(cfg, batch=LM["batch"], prompt=LM["prompt"]):
     """Every (M, K, N, trans_b) an LM run of ``cfg`` at ``batch`` x
     ``prompt`` launches matmul_abft at, with its launches per prefill and
     per decode step."""
-    d, hq = cfg.d_model, cfg.n_heads * cfg.hd
-    hkv, n = cfg.n_kv_heads * cfg.hd, cfg.n_layers
-    per_layer = [(d, hq), (d, hkv), (d, hkv), (hq, d)] + _mlp_products(cfg)
+    d = cfg.d_model
     shapes = {}
     for m, step in ((batch * prompt, "prefill"), (batch, "decode")):
-        for k, nn in per_layer:
-            shapes.setdefault((m, k, nn, False), {"prefill": 0, "decode": 0})
-            shapes[(m, k, nn, False)][step] += n
+        for bt in block_types(cfg):
+            for k, nn in layer_products(cfg, bt):
+                shapes.setdefault((m, k, nn, False), {"prefill": 0,
+                                                      "decode": 0})
+                shapes[(m, k, nn, False)][step] += 1
     # the head: the last position of each sequence, both steps — the tied
     # one multiplies by the embedding table as it lies (B^T), an untied one
     # by its [d, V] weight
@@ -2002,8 +2138,9 @@ def check_matmul_shape(torch, m, k, n, trans_b, dtype, gen, timed):
                                             want[0].float(), atol=tol,
                                             rtol=tol))
         worst = max(worst, worst_c)
-        worst = max(worst, assert_close(f"{tag} block_sums", got[1], want[1],
-                                        atol=OUT_ATOL, rtol=OUT_RTOL))
+        sums = check_block_sums(torch, f"{tag} block_sums", got[0], got[1],
+                                want[1])
+        worst = max(worst, sums["max_abs_err"])
         if with_br:
             worst = max(worst, assert_close(f"{tag} extra", got[2], want[2],
                                             atol=OUT_ATOL, rtol=OUT_RTOL))
@@ -2041,7 +2178,7 @@ def check_matmul_shape(torch, m, k, n, trans_b, dtype, gen, timed):
                  wide_smem_bytes=matmul_wide_smem_bytes(
                      a.element_size(), trans_b) if m > 16 else 0,
                  repeat_bitwise=True, max_abs_err=worst,
-                 max_abs_err_c=worst_c, max_rel_corner=rel,
+                 max_abs_err_c=worst_c, block_sums=sums, max_rel_corner=rel,
                  corrupted_divergence=div)
     if timed and dtype == torch.float32 and m <= 16:
         # the kernel, the plain version on the card and on the CPU, each
@@ -2106,9 +2243,9 @@ def check_grouped_shape(torch, g, m, k, n, dtype, gen, timed):
     want = matmul_abft_grouped_plain(a, b, br)
     worst_c = assert_close(f"{tag} c", got[0].float(), want[0].float(),
                            atol=tol, rtol=tol)
-    worst = max(worst_c,
-                assert_close(f"{tag} block_sums", got[1], want[1],
-                             atol=OUT_ATOL, rtol=OUT_RTOL),
+    sums = check_block_sums(torch, f"{tag} block_sums", got[0], got[1],
+                            want[1])
+    worst = max(worst_c, sums["max_abs_err"],
                 assert_close(f"{tag} extra", got[2], want[2], atol=OUT_ATOL,
                              rtol=OUT_RTOL))
     del want
@@ -2145,7 +2282,7 @@ def check_grouped_shape(torch, g, m, k, n, dtype, gen, timed):
     entry = dict(groups=g, m=m, k=k, n=n, dtype=str(dtype), splits=splits,
                  split_k=matmul_split_k(m, n, k), tile=list(matmul_tile(m)),
                  items=g * splits * tiles, bitwise_single_launches=True,
-                 repeat_bitwise=True, max_abs_err=worst,
+                 repeat_bitwise=True, max_abs_err=worst, block_sums=sums,
                  max_abs_err_c=worst_c, max_rel_corner=rel,
                  corrupted_divergence=div)
     if timed:
@@ -2433,12 +2570,14 @@ def phase_lm_kernels(torch):
 
     # the other served models: B4 at every launch shape they add (f32,
     # prefill and decode, the untied heads, the MoE routers and shared
-    # experts), the grouped B4 at every expert shape (f32 timed, and bf16),
-    # B5 at each served prefill attention (danube's with its window), then
-    # windowed B5 at small ragged shapes, f32 and bf16
+    # experts, RWKV6's and the RG-LRU's projections), the grouped B4 at
+    # every expert and RG-LRU gate shape (f32 timed, and bf16), B5 at each
+    # served prefill attention (danube's with its window, recurrentgemma's
+    # with its local window — MQA at dh 256 —, also in bf16 on FLASH_SEEDS
+    # streams), then windowed B5 at small ragged shapes, f32 and bf16
     checked = {(e["m"], e["k"], e["n"], e["trans_b"]): e for e in per_shape}
     grouped, grouped_bf16 = {}, []
-    arch_steps, flash_archs = {}, []
+    arch_steps, flash_archs, hybrid_flash = {}, [], []
     # the MoE models' operands come from a generator of their own, so the
     # dense models' checks and the windowed ones after them see the inputs
     # they saw before the MoE models were added
@@ -2477,11 +2616,18 @@ def phase_lm_kernels(torch):
                        for k in ("ms", "device_ms", "library_ms",
                                  "library_device_ms", "bound_ms")}
                 for step in ("prefill", "decode")}
+        if "attn" not in acfg.block_pattern:
+            continue
+        shape = (spec["batch"], spec["prompt"], spec["prompt"],
+                 acfg.n_heads, acfg.n_kv_heads, acfg.hd)
+        window = acfg.local_window if len(acfg.block_pattern) > 1 \
+            else acfg.window
         flash_archs.append(check_flash_shape(
-            torch, spec["batch"], spec["prompt"], spec["prompt"],
-            acfg.n_heads, acfg.n_kv_heads, acfg.hd, torch.float32, agen, True,
-            window=acfg.window))
+            torch, *shape, torch.float32, agen, True, window=window))
         flash_archs[-1]["arch"] = acfg.name
+        if len(acfg.block_pattern) > 1:
+            hybrid_flash.append(dict(shape=shape, window=window,
+                                     arch=acfg.name))
     arch_matmul = [e for key, e in checked.items() if key not in shapes]
     # the grouped kernel at ragged shapes, 5 groups, both tile paths: K not
     # a multiple of 4 (each group's b_r then starts off 16-byte alignment),
@@ -2499,25 +2645,33 @@ def phase_lm_kernels(torch):
                                ((1, 300, 300, 8, 2, 120), (64,)))
         for w in windows for dt in (torch.float32, torch.bfloat16)]
     # the windowed bf16 cases again on FLASH_SEEDS streams, a generator
-    # each: the chain corner's gate must hold on more than one input
-    seed_cases = []
+    # each: the chain corner's gate must hold on more than one input; a
+    # hybrid's served windowed prefill attention in bf16 on the same streams
+    seed_cases, served_seed_cases = [], []
     for seed in FLASH_SEEDS:
         sgen = torch.Generator(device="cuda").manual_seed(seed)
         for w in FLASH_WINDOWS:
             e = check_flash_shape(torch, 1, 257, 257, 4, 2, 64,
                                   torch.bfloat16, sgen, False, window=w)
-            wit = e["chain_witness"]
-            seed_cases.append(dict(
-                seed=seed, window=w, rel=e["max_rel_corner"],
-                max_ratio=wit["max_ratio"],
-                largest_step=max(wit["terms"],
-                                 key=lambda n: wit["terms"][n]["ratio"])))
+            seed_cases.append(_seed_case(seed, w, e))
+        for hf in hybrid_flash:
+            e = check_flash_shape(torch, *hf["shape"], torch.bfloat16, sgen,
+                                  False, window=hf["window"])
+            served_seed_cases.append(dict(_seed_case(seed, hf["window"], e),
+                                          arch=hf["arch"],
+                                          max_abs_err=e["max_abs_err"]))
     flash_seeds = dict(
         shape=dict(b=1, t=257, s=257, h=4, kh=2, dh=64), dtype="bfloat16",
         seeds=list(FLASH_SEEDS), windows=list(FLASH_WINDOWS),
         over_rtol=sum(c["rel"] > BF16_CORNER_RTOL for c in seed_cases),
         max_rel=max(c["rel"] for c in seed_cases),
-        max_ratio=max(c["max_ratio"] for c in seed_cases), cases=seed_cases)
+        max_ratio=max(c["max_ratio"] for c in seed_cases), cases=seed_cases,
+        served=dict(shapes=hybrid_flash, dtype="bfloat16",
+                    over_rtol=sum(c["rel"] > BF16_CORNER_RTOL
+                                  for c in served_seed_cases),
+                    max_ratio=max((c["max_ratio"] for c in served_seed_cases),
+                                  default=None),
+                    cases=served_seed_cases))
 
     def step_ms(key, step):
         return sum(e[key] * e["launches_per_step"][step] for e in per_shape
@@ -2611,6 +2765,14 @@ def phase_lm_kernels(torch):
     return entries
 
 
+def _seed_case(seed, window, entry):
+    wit = entry["chain_witness"]
+    return dict(seed=seed, window=window, rel=entry["max_rel_corner"],
+                max_ratio=wit["max_ratio"],
+                largest_step=max(wit["terms"],
+                                 key=lambda n: wit["terms"][n]["ratio"]))
+
+
 def _argmax_tokens(torch, logits):
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
 
@@ -2640,20 +2802,26 @@ def lm_trajectory(torch, step_prefill, step_decode, tokens, n_new, *,
 
 def lm_gates(torch, cfg, params, spec, cache_len):
     """The guarded-LM gates on one full-width master ``params`` of ``cfg``
-    (``spec``: batch, prompt, new, and LM's seed, upset and bit flip):
+    (``spec``: batch, prompt, new, and LM's seed, upset, bit flip and cut):
     LMEngine guarded == unguarded bit for bit with no clean flag, every
-    product on matmul_abft and every prefill attention on flash_checksum;
-    an accumulator upset on a decode step and a wq bit flip each detected
-    and repaired bit for bit; then the same params cut to 2 layers, the
-    card against the CPU (the plain versions) — for an MoE model with the
-    same routing on both and its smallest top-k margin reported (the
-    expert products on the grouped matmul_abft).  Returns the measurements;
-    raises on any gate but the cut's, which :func:`_raise_unless_cut_ok`
-    holds after the caller has printed the numbers."""
+    product on matmul_abft (the MoE experts and the RG-LRU gates on its
+    grouped launch) and every prefill attention on flash_checksum, the op
+    ids the block pattern gives; an accumulator upset on a decode step
+    detected and repaired bit for bit (a model without attention: no site,
+    nothing flags, the logits the clean run's); a bit flip in the first
+    dense weight of a unit's first block detected and restored bit for
+    bit; then the same params cut to ``cut_layers`` (whole units), the card
+    against the CPU (the plain versions) — for an MoE model with the same
+    routing on both and its smallest top-k margin reported.  A model with
+    recurrent blocks also times its scans (:class:`scan_record`) over one
+    guarded prefill and decode step.  Returns the measurements; raises on
+    any gate but the cut's, which :func:`_raise_unless_cut_ok` holds after
+    the caller has printed the numbers."""
     from repro_torch.core.abft import ABFTConfig
     from repro_torch.engine.lm import LMEngine, fold_lm_w_r
     from repro_torch.kernels import runtime
-    from repro_torch.models.transformer import model_decode, model_prefill
+    from repro_torch.models.transformer import (RECURRENT, model_decode,
+                                                model_prefill)
 
     spec = {**LM, **spec}
     tag = cfg.name
@@ -2663,7 +2831,12 @@ def lm_gates(torch, cfg, params, spec, cache_len):
     gen = torch.Generator(device="cuda").manual_seed(spec["seed"] + 1)
     tokens = torch.randint(1, cfg.vocab_size, (spec["batch"], spec["prompt"]),
                            generator=gen, device="cuda", dtype=torch.int32)
-    per_step, layer_checks = lm_step_launches(cfg)
+    per_step = lm_step_launches(cfg)
+    types = block_types(cfg)
+    recurrent = any(bt in RECURRENT for bt in types)
+    if recurrent and torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError(f"{tag}: TF32 is on — the recurrent blocks' "
+                             f"unchecked f32 products must stay on FFMA")
     torch.cuda.reset_peak_memory_stats()
 
     # the bit-identity baseline: unguarded mode="none" on the master params
@@ -2694,8 +2867,9 @@ def lm_gates(torch, cfg, params, spec, cache_len):
                                           spec["new"])
     counts, plain = runtime.launch_counts(), runtime.plain_counts()
     want = {name: n * (spec["new"] + 1) for name, n in per_step.items()
-            if n}
-    want["flash_checksum"] = cfg.n_layers
+            if n and name != "flash_checksum"}
+    if per_step["flash_checksum"]:
+        want["flash_checksum"] = per_step["flash_checksum"]
     others = {k: v for k, v in counts.items() if k not in want}
     if {k: counts[k] for k in want} != want or any(others.values()) \
             or any(plain.values()) or ref_counts != counts:
@@ -2707,9 +2881,10 @@ def lm_gates(torch, cfg, params, spec, cache_len):
         raise AssertionError(f"{tag}: guarded trajectory bit-identical "
                              f"{identical}, clean flags {eng.guard.flags}")
     ids = metrics[0]["abft_op_ids"]
-    if len(ids) != layer_checks * cfg.n_layers + 1 or ids[0] != "op0:L0" \
-            or ids[-1] != f"op{layer_checks}":
-        raise AssertionError(f"{tag}: op ids {ids[:3]}..{ids[-2:]}")
+    if list(ids) != lm_op_ids(cfg) or any(m["abft_op_ids"] != ids
+                                          for m in metrics):
+        raise AssertionError(f"{tag}: op ids {ids[:3]}..{ids[-2:]} (want "
+                             f"{lm_op_ids(cfg)[:3]}..)")
     max_rel = max(float(m["abft_max_rel"]) for m in metrics)
     witness = clean_witness(torch, cfg, eng.params, abft, tokens, toks,
                             cache_len, logits)
@@ -2732,50 +2907,62 @@ def lm_gates(torch, cfg, params, spec, cache_len):
     inj_logits, _, _ = lm_trajectory(
         torch, g_prefill, g_decode, tokens, spec["new"],
         inject_at=spec["inject_at"], delta=spec["inject_delta"])
+    # the upset's site is every attention accumulator: a model with no
+    # attention has none, so nothing may flag and nothing may change
+    site = "attention accumulator" if "attn" in types else None
     inject = dict(decode_step=spec["inject_at"], delta=spec["inject_delta"],
-                  flags=eng.guard.flags - flags0,
+                  site=site, flags=eng.guard.flags - flags0,
                   retries=eng.guard.retries - retries0,
                   bitwise=all(torch.equal(a, b) for a, b in
                               zip(inj_logits, ref_logits)))
-    if inject["flags"] != 1 or inject["retries"] != 1 \
+    hits = 1 if site else 0
+    if inject["flags"] != hits or inject["retries"] != hits \
             or not inject["bitwise"]:
         raise AssertionError(f"{tag}: injected upset {inject}")
 
-    # a bit flip in one layer's wq after load: a corrupted clone replaces
-    # the working leaf (the master shares the tensor and stays pristine)
+    # a bit flip in one unit's first dense weight after load: a corrupted
+    # clone replaces the working leaf (the master shares the tensor and
+    # stays pristine)
     flags0, restores0 = eng.guard.flags, eng.guard.restores
+    block, name = FLIP_LEAF[cfg.block_pattern[0]]
     seg = dict(eng.params["segments"][0])
     b0 = dict(seg["b0"])
-    attn = dict(b0["attn"])
-    wq = dict(attn["wq"])
-    w = wq["w"].clone()
+    blk = dict(b0[block])
+    leaf = dict(blk[name])
+    w = leaf["w"].clone()
     word = w.view(torch.int32)
-    word[spec["flip_layer"], 0, 0, 0] ^= (1 << spec["flip_bit"])
-    wq["w"], attn["wq"], b0["attn"], seg["b0"] = w, wq, attn, b0
-    eng.params = dict(eng.params, segments=[seg])
+    word[(spec["flip_layer"],) + (0,) * (w.dim() - 1)] ^= \
+        (1 << spec["flip_bit"])
+    leaf["w"], blk[name], b0[block], seg["b0"] = w, leaf, blk, b0
+    eng.params = dict(eng.params,
+                      segments=[seg] + list(eng.params["segments"][1:]))
     metrics = []
     flip_logits, _, _ = lm_trajectory(torch, g_prefill, g_decode, tokens, 2)
     flip = dict(layer=spec["flip_layer"], bit=spec["flip_bit"],
-                flags=eng.guard.flags - flags0,
+                leaf=f"b0.{block}.{name}.w", flags=eng.guard.flags - flags0,
                 restores=eng.guard.restores - restores0,
                 bitwise=all(torch.equal(a, b) for a, b in
                             zip(flip_logits, ref_logits)),
                 master_pristine=not torch.equal(
-                    params["segments"][0]["b0"]["attn"]["wq"]["w"], w))
-    del w, word, wq, attn, b0, seg
+                    params["segments"][0]["b0"][block][name]["w"], w))
+    del w, word, leaf, blk, b0, seg
     if flip["flags"] != 1 or flip["restores"] != 1 or not flip["bitwise"] \
             or not flip["master_pristine"]:
         raise AssertionError(f"{tag}: weight flip {flip}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    scans = scan_times(torch, eng, tokens, toks[0]) if recurrent else None
 
-    # the same params cut to 2 layers: the card against the CPU's plain
+    # the same params cut to whole units: the card against the CPU's plain
     # versions, prefill and decode logits within LOGIT_ATOL + LM_LOGIT_RTOL
     import dataclasses
     n_cut = spec["cut_layers"]
+    unit = len(cfg.block_pattern)
+    if n_cut % unit:
+        raise AssertionError(f"{tag}: cut of {n_cut} layers is not whole "
+                             f"units of {unit}")
     cut_cfg = dataclasses.replace(cfg, n_layers=n_cut)
-    cut = dict(params, segments=[{"b0": {
-        key: _slice_tree(val, n_cut)
-        for key, val in params["segments"][0]["b0"].items()}}])
+    cut = dict(params, segments=[_slice_tree(params["segments"][0],
+                                             n_cut // unit)])
     cut_tokens = tokens[:, :spec["cut_prompt"]]
     cut_len = spec["cut_prompt"] + spec["cut_decode"]
     runs = {}
@@ -2827,12 +3014,16 @@ def lm_gates(torch, cfg, params, spec, cache_len):
             d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
             head_dim=cfg.hd, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
             padded_vocab=cfg.padded_vocab, window=cfg.window,
+            block_pattern=list(cfg.block_pattern),
+            local_window=(cfg.local_window if len(cfg.block_pattern) > 1
+                          else None),
             batch=spec["batch"], prompt=spec["prompt"], new=spec["new"],
             cache_len=cache_len, launches=counts, plain_calls=plain,
             launches_per_step=dict(
-                prefill=dict(per_step, flash_checksum=cfg.n_layers),
-                decode=dict(per_step, flash_checksum=0)),
-            checks_per_layer=layer_checks, moe=moe_fields(cfg, spec),
+                prefill=per_step, decode=dict(per_step, flash_checksum=0)),
+            checks_per_layer={bt: layer_checks(cfg, bt)
+                              for bt in cfg.block_pattern},
+            moe=moe_fields(cfg, spec), scans=scans,
             clean=dict(bitwise_identical=identical, flags=0, max_rel=max_rel,
                        op_ids=len(ids), over_tol=witness["over_tol"],
                        largest=witness["largest"]),
@@ -2855,13 +3046,29 @@ def lm_gates(torch, cfg, params, spec, cache_len):
 
 
 class _Witnessed:
-    """``dense``'s :class:`MatmulAbftOp`, keeping beside each checked
-    product the float64 values its corner is held to
-    (:func:`clean_witness`): the corner's two f32 sides, S, P, P_r, Σ|C|,
-    Σ|A||B| and Σ|A||w_r|."""
+    """``dense``'s :class:`MatmulAbftOp` and the RG-LRU gates' grouped
+    ``matmul_abft_grouped``, keeping beside each checked product the
+    float64 values its corner is held to (:func:`clean_witness`): the
+    corner's two f32 sides, S, P, P_r, Σ|C|, Σ|A||B| and Σ|A||w_r| (a
+    grouped product's summed over its groups)."""
 
-    def __init__(self, torch, op):
-        self.torch, self.op, self.rows = torch, op, []
+    def __init__(self, torch, op, grouped_op):
+        self.torch, self.op, self.grouped_op, self.rows = \
+            torch, op, grouped_op, []
+
+    def grouped(self, a, b, br=None):
+        y, chk, extra = self.grouped_op(a, b, br)
+        if chk is not None:
+            f64 = self.torch.float64
+            col, col_abs = a.sum(1, dtype=f64), a.abs().sum(1, dtype=f64)
+            br64 = br.to(f64)
+            self.rows.append(self.torch.stack([
+                chk.predicted.to(f64), chk.actual.to(f64), y.sum(dtype=f64),
+                (col * b.sum(2, dtype=f64)).sum(), (col * br64).sum(),
+                y.abs().sum(dtype=f64),
+                (col_abs * b.abs().sum(2, dtype=f64)).sum(),
+                (col_abs * br64.abs()).sum()]))
+        return y, chk, extra
 
     def __call__(self, cfg, a, b, *, w_r=None):
         from repro_torch.core.abft import resolve_w_r
@@ -2894,14 +3101,17 @@ def clean_witness(torch, cfg, params, abft, tokens, toks, cache_len, want):
     column's.  Each term's ratio is |term| over one unit roundoff of the
     |terms| it rounds (Σ|C|, Σ|A||B|, Σ|A||B|, Σ|A||w_r|); the textbook
     bound of such a sum is n units, so ``rounding`` (every ratio ≤ 1) holds
-    only for f32 rounding, never for a wrong product or corner.  An element
-    no ``dense`` product made (an attention corner, a tied head) has no
-    witness and is not ``rounding``."""
+    only for f32 rounding, never for a wrong product or corner.  The
+    RG-LRU's grouped gate products are witnessed the same way, each term
+    summed over the groups (b_r = w e, recomputed every call, in the place
+    of the fold).  An element no witnessed product made (an attention
+    corner, a tied head) has no witness and is not ``rounding``."""
     from repro_torch.core.abft import per_op_report
-    from repro_torch.models import common
+    from repro_torch.models import common, rglru
     from repro_torch.models.transformer import model_decode, model_prefill
     f64 = torch.float64
-    wit, found, max_rel = _Witnessed(torch, common._DENSE), [], 0.0
+    wit, found, max_rel = _Witnessed(torch, common._DENSE,
+                                     rglru.matmul_abft_grouped), [], 0.0
 
     def note(step, logits, rep, checks):
         nonlocal max_rel
@@ -2933,7 +3143,7 @@ def clean_witness(torch, cfg, params, abft, tokens, toks, cache_len, want):
                                     for t in w["terms"].values())
             found.append(w)
 
-    common._DENSE = wit
+    common._DENSE, rglru.matmul_abft_grouped = wit, wit.grouped
     try:
         t0 = tokens.shape[1]
         logits, states, rep, checks = model_prefill(
@@ -2946,7 +3156,7 @@ def clean_witness(torch, cfg, params, abft, tokens, toks, cache_len, want):
                 attn_inject=0.0)
             note(i + 1, logits, rep, checks)
     finally:
-        common._DENSE = wit.op
+        common._DENSE, rglru.matmul_abft_grouped = wit.op, wit.grouped_op
     return dict(max_rel=max_rel,
                 over_tol=[w for w in found if w["rel"] > CORNER_RTOL],
                 largest=max(found, key=lambda w: w["rel"]))
@@ -2955,7 +3165,8 @@ def clean_witness(torch, cfg, params, abft, tokens, toks, cache_len, want):
 def _raise_unless_cut_ok(run) -> None:
     if not run["cut_ok"]:      # reported first, so the numbers are kept
         raise AssertionError(
-            f"{run['fields']['model']}: 2-layer logits card vs CPU, per "
+            f"{run['fields']['model']}: {run['fields']['cut']['layers']}-"
+            f"layer logits card vs CPU, per "
             f"step: {run['cut_errs']} (atol {LOGIT_ATOL}, rtol "
             f"{LM_LOGIT_RTOL}); flags {run['cut_flags']}; routing "
             f"{run['fields']['cut']['routing']}")
@@ -2985,6 +3196,75 @@ class routing_record:
     def __exit__(self, *exc):
         self.moe.route = self.route
         return False
+
+
+class scan_record:
+    """Times every call of the recurrent scans (``rwkv6._wkv_scan``,
+    ``rglru._rglru_scan``) while it is entered: the host clock around the
+    call (its launches' dispatch) and CUDA events before and after it (the
+    span the device spends from the scan's first launch to its last, idle
+    gaps while it waits on the host included).  Read the rows after a
+    synchronise."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import rglru, rwkv6
+        self.saved = [(rwkv6, "_wkv_scan", rwkv6._wkv_scan),
+                      (rglru, "_rglru_scan", rglru._rglru_scan)]
+        self.rows = []
+
+        def timed(name, fn):
+            def run(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                out = fn(*args)
+                end.record()
+                self.rows.append(dict(
+                    scan=name, steps=int(args[0].shape[1]),
+                    host_ms=(time.perf_counter() - t0) * 1e3,
+                    events=(start, end)))
+                return out
+            return run
+        for mod, name, fn in self.saved:
+            setattr(mod, name, timed(name, fn))
+        return self.rows
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def scan_times(torch, eng, tokens, tok):
+    """One guarded prefill of ``tokens`` and one guarded decode step of
+    ``tok`` with the scans timed (:class:`scan_record`): per step the
+    scans' calls, time steps, host ms and CUDA-event ms, the step's own
+    host ms (synchronised) and the scans' share of it."""
+    with scan_record() as rows:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, states, _ = eng.prefill(tokens)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        n_prefill = len(rows)
+        t0 = time.perf_counter()
+        eng.decode(states, tok, tokens.shape[1])
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3
+    del states
+    out = {}
+    for step, part, step_ms in (("prefill", rows[:n_prefill], prefill_ms),
+                                ("decode", rows[n_prefill:], decode_ms)):
+        host = sum(r["host_ms"] for r in part)
+        dev = sum(r["events"][0].elapsed_time(r["events"][1]) for r in part)
+        out[step] = dict(calls=len(part), time_steps=sum(r["steps"]
+                                                         for r in part),
+                         host_ms=host, event_ms=dev, step_host_ms=step_ms,
+                         host_share=host / step_ms, event_share=dev / step_ms)
+    return out
 
 
 def moe_fields(cfg, spec):
@@ -3039,9 +3319,10 @@ def phase_lm_serve(torch, smi):
 
 def phase_lm_archs(torch, smi):
     """qwen1.5-4b, chatglm3-6b, h2o-danube-3-4b, deepseek-moe-16b (all
-    layers) and qwen3-moe-30b-a3b (24 of 48 layers) served at full width,
-    f32, seeded weights, one at a time through :func:`lm_gates` (each
-    master freed before the next); one guarded decode step of each MoE
+    layers), qwen3-moe-30b-a3b (24 of 48 layers), rwkv6-7b and
+    recurrentgemma-9b (all layers) served at full width, f32, seeded
+    weights, one at a time through :func:`lm_gates` (each master freed
+    before the next); one guarded decode step of each MoE and recurrent
     model traced on the device.  Returns the B4, grouped B4 and B5
     launches of the guarded clean runs."""
     from repro_torch.models.transformer import init_model
@@ -3057,7 +3338,7 @@ def phase_lm_archs(torch, smi):
         n_params = sum(x.numel() for x in _leaves(params))
         run = lm_gates(torch, cfg, params, spec, spec["cache"])
         trace = None
-        if cfg.moe is not None:
+        if cfg.moe is not None or run["fields"]["scans"] is not None:
             eng = run["eng"]
             _, st0, _ = eng.prefill(run["tokens"])
             trace = decode_trace(torch, lambda: eng.decode(

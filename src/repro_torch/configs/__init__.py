@@ -1,11 +1,12 @@
 """Config registry: the architectures the port can run.
 
-Counterpart of the JAX package's ``repro/configs/__init__.py``.  Only the
-attention decoders are registered — gemma-2b, qwen1.5-4b, chatglm3-6b and
-h2o-danube-3-4b (sliding window) with dense MLPs, deepseek-moe-16b and
-qwen3-moe-30b-a3b with mixture-of-experts MLPs; the other architectures of
-the JAX package need RWKV, RG-LRU or an encoder-decoder, which are still to
-port (ROADMAP A10).
+Counterpart of the JAX package's ``repro/configs/__init__.py``.  Registered:
+the attention decoders gemma-2b, qwen1.5-4b, chatglm3-6b and h2o-danube-3-4b
+(sliding window) with dense MLPs, deepseek-moe-16b and qwen3-moe-30b-a3b
+with mixture-of-experts MLPs, and the recurrent families rwkv6-7b
+(attention-free) and recurrentgemma-9b (RG-LRU with local attention).
+whisper-medium (encoder-decoder) and internvl2-26b (prefix embeddings) are
+still to port (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -44,4 +45,6 @@ def _ensure_loaded() -> None:
         h2o_danube3_4b,
         qwen3_moe_30b_a3b,
         qwen15_4b,
+        recurrentgemma_9b,
+        rwkv6_7b,
     )

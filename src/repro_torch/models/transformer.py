@@ -1,20 +1,28 @@
-"""Model assembly for attention decoders: layer-stacked params, prefill with
-cache building, one-token decode, the tied LM head.
+"""Model assembly for decoders: layer-stacked params, prefill with cache and
+state building, one-token decode, the tied LM head.
 
-Counterpart of the JAX package's ``repro/models/transformer.py``, for the
-attention-decoder subset (``block_pattern == ("attn",)``, dense or
-mixture-of-experts MLPs — :mod:`repro_torch.models.moe` when ``cfg.moe``
-is set —, no encoder).  Layer stacks are grouped into *segments* of a repeating
-block-pattern unit whose params are stacked on a leading axis, as the
-reference's vmapped init makes them; the port applies the units in a
-Python loop (no scan) and stacks each position's per-unit checks into one
-:class:`Check` with ``[count]`` fields, so :func:`per_op_report` names the
-layer a flag fired in with the reference's ``op{i}:L{j}`` ids.  A segment
-of one unit, or ``cfg.scan_layers=False``, keeps its checks flat, as the
-reference's unrolled path does.
+Counterpart of the JAX package's ``repro/models/transformer.py``, for its
+decoders: attention blocks with dense or mixture-of-experts MLPs
+(:mod:`repro_torch.models.moe` when ``cfg.moe`` is set), RWKV6 blocks
+(:mod:`repro_torch.models.rwkv6`) and RG-LRU blocks
+(:mod:`repro_torch.models.rglru`), alone or in a hybrid pattern whose
+attention blocks take ``cfg.local_window``.  Layer stacks are grouped into
+*segments* of a repeating block-pattern unit whose params are stacked on a
+leading axis, as the reference's vmapped init makes them; a trailing partial
+unit (38 = 12 × 3 + 2) is a segment of its own.  The port applies the units
+in a Python loop (no scan) and stacks each position's per-unit checks into
+one :class:`Check` with ``[count]`` fields, so :func:`per_op_report` names
+the layer a flag fired in with the reference's ``op{i}:L{j}`` ids.  A
+segment of one unit, or ``cfg.scan_layers=False``, keeps its checks flat,
+as the reference's unrolled path does.
 
-``rwkv``, ``rglru`` and encoder-decoder blocks raise
-``NotImplementedError`` (ROADMAP A10).
+Recurrent blocks carry float32 decode state (RWKV6: the last token of each
+mix and the WKV matrix; RG-LRU: ``h`` and the conv history) that ignores
+``cache_len``; prefill starts from the zero state and a decode step runs a
+one-token sequence with the state carried.
+
+Encoder-decoder models (cross-attention) and prefix or source embeddings
+raise ``NotImplementedError`` (ROADMAP A10.7).
 """
 from __future__ import annotations
 
@@ -45,23 +53,32 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.mlp import init_mlp, mlp_block
 from repro_torch.models.moe import init_moe, moe_block
+from repro_torch.models.rglru import init_rglru_block, rglru_block, \
+    rglru_state_init
+from repro_torch.models.rwkv6 import (
+    init_rwkv_channel_mix,
+    init_rwkv_time_mix,
+    rwkv_channel_mix,
+    rwkv_state_init,
+    rwkv_time_mix,
+)
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
 
 
+RECURRENT = ("rglru", "rwkv")
+
+
 def _unported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet: the port runs attention decoders with "
-        f"dense or MoE MLPs (ROADMAP A10)")
+        f"{what} is not ported yet: the port runs decoders without cross-"
+        f"attention or prefix embeddings (ROADMAP A10.7)")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family != "decoder":
         raise _unported(f"family {cfg.family!r}")
-    for bt in cfg.block_pattern:
-        if bt != "attn":
-            raise _unported(f"block type {bt!r}")
 
 
 def seg_structure(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
@@ -81,15 +98,22 @@ def seg_structure(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, btype: str,
                cross: bool, lead: Tuple[int, ...] = ()) -> Params:
-    if btype != "attn":
-        raise _unported(f"block type {btype!r}")
     if cross:
         raise _unported("cross-attention")
     d = cfg.d_model
     p = {"ln1": init_norm(d, lead, gen_device(gen)),
-         "ln2": init_norm(d, lead, gen_device(gen)),
-         "attn": init_attention(gen, cfg, lead=lead)}
-    if cfg.moe is not None:
+         "ln2": init_norm(d, lead, gen_device(gen))}
+    if btype == "attn":
+        p["attn"] = init_attention(gen, cfg, lead=lead)
+    elif btype == "rglru":
+        p["rglru"] = init_rglru_block(gen, cfg, lead)
+    elif btype == "rwkv":
+        p["tm"] = init_rwkv_time_mix(gen, cfg, lead)
+    else:
+        raise ValueError(btype)
+    if btype == "rwkv":
+        p["cm"] = init_rwkv_channel_mix(gen, cfg, lead)
+    elif cfg.moe is not None:
         p["moe"] = init_moe(gen, cfg, lead=lead)
     else:
         p["mlp"] = init_mlp(gen, cfg, lead=lead)
@@ -166,9 +190,19 @@ def _stack_checks(per_unit: List[List[Check]]) -> List[Check]:
 def layer_state_init(cfg: ModelConfig, btype: str, batch: int,
                      cache_len: int, dtype, cross: bool,
                      device=None) -> Params:
-    if btype != "attn" or cross:
-        raise _unported(f"decode state of {btype!r} (cross={cross})")
-    return init_cache(cfg, batch, cache_len, dtype, device)
+    if cross:
+        raise _unported(f"decode state of {btype!r} with cross-attention")
+    if btype == "attn":
+        return init_cache(cfg, batch, cache_len, dtype, device)
+    return _zero_recurrent_state(cfg, btype, batch, device)
+
+
+def _zero_recurrent_state(cfg: ModelConfig, btype: str, batch: int,
+                          device=None) -> Params:
+    """A recurrent block's float32 zero state (no cache length)."""
+    if btype == "rglru":
+        return rglru_state_init(cfg, batch, device)
+    return rwkv_state_init(cfg, batch, device)
 
 
 def layer_apply_seq(lp: Params, x: Tensor, btype: str, cfg: ModelConfig,
@@ -177,16 +211,41 @@ def layer_apply_seq(lp: Params, x: Tensor, btype: str, cfg: ModelConfig,
                     build_cache: bool, cache_len: int
                     ) -> Tuple[Tensor, List[Check], Tensor,
                                Optional[Params]]:
-    """Returns (x, checks, aux_loss, new_cache).  The attention branch;
-    ``positions=None`` means 0..T-1."""
-    del state
-    if btype != "attn":
-        raise _unported(f"block type {btype!r}")
+    """Returns (x, checks, aux_loss, new cache or state).  A recurrent block
+    starts from ``state`` (``None``: the zero state) and returns its new
+    state when ``build_cache``; ``positions=None`` means 0..T-1."""
     if enc_out is not None:
         raise _unported("cross-attention")
     checks: List[Check] = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     b, t, _ = x.shape
+    if btype in RECURRENT:
+        st = state or _zero_recurrent_state(cfg, btype, b, x.device)
+        h = norm_apply(x, lp["ln1"], cfg)
+        if btype == "rwkv":
+            y, x_tm, wkv, cs = rwkv_time_mix(lp["tm"], h, cfg, abft,
+                                             st["x_tm"].to(h.dtype),
+                                             st["wkv"])
+        else:
+            y, rgst, cs = rglru_block(lp["rglru"], h, cfg, abft, st)
+        x = x + y
+        checks += cs
+        h = norm_apply(x, lp["ln2"], cfg)
+        if btype == "rwkv":
+            y, x_cm, cs = rwkv_channel_mix(lp["cm"], h, cfg, abft,
+                                           st["x_cm"].to(h.dtype))
+        else:
+            y, cs = mlp_block(lp["mlp"], h, cfg, abft)
+        x = x + y
+        checks += cs
+        new_state = None
+        if build_cache:
+            new_state = rgst if btype == "rglru" else {
+                "wkv": wkv, "x_tm": x_tm.to(torch.float32),
+                "x_cm": x_cm.to(torch.float32)}
+        return x, checks, aux, new_state
+    if btype != "attn":
+        raise ValueError(btype)
     window = cfg.window
     if len(cfg.block_pattern) > 1:      # hybrid: local attention
         window = cfg.local_window
@@ -222,8 +281,11 @@ def layer_apply_seq(lp: Params, x: Tensor, btype: str, cfg: ModelConfig,
 def layer_apply_decode(lp: Params, x: Tensor, btype: str, cfg: ModelConfig,
                        abft: ABFTConfig, pos: int, state: Params
                        ) -> Tuple[Tensor, List[Check], Params]:
-    if btype != "attn":
-        raise _unported(f"block type {btype!r}")
+    if btype in RECURRENT:
+        # a one-token sequence from the carried state
+        x, checks, _aux, new_state = layer_apply_seq(
+            lp, x, btype, cfg, abft, None, None, state, True, 1)
+        return x, checks, new_state
     if "xattn" in lp:
         raise _unported("cross-attention")
     window = cfg.window

@@ -73,15 +73,17 @@ def _close_corner(got, want, what):
 def test_the_registry_lists_what_the_port_runs():
     assert list_archs() == ["chatglm3-6b", "deepseek-moe-16b", "gemma-2b",
                             "h2o-danube-3-4b", "qwen1.5-4b",
-                            "qwen3-moe-30b-a3b"]
+                            "qwen3-moe-30b-a3b", "recurrentgemma-9b",
+                            "rwkv6-7b"]
     cfg = get_config("gemma-2b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
             cfg.d_ff, cfg.vocab_size) == (18, 2048, 8, 1, 256, 16384, 256000)
     for f in ("n_layers", "d_model", "d_ff", "mlp_act", "embed_scale",
               "padded_vocab", "hd", "kv_groups"):
         assert getattr(cfg, f) == getattr(jget_config("gemma-2b"), f)
-    with pytest.raises(KeyError, match="ROADMAP A10"):
-        get_config("rwkv6-7b")
+    for name in ("whisper-medium", "internvl2-26b"):
+        with pytest.raises(KeyError, match="ROADMAP A10"):
+            get_config(name)
 
 
 def test_params_round_trip_and_shape_check(setup):
@@ -319,10 +321,15 @@ def test_unported_blocks_and_cases_raise(setup):
     import dataclasses
     from repro_torch.models.attention import attention_block
     from repro_torch.models.transformer import init_model
-    for cfg in (dataclasses.replace(setup["cfg"], block_pattern=("rwkv",)),
-                dataclasses.replace(setup["cfg"], family="encdec")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            init_model(cfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        init_model(dataclasses.replace(setup["cfg"], family="encdec"), 0,
+                   device="cpu")
+    # internvl2's stub: patch embeddings prepended to the tokens
+    tokens = torch.ones((1, 4), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        model_prefill(setup["params"], setup["cfg"],
+                      {"tokens": tokens, "prefix_embeds": torch.zeros(
+                          (1, 2, setup["cfg"].d_model))}, setup["abft"], 8)
     # windowed causal self-attention takes the flash_checksum path (its
     # plain version on the CPU, the CUDA kernel on the card)
     cfg = dataclasses.replace(setup["cfg"], window=4)
