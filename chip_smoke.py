@@ -21,9 +21,14 @@ h2o-danube-3-4b (``lm_archs``; danube's 5120-token prompt runs past its
 products run on ``matmul_abft``'s grouped launch, rwkv6-7b (attention-free,
 32 layers) and recurrentgemma-9b (38 layers, RG-LRU gates on the grouped
 launch, local attention on ``flash_checksum`` with its 2048-key window;
-the recurrent scans timed), and guarded GAT
-serving on ``matmul_abft`` over full Cora and full PubMed (``gat``) —
-through the entry points a user would call.  Any phase that fails
+the recurrent scans timed), whisper-medium (24 encoder and 24 decoder
+layers over 1500 source frames: the encoder's self-attention and the
+decoder's cross-attention on ``flash_checksum`` without the causal mask)
+and internvl2-26b (32 of its 48 layers, 256 prefix embeddings before the
+prompt), and guarded GAT serving on ``matmul_abft`` over full Cora and
+full PubMed (``gat``) — through the entry points a user would call; then
+``python -m repro_torch.launch.serve --smoke`` for whisper-medium and
+internvl2-26b (``serve_cli``).  Any phase that fails
 raises and the run exits non-zero; without a CUDA device it exits non-zero
 before printing anything.
 
@@ -53,14 +58,17 @@ grouped B4 at every served expert and RG-LRU gate shape (bit for bit one
 single launch a group, timed beside ``torch.bmm``) and at ragged shapes,
 and B5 at each of their served prefill attentions (danube's with its
 window, recurrentgemma's with its local window, also in bfloat16 on
-``FLASH_SEEDS`` input streams) and at small ragged windowed shapes, the
-bfloat16 ones also on ``FLASH_SEEDS``, each chain corner with its float64
-witness (``chain_witness``).
+``FLASH_SEEDS`` input streams; whisper's encoder and cross-attention
+without the mask, timed beside SDPA with ``is_causal=False``) and at small
+ragged windowed and non-causal shapes, the bfloat16 ones (windowed) also
+on ``FLASH_SEEDS``, each bfloat16 chain corner with its float64 witness
+(``chain_witness``).
 
 One JSON object per phase is printed (``env``, ``build``, ``kernel_checks``,
 ``lm_kernels``, ``serve``, ``fault``, ``stream``, ``full_graph``,
 ``campaign_gcn``, ``sparse``, ``sharded``, ``gat`` (one a graph),
-``lm_serve``, ``campaign_lm``, ``lm_archs`` (one a model)), then the
+``lm_serve``, ``campaign_lm``, ``lm_archs`` (one a model),
+``serve_cli``), then the
 ``kernels``
 summary line, the card's name and power limit as ``nvidia-smi`` gives them,
 and a last line ``{"ok": true, "device": {...}}``.
@@ -137,6 +145,14 @@ BF16_TOL = dict(matmul_abft=2e-2, flash_checksum=3e-2)   # the JAX tests'
 # rglru, attn) pattern, 38 = 12 x 3 + 2 layers, 34.3 GB; its 2560-token
 # prompt runs 512 past the 2048-key local window), whose card-vs-CPU cut is
 # one whole unit (``cut_layers`` 3: both RG-LRU layers and the attention).
+# Then a model with a front end, its input a seeded normal stub:
+# whisper-medium (24 encoder + 24 decoder layers, 3.0 GB) over 1500 source
+# frames (``src``: whisper's n_audio_ctx) with a 224-token decoder prompt
+# (half its n_text_ctx of 448), its card-vs-CPU cut 2 + 2 layers; and
+# internvl2-26b with 256 ``prefix`` embeddings (one 448 x 448 image tile
+# after pixel shuffle, arXiv:2404.16821) before a 512-token prompt, 32 of
+# its 48 layers — all 48 would be 79.4 GB at f32, past the card's 80 GB
+# with activations; 32 are 54.5 GB.
 ARCHS = (
     dict(arch="qwen1.5-4b", batch=2, prompt=512, cache=528, new=8),
     dict(arch="chatglm3-6b", batch=2, prompt=512, cache=528, new=8),
@@ -146,7 +162,11 @@ ARCHS = (
          layers=24),
     dict(arch="rwkv6-7b", batch=2, prompt=512, cache=528, new=8),
     dict(arch="recurrentgemma-9b", batch=1, prompt=2560, cache=2576, new=8,
-         cut_layers=3))
+         cut_layers=3),
+    dict(arch="whisper-medium", batch=2, prompt=224, cache=232, new=8,
+         src=1500),
+    dict(arch="internvl2-26b", batch=2, prompt=512, cache=776, new=8,
+         prefix=256, layers=32))
 # the leaf a weight bit flip goes into: the first dense weight of unit
 # ``flip_layer``'s first block
 FLIP_LEAF = {"attn": ("attn", "wq"), "rwkv": ("tm", "wr"),
@@ -1960,12 +1980,14 @@ def arch_config(name, layers=None):
 
 def _mlp_products(cfg):
     """(K, N) of each matmul_abft launch of one attention or RG-LRU
-    layer's MLP: a gated MLP's three, or an MoE layer's router and its
-    shared experts' three (the experts themselves are grouped launches,
-    :func:`lm_grouped_shapes`)."""
+    layer's MLP: a gated MLP's three or a plain (GELU) one's two, or an MoE
+    layer's router and its shared experts' three (the experts themselves
+    are grouped launches, :func:`lm_grouped_shapes`)."""
     d = cfg.d_model
     if cfg.moe is None:
-        return [(d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
+        if cfg.mlp_act in ("swiglu", "geglu"):
+            return [(d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)]
+        return [(d, cfg.d_ff), (cfg.d_ff, d)]
     mc = cfg.moe
     out = [(d, mc.n_experts)]
     if mc.n_shared:
@@ -1989,16 +2011,20 @@ def layer_products(cfg, btype):
     return [(d, hq), (d, hkv), (d, hkv), (hq, d)] + _mlp_products(cfg)
 
 
-def layer_checks(cfg, btype):
+def layer_checks(cfg, btype, step="prefill", cross=False):
     """Checks of one fused-mode layer of type ``btype``: RWKV6's seven;
-    attention's four or the RG-LRU's five (proj_x, proj_gate, the two
-    gates, proj_out), then a gated MLP's three or an MoE layer's router,
-    up, gate and fused combine checks and its shared experts' three."""
+    attention's four — with ``cross``, then the cross-attention's four in
+    prefill (q, k, v, its chain) and two in decode (q, its chain) — or the
+    RG-LRU's five (proj_x, proj_gate, the two gates, proj_out), then a
+    gated MLP's three, a plain one's two, or an MoE layer's router, up,
+    gate and fused combine checks and its shared experts' three."""
     if btype == "rwkv":
         return 7
     mixer = 5 if btype == "rglru" else 4
+    if cross and btype == "attn":
+        mixer += 4 if step == "prefill" else 2
     if cfg.moe is None:
-        return mixer + 3
+        return mixer + len(_mlp_products(cfg))
     return mixer + 4 + (3 if cfg.moe.n_shared else 0)
 
 
@@ -2013,33 +2039,131 @@ def block_types(cfg):
     return [cfg.block_type(i) for i in range(cfg.n_layers)]
 
 
-def lm_step_launches(cfg):
-    """matmul_abft and grouped matmul_abft launches of one prefill or decode
-    step (the head included), and flash_checksum's of a prefill (one an
-    attention layer; decode attention is plain)."""
-    types = block_types(cfg)
+def _stacks(cfg, step):
+    """(config, cross) of each layer stack a step runs: an encoder-decoder's
+    encoder first in prefill, then the decoder."""
+    from repro_torch.models.transformer import encoder_cfg
+    encdec = cfg.family == "encdec"
+    return ([(encoder_cfg(cfg), False)] if encdec and step == "prefill"
+            else []) + [(cfg, encdec)]
+
+
+def step_products(cfg, step, batch=LM["batch"], prompt=LM["prompt"], src=0,
+                  prefix=0):
+    """(M, K, N, trans_b) of every matmul_abft launch of one prefill or
+    decode step at ``batch`` x ``prompt`` (after ``prefix`` embeddings; an
+    encoder-decoder's encoder over ``src`` frames): each layer's products,
+    a decoder layer's cross-attention q and o over its tokens and, in
+    prefill, k and v over the encoder's output; then the head over the
+    last position of each sequence — the tied one multiplies by the
+    embedding table as it lies (B^T), an untied one by its [d, V]
+    weight."""
+    d = cfg.d_model
+    out = []
+    for c, cross in _stacks(cfg, step):
+        m = batch * (prefix + prompt) if step == "prefill" else batch
+        if c is not cfg:
+            m = batch * src                        # the encoder
+        for bt in block_types(c):
+            prods = layer_products(c, bt)
+            if cross and bt == "attn":
+                hq, hkv = c.n_heads * c.hd, c.n_kv_heads * c.hd
+                kv = [(batch * src, d, hkv, False)] * 2 \
+                    if step == "prefill" else []
+                out += [(m, k, n, False) for k, n in prods[:4]] + \
+                    [(m, d, hq, False)] + kv + [(m, hq, d, False)] + \
+                    [(m, k, n, False) for k, n in prods[4:]]
+            else:
+                out += [(m, k, n, False) for k, n in prods]
+    return out + [(batch, d, cfg.padded_vocab, cfg.tie_embeddings)]
+
+
+def lm_step_launches(cfg, step="prefill"):
+    """matmul_abft and grouped matmul_abft launches of one prefill or
+    decode step (the head included), and flash_checksum's (a prefill's
+    attention layers — an encoder-decoder's encoder layers and each
+    decoder layer's self- and cross-attention —; decode attention is
+    plain)."""
+    flash = 0
+    if step == "prefill":
+        for c, cross in _stacks(cfg, step):
+            flash += block_types(c).count("attn") * (2 if cross else 1)
     return dict(
-        matmul_abft=sum(len(layer_products(cfg, bt)) for bt in types) + 1,
-        matmul_abft_grouped=sum(layer_grouped(cfg, bt) for bt in types),
-        flash_checksum=types.count("attn"))
+        matmul_abft=len(step_products(cfg, step)),
+        matmul_abft_grouped=sum(layer_grouped(cfg, bt)
+                                for bt in block_types(cfg)),
+        flash_checksum=flash)
 
 
-def lm_op_ids(cfg):
+def check_segments(cfg, step="prefill"):
+    """(checks a unit, units, stacked, [(offset, group)] of the attention
+    chain checks in a unit that an accumulator upset reaches) of each
+    segment of one step, an encoder's first: every attention chain in
+    prefill (group ``encoder``, ``self`` or ``cross`` for an
+    encoder-decoder, else ``attention``), a decoder's self-attention chain
+    alone in decode (its cross-attention over the static encoder cache has
+    no inject site, as in the reference)."""
+    from repro_torch.models.transformer import seg_structure
+    segs = []
+    for c, cross in _stacks(cfg, step):
+        encdec = cfg.family == "encdec"
+        group = "attention" if not encdec else \
+            "encoder" if c is not cfg else "self"
+        for pattern, count in seg_structure(c):
+            n, sites = 0, []
+            for bt in pattern:
+                if bt == "attn":
+                    sites.append((n + 3, group))
+                    if cross and step == "prefill":
+                        sites.append((n + 7, "cross"))
+                n += layer_checks(c, bt, step, cross)
+            segs.append((n, count, count > 1 and c.scan_layers, sites))
+    return segs
+
+
+def _op_ids(cfg, step):
+    """(the per-op ids of one step's checks, {group: the ids an
+    accumulator upset reaches}) — see :func:`lm_op_ids`."""
+    ids, hit, off = [], {}, 0
+    for n, count, stacked, at in check_segments(cfg, step):
+        if stacked:
+            ids += [f"op{off + i}:L{j}" for i in range(n)
+                    for j in range(count)]
+            for i, group in at:
+                hit.setdefault(group, []).extend(
+                    f"op{off + i}:L{j}" for j in range(count))
+            off += n
+        else:
+            for u in range(count):
+                ids += [f"op{off + u * n + i}" for i in range(n)]
+                for i, group in at:
+                    hit.setdefault(group, []).append(f"op{off + u * n + i}")
+            off += n * count
+    return ids + [f"op{off}"], hit
+
+
+def lm_op_ids(cfg, step="prefill"):
     """The per-op ids of one step's checks: a segment of several units
     stacks each position's checks (``op{i}:L{j}``), a segment of one unit
     keeps them flat, the head's last."""
-    from repro_torch.models.transformer import seg_structure
-    ids, off = [], 0
-    for pattern, count in seg_structure(cfg):
-        n = sum(layer_checks(cfg, bt) for bt in pattern)
-        if count > 1 and cfg.scan_layers:
-            ids += [f"op{off + i}:L{j}" for i in range(n)
-                    for j in range(count)]
-            off += n
-        else:
-            ids += [f"op{off + i}" for i in range(n * count)]
-            off += n * count
-    return ids + [f"op{off}"]
+    return _op_ids(cfg, step)[0]
+
+
+def lm_upset_sites(cfg, step="prefill"):
+    """The ids of one step's checks that an accumulator upset reaches, by
+    group (:func:`check_segments`)."""
+    return _op_ids(cfg, step)[1]
+
+
+def first_check_id(cfg, seg, unit, step="prefill"):
+    """The id of the first check of unit ``unit`` of segment ``seg`` (the
+    product of its first block's first dense weight, where a weight flip
+    lands)."""
+    off = 0
+    for n, count, stacked, _ in check_segments(cfg, step)[:seg]:
+        off += n if stacked else n * count
+    n, _count, stacked, _ = check_segments(cfg, step)[seg]
+    return f"op{off}:L{unit}" if stacked else f"op{off + unit * n}"
 
 
 def lm_grouped_shapes(cfg, batch=LM["batch"], prompt=LM["prompt"]):
@@ -2071,23 +2195,21 @@ def lm_grouped_shapes(cfg, batch=LM["batch"], prompt=LM["prompt"]):
     return shapes
 
 
-def lm_matmul_shapes(cfg, batch=LM["batch"], prompt=LM["prompt"]):
+def lm_matmul_shapes(cfg, batch=LM["batch"], prompt=LM["prompt"], src=0,
+                     prefix=0):
     """Every (M, K, N, trans_b) an LM run of ``cfg`` at ``batch`` x
-    ``prompt`` launches matmul_abft at, with its launches per prefill and
-    per decode step."""
-    d = cfg.d_model
+    ``prompt`` (after ``prefix`` embeddings; an encoder over ``src``
+    frames) launches matmul_abft at, with its launches per prefill and per
+    decode step (:func:`step_products`)."""
+    prods = [(step, step_products(cfg, step, batch, prompt, src, prefix))
+             for step in ("prefill", "decode")]
     shapes = {}
-    for m, step in ((batch * prompt, "prefill"), (batch, "decode")):
-        for bt in block_types(cfg):
-            for k, nn in layer_products(cfg, bt):
-                shapes.setdefault((m, k, nn, False), {"prefill": 0,
-                                                      "decode": 0})
-                shapes[(m, k, nn, False)][step] += 1
-    # the head: the last position of each sequence, both steps — the tied
-    # one multiplies by the embedding table as it lies (B^T), an untied one
-    # by its [d, V] weight
-    head = (batch, d, cfg.padded_vocab, cfg.tie_embeddings)
-    shapes[head] = {"prefill": 1, "decode": 1}
+    # the layers' products of both steps, then the head's: the order in
+    # which lm_kernels draws each shape's operands
+    for step, keys in [(st, p[:-1]) for st, p in prods] + \
+            [(st, p[-1:]) for st, p in prods]:
+        for key in keys:
+            shapes.setdefault(key, {"prefill": 0, "decode": 0})[step] += 1
     return shapes
 
 
@@ -2307,14 +2429,16 @@ def check_grouped_shape(torch, g, m, k, n, dtype, gen, timed):
     return entry
 
 
-def flash_bound(torch, b, t, s, h, kh, dh, dtype, window=0):
-    """Least time of one causal launch: q, k, v, vr, o, o_extra once against
-    the valid pairs' work (q·k and p·v over dh, p·vr) at the type's peak;
-    with a sliding window a query's pairs are at most ``window``."""
+def flash_bound(torch, b, t, s, h, kh, dh, dtype, window=0, causal=True):
+    """Least time of one launch: q, k, v, vr, o, o_extra once against the
+    valid pairs' work (q·k and p·v over dh, p·vr) at the type's peak; the
+    causal mask keeps query i's keys 0..i — at most ``window`` of them with
+    a sliding window —, without it every query has all S."""
     item = torch.empty((), dtype=dtype).element_size()
     n_bytes = item * (2 * b * t * h * dh + 2 * b * s * kh * dh + b * s * h) \
         + 4 * b * t * h
-    pairs = b * h * sum(min(i + 1, s, window or s) for i in range(t))
+    pairs = b * h * (sum(min(i + 1, s, window or s) for i in range(t))
+                     if causal else t * s)
     n_ops = pairs * (4 * dh + 2)
     peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     t_b, t_o = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / peak * 1e3
@@ -2322,15 +2446,16 @@ def flash_bound(torch, b, t, s, h, kh, dh, dtype, window=0):
         n_bytes, n_ops
 
 
-def sdpa_ms(torch, q, k, v, backends, mask=None):
-    """Milliseconds of one causal ``scaled_dot_product_attention`` call on
-    the first of ``backends`` (``SDPBackend`` names) that takes the operands
-    (q, k, v in its [B, H, T, d] layout; ``mask``, a boolean [T, S] of the
-    valid pairs, in place of ``is_causal`` for a sliding window), timed as
-    every kernel is — the yardstick only; nothing in the port calls it.
-    Returns (ms, backend) or (None, why each backend refused)."""
+def sdpa_ms(torch, q, k, v, backends, mask=None, causal=True):
+    """Milliseconds of one ``scaled_dot_product_attention`` call
+    (``is_causal=causal``) on the first of ``backends`` (``SDPBackend``
+    names) that takes the operands (q, k, v in its [B, H, T, d] layout;
+    ``mask``, a boolean [T, S] of the valid pairs, in place of
+    ``is_causal`` for a sliding window), timed as every kernel is — the
+    yardstick only; nothing in the port calls it.  Returns (ms, backend) or
+    (None, why each backend refused)."""
     import torch.nn.functional as F
-    kw = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
+    kw = dict(is_causal=causal) if mask is None else dict(attn_mask=mask)
     refused = []
     for name in backends:
         try:
@@ -2346,13 +2471,13 @@ def sdpa_ms(torch, q, k, v, backends, mask=None):
     return None, "; ".join(refused)
 
 
-def sdpa_library_ms(torch, q, k, v, vr, window=0):
+def sdpa_library_ms(torch, q, k, v, vr, window=0, causal=True):
     """SDPA yardsticks of a ``flash_checksum`` launch: o and o_extra
     together (vr as an extra value column, 257 wide at dh 256) on the
     memory-efficient backend, else the math one; and o alone (v, dh wide)
-    on the memory-efficient backend; a sliding window as a boolean mask.
-    Returns a dict of both times and the backend that served each (or why
-    none did)."""
+    on the memory-efficient backend; a sliding window as a boolean mask,
+    ``causal=False`` as ``is_causal=False``.  Returns a dict of both times
+    and the backend that served each (or why none did)."""
     h, t, s = q.shape[2], q.shape[1], k.shape[1]
     g = h // k.shape[2]
     qt = q.transpose(1, 2).contiguous()
@@ -2365,10 +2490,10 @@ def sdpa_library_ms(torch, q, k, v, vr, window=0):
         j = torch.arange(s, device=q.device)[None, :]
         mask = (j <= i) & (j > i - window)
     ms, backend = sdpa_ms(torch, qt, kt, vv, ("EFFICIENT_ATTENTION", "MATH"),
-                          mask)
+                          mask, causal)
     o_ms, o_backend = sdpa_ms(torch, qt, kt, vt.transpose(1, 2).contiguous(),
-                              ("EFFICIENT_ATTENTION",), mask)
-    how = "is_causal=True" if not window else \
+                              ("EFFICIENT_ATTENTION",), mask, causal)
+    how = f"is_causal={causal}" if not window else \
         f"attn_mask=(j <= i) & (j > i - {window})"
     return dict(library_ms=ms, library_backend=backend,
                 library_note=f"F.scaled_dot_product_attention(q, k, [v | vr], "
@@ -2376,11 +2501,12 @@ def sdpa_library_ms(torch, q, k, v, vr, window=0):
                 library_o_only_ms=o_ms, library_o_only_backend=o_backend)
 
 
-def chain_witness(torch, q, k, v, vr, wo, w_or, o, ex, out, chk, window=0):
-    """The float64 witness of B5's clean chain corner (causal, ``window``
-    > 0 the sliding window): ``actual − predicted`` = Σ out − Σ o_extra,
-    out = o W_o on B4 in o's dtype, split into eight steps that sum to it
-    exactly,
+def chain_witness(torch, q, k, v, vr, wo, w_or, o, ex, out, chk, window=0,
+                  causal=True):
+    """The float64 witness of B5's clean chain corner (``causal`` or not,
+    ``window`` > 0 the sliding window): ``actual − predicted`` = Σ out −
+    Σ o_extra, out = o W_o on B4 in o's dtype, split into eight steps that
+    sum to it exactly,
 
         (actual − Y) + (Y − Z) + (Z − W) + (W − V) + (V − O) + (O − E)
         + (E − X) + (X − predicted)
@@ -2403,6 +2529,8 @@ def chain_witness(torch, q, k, v, vr, wo, w_or, o, ex, out, chk, window=0):
     i = torch.arange(t, device=q.device)[:, None]
     j = torch.arange(s, device=q.device)[None, :]
     ok = (j <= i) & (j > i - window) if window else j <= i
+    if not causal:
+        ok = torch.ones_like(ok)
     att = torch.softmax(sc.masked_fill(~ok, float("-inf")), dim=-1)
     att = torch.nan_to_num(att)          # a row with no key attends to none
     vr64 = vr.to(f64)
@@ -2441,11 +2569,12 @@ def chain_witness(torch, q, k, v, vr, wo, w_or, o, ex, out, chk, window=0):
 
 
 def check_flash_shape(torch, b, t, s, h, kh, dh, dtype, gen, timed,
-                      window=0):
+                      window=0, causal=True):
     """flash_checksum kernel vs plain (with and without the column), the
     chain identity Σ o_extra = Σ (o W_o) as a clean corner, a corrupted
     accumulator that must diverge; optionally its times.  ``window`` > 0:
-    the sliding window's mask."""
+    the sliding window's mask; ``causal=False``: no mask (an encoder's
+    self-attention, T = S, or a decoder's cross-attention, T ≠ S)."""
     from repro_torch.kernels.flash_checksum.kernel import (
         flash_checksum_kernel, flash_checksum_plain)
     from repro_torch.kernels.flash_checksum.ops import (carried_column,
@@ -2461,20 +2590,21 @@ def check_flash_shape(torch, b, t, s, h, kh, dh, dtype, gen, timed,
     w_or = wo.sum(dim=1).reshape(h, dh)
     vr = carried_column(v, w_or, h).to(dtype)
     tag = f"flash_checksum B={b} T={t} S={s} H={h} Kh={kh} dh={dh} " \
-        f"window={window} {dtype}"
+        f"window={window} causal={causal} {dtype}"
     tol = OUT_ATOL if dtype == torch.float32 else BF16_TOL["flash_checksum"]
-    got = flash_checksum_kernel(q, k, v, vr, window=window)
+    mask = dict(window=window, causal=causal)
+    got = flash_checksum_kernel(q, k, v, vr, **mask)
     torch.cuda.synchronize()
-    want = flash_checksum_plain(q, k, v, vr, window=window)
+    want = flash_checksum_plain(q, k, v, vr, **mask)
     worst = max(assert_close(f"{tag} o", got[0].float(), want[0].float(),
                              atol=tol, rtol=tol),
                 assert_close(f"{tag} o_extra", got[1], want[1],
                              atol=max(tol, OUT_ATOL) * 2,
                              rtol=max(tol, OUT_RTOL) * 2))
-    o_bare, ex_bare = flash_checksum_kernel(q, k, v, None, window=window)
+    o_bare, ex_bare = flash_checksum_kernel(q, k, v, None, **mask)
     if ex_bare is not None or not torch.equal(o_bare, got[0]):
         raise AssertionError(f"{tag}: o without the carried column differs")
-    again = flash_checksum_kernel(q, k, v, vr, window=window)
+    again = flash_checksum_kernel(q, k, v, vr, **mask)
     if not all(torch.equal(x, y) for x, y in zip(again, got)):
         raise AssertionError(f"{tag}: a second run differs")
     o, ex = got
@@ -2485,7 +2615,7 @@ def check_flash_shape(torch, b, t, s, h, kh, dh, dtype, gen, timed,
     # bf16: the float64 witness of the corner, reported at every case and
     # deciding one over BF16_CORNER_RTOL
     witness = None if dtype == torch.float32 else chain_witness(
-        torch, q, k, v, vr, wo, w_or, o, ex, out, chk, window)
+        torch, q, k, v, vr, wo, w_or, o, ex, out, chk, window, causal)
     if not (rel <= (CORNER_RTOL if witness is None else BF16_CORNER_RTOL)
             or (witness is not None and witness["rounding"])):
         raise AssertionError(f"{tag}: clean chain divergence {rel:.3e}"
@@ -2503,16 +2633,17 @@ def check_flash_shape(torch, b, t, s, h, kh, dh, dtype, gen, timed,
         raise AssertionError(f"{tag}: a corrupted accumulator diverges by "
                              f"only {div}")
     entry = dict(b=b, t=t, s=s, h=h, kh=kh, dh=dh, window=window,
-                 dtype=str(dtype), max_abs_err=worst, max_rel_corner=rel,
+                 causal=causal, dtype=str(dtype), max_abs_err=worst,
+                 max_rel_corner=rel,
                  corrupted_divergence=div, repeat_bitwise=True)
     if witness is not None:
         entry["chain_witness"] = witness
     if timed:
         bound, by, n_bytes, n_ops = flash_bound(torch, b, t, s, h, kh, dh,
-                                                dtype, window)
+                                                dtype, window, causal)
 
         def kern():
-            return flash_checksum_kernel(q, k, v, vr, window=window)
+            return flash_checksum_kernel(q, k, v, vr, **mask)
         # one yardstick with B1's: 10 launches after 2 warm-up ones, 50, and
         # the device's own time from a CUDA graph; and the wrapper's host
         # dispatch, which bounds the eager times from below
@@ -2520,9 +2651,9 @@ def check_flash_shape(torch, b, t, s, h, kh, dh, dtype, gen, timed,
             ms=time_ms(kern), ms_50=time_ms(kern, reps=50),
             device_ms=device_ms(kern), host_dispatch_ms=host_ms(kern),
             plain_ms=time_ms(lambda: flash_checksum_plain(
-                q, k, v, vr, window=window), warm=1, reps=2),
+                q, k, v, vr, **mask), warm=1, reps=2),
             bound_ms=bound, bound_by=by, bytes=n_bytes, flops=n_ops,
-            **sdpa_library_ms(torch, q, k, v, vr, window))
+            **sdpa_library_ms(torch, q, k, v, vr, window, causal))
     return entry
 
 
@@ -2582,10 +2713,17 @@ def phase_lm_kernels(torch):
     # dense models' checks and the windowed ones after them see the inputs
     # they saw before the MoE models were added
     moe_gen = torch.Generator(device="cuda").manual_seed(8)
+    # so do the models with a front end, whose B5 also runs non-causal:
+    # an encoder's self-attention (T = S) and a decoder's cross-attention
+    # (T = prompt, S = the encoder's frames), both timed
+    front_gen = torch.Generator(device="cuda").manual_seed(10)
+    flash_noncausal, flash_noncausal_bf16 = [], []
     for spec in ARCHS:
         acfg = arch_config(spec["arch"], spec.get("layers"))
-        agen = gen if acfg.moe is None else moe_gen
-        ashapes = lm_matmul_shapes(acfg, spec["batch"], spec["prompt"])
+        agen = moe_gen if acfg.moe is not None else front_gen \
+            if acfg.frontend else gen
+        ashapes = lm_matmul_shapes(acfg, spec["batch"], spec["prompt"],
+                                   spec.get("src", 0), spec.get("prefix", 0))
         for key, counts in ashapes.items():
             if key not in checked:
                 checked[key] = check_matmul_shape(torch, *key, torch.float32,
@@ -2618,8 +2756,9 @@ def phase_lm_kernels(torch):
                 for step in ("prefill", "decode")}
         if "attn" not in acfg.block_pattern:
             continue
-        shape = (spec["batch"], spec["prompt"], spec["prompt"],
-                 acfg.n_heads, acfg.n_kv_heads, acfg.hd)
+        ta = spec.get("prefix", 0) + spec["prompt"]
+        shape = (spec["batch"], ta, ta, acfg.n_heads, acfg.n_kv_heads,
+                 acfg.hd)
         window = acfg.local_window if len(acfg.block_pattern) > 1 \
             else acfg.window
         flash_archs.append(check_flash_shape(
@@ -2628,6 +2767,18 @@ def phase_lm_kernels(torch):
         if len(acfg.block_pattern) > 1:
             hybrid_flash.append(dict(shape=shape, window=window,
                                      arch=acfg.name))
+        if acfg.family == "encdec":
+            src = spec["src"]
+            for what, (tq, sk) in (("encoder", (src, src)),
+                                   ("cross", (spec["prompt"], src))):
+                nc = (spec["batch"], tq, sk, acfg.n_heads, acfg.n_kv_heads,
+                      acfg.hd)
+                flash_noncausal.append(dict(check_flash_shape(
+                    torch, *nc, torch.float32, agen, True, causal=False),
+                    arch=acfg.name, attention=what))
+                flash_noncausal_bf16.append(dict(check_flash_shape(
+                    torch, *nc, torch.bfloat16, agen, False, causal=False),
+                    arch=acfg.name, attention=what))
     arch_matmul = [e for key, e in checked.items() if key not in shapes]
     # the grouped kernel at ragged shapes, 5 groups, both tile paths: K not
     # a multiple of 4 (each group's b_r then starts off 16-byte alignment),
@@ -2638,6 +2789,16 @@ def phase_lm_kernels(torch):
         for m, k, n in ((1, 33, 65), (6, 100, 72), (8, 70, 130),
                         (16, 2050, 130), (17, 33, 65), (120, 70, 130),
                         (129, 99, 131))
+        for dt in (torch.float32, torch.bfloat16)]
+    # non-causal B5 at ragged shapes, f32 and bf16, a generator of its own:
+    # S not a multiple of the 32-key block (T = S), T > S, T < S, S under
+    # one block, T = 1 over whisper's 1500 frames, dh 70 with T != S
+    ngen = torch.Generator(device="cuda").manual_seed(11)
+    flash_noncausal_ragged = [
+        check_flash_shape(torch, *shape, dt, ngen, False, causal=False)
+        for shape in ((1, 100, 100, 4, 2, 64), (1, 300, 70, 4, 2, 64),
+                      (2, 40, 257, 4, 4, 64), (2, 33, 17, 2, 2, 64),
+                      (2, 1, 1500, 16, 16, 64), (1, 33, 50, 2, 2, 70))
         for dt in (torch.float32, torch.bfloat16)]
     flash_window = [
         check_flash_shape(torch, *shape, dt, gen, False, window=w)
@@ -2744,7 +2905,11 @@ def phase_lm_kernels(torch):
             per_prefill_ms=cfg.n_layers * flash_main["ms"],
             smem_bytes=flash_smem_bytes(dh),
             blocks_per_sm=flash_blocks_per_sm(dh),
-            shape=dict(b=b, t=t, s=t, h=h, kh=kh, dh=dh))}
+            shape=dict(b=b, t=t, s=t, h=h, kh=kh, dh=dh),
+            noncausal={e["attention"]: {k: e[k] for k in (
+                "t", "s", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_o_only_ms",
+                "max_abs_err")} for e in flash_noncausal})}
     emit("lm_kernels", tolerance=dict(f32=OUT_ATOL, bf16=BF16_TOL,
                                       corner_rtol=CORNER_RTOL,
                                       bf16_corner_rtol=BF16_CORNER_RTOL),
@@ -2754,7 +2919,10 @@ def phase_lm_kernels(torch):
          matmul_grouped=list(grouped.values()),
          matmul_grouped_bf16=grouped_bf16,
          matmul_grouped_ragged=grouped_ragged,
-         flash_archs=flash_archs, flash_window=flash_window,
+         flash_archs=flash_archs, flash_noncausal=flash_noncausal,
+         flash_noncausal_bf16=flash_noncausal_bf16,
+         flash_noncausal_ragged=flash_noncausal_ragged,
+         flash_window=flash_window,
          flash_window_seeds=flash_seeds, prefill_shapes=prefill, thin_ptxas=thin_ptxas,
          wide_ptxas=wide_ptxas, flash_ptxas=flash_ptxas,
          kernels=list(entries.values()))
@@ -2778,10 +2946,11 @@ def _argmax_tokens(torch, logits):
 
 
 def lm_trajectory(torch, step_prefill, step_decode, tokens, n_new, *,
-                  inject_at=None, delta=0.0, timed=False):
-    """Prefill then ``n_new`` greedy decode steps; every step's logits and
-    token, and (``timed``) host-clock ms around each synchronised step."""
-    t0 = tokens.shape[1]
+                  inject_at=None, delta=0.0, timed=False, pos0=None):
+    """Prefill then ``n_new`` greedy decode steps, the first at ``pos0``
+    (default: the prompt's length); every step's logits and token, and
+    (``timed``) host-clock ms around each synchronised step."""
+    t0 = tokens.shape[1] if pos0 is None else pos0
     times = []
     start = time.perf_counter()
     logits, states = step_prefill(tokens, delta if inject_at == -1 else 0.0)
@@ -2800,17 +2969,118 @@ def lm_trajectory(torch, step_prefill, step_decode, tokens, n_new, *,
     return out_logits, out_tokens, times
 
 
+def lm_embeds(torch, cfg, spec, gen):
+    """The front end's stub input of one run, seeded normal: an
+    encoder-decoder's ``src_embeds`` [B, src, d], another front end's
+    ``prefix_embeds`` [B, prefix, d]; {} for a decoder without one."""
+    key = "src_embeds" if cfg.family == "encdec" else "prefix_embeds"
+    n = spec.get("src" if cfg.family == "encdec" else "prefix", 0)
+    if not n:
+        return {}
+    return {key: torch.randn(spec["batch"], n, cfg.d_model, generator=gen,
+                             device="cuda")}
+
+
+def embeds_engine(cfg, abft, params, cache_len, extra):
+    """An ``LMEngine`` whose guarded prefill also passes ``extra`` (the
+    front end's embeddings) beside the tokens: its step from
+    ``make_guarded_prefill_step`` under its ``ABFTGuard.run_step``, whose
+    ``restore_fn`` refolds the working params from the master.  The
+    engine's own ``prefill`` takes tokens alone, as the reference's does."""
+    from repro_torch.engine.lm import LMEngine
+
+    class EmbedsEngine(LMEngine):
+        def prefill(self, tokens, *, inject=0.0):
+            pop = self._fire_once(inject)
+            (logits, states), m = self.guard.run_step(
+                lambda params, batch: self._prefill(params, batch, pop()),
+                self.params, {"tokens": tokens, **extra})
+            return logits, states, m
+
+    return EmbedsEngine(cfg, abft, params, cache_len=cache_len)
+
+
+class attempt_record:
+    """Records the flagged op ids of every attempt of an engine's guarded
+    prefill and decode steps (retries and replays included) while it is
+    entered: one list of ids an attempt, empty for a clean one."""
+
+    def __init__(self, eng):
+        self.eng = eng
+
+    def __enter__(self):
+        import torch
+        eng, self.saved, self.rows = self.eng, (self.eng._prefill,
+                                                self.eng._decode), []
+
+        def recorded(fn):
+            def run(*args):
+                out, m = fn(*args)
+                flags = torch.as_tensor(m["abft_op_flags"]).reshape(-1)
+                self.rows.append([m["abft_op_ids"][int(i)] for i in
+                                  flags.nonzero().reshape(-1).tolist()])
+                return out, m
+            return run
+        eng._prefill, eng._decode = recorded(eng._prefill), \
+            recorded(eng._decode)
+        return self.rows
+
+    def __exit__(self, *exc):
+        self.eng._prefill, self.eng._decode = self.saved
+        return False
+
+
+def flip_leaf(torch, params, path, layer, bit):
+    """``params`` with a clone of the stacked weight at ``path`` whose
+    element (``layer``, 0, ...) has ``bit`` flipped (the master, which
+    shares every other tensor, stays pristine).  Returns (params, the
+    corrupted weight)."""
+    node = params
+    for key in path[:-1]:
+        node = node[key]
+    w = node[path[-1]].clone()
+    w.view(torch.int32)[(layer,) + (0,) * (w.dim() - 1)] ^= (1 << bit)
+
+    def put(tree, keys):
+        if not keys:
+            return w
+        key, rest = keys[0], keys[1:]
+        if isinstance(tree, list):
+            return [put(x, rest) if i == key else x
+                    for i, x in enumerate(tree)]
+        return dict(tree, **{key: put(tree[key], rest)})
+    return put(params, list(path)), w
+
+
+def site_corner(torch, abft, checks, site):
+    """(predicted, actual) of the check element ``site`` names (an id of
+    ``per_op_report``)."""
+    from repro_torch.core.abft import per_op_report
+    checks = [c for c in checks if c is not None]
+    i = list(per_op_report(checks, abft)[0]).index(site)
+    return tuple(torch.cat([getattr(c, side).reshape(-1) for c in checks])[i]
+                 for side in ("predicted", "actual"))
+
+
 def lm_gates(torch, cfg, params, spec, cache_len):
     """The guarded-LM gates on one full-width master ``params`` of ``cfg``
-    (``spec``: batch, prompt, new, and LM's seed, upset, bit flip and cut):
-    LMEngine guarded == unguarded bit for bit with no clean flag, every
-    product on matmul_abft (the MoE experts and the RG-LRU gates on its
-    grouped launch) and every prefill attention on flash_checksum, the op
-    ids the block pattern gives; an accumulator upset on a decode step
-    detected and repaired bit for bit (a model without attention: no site,
-    nothing flags, the logits the clean run's); a bit flip in the first
-    dense weight of a unit's first block detected and restored bit for
-    bit; then the same params cut to ``cut_layers`` (whole units), the card
+    (``spec``: batch, prompt, new, the front end's ``src`` frames or
+    ``prefix`` embeddings, and LM's seed, upset, bit flip and cut):
+    guarded == unguarded bit for bit with no clean flag, every product on
+    matmul_abft (the MoE experts and the RG-LRU gates on its grouped
+    launch) and every prefill attention on flash_checksum (an encoder's
+    and a decoder's cross-attention non-causal), the op ids the block
+    pattern gives a prefill and a decode step; an accumulator upset on a
+    decode step and one in prefill, each flagging only attention chains
+    (a decode step's self-attention chains, a prefill's every chain: the
+    encoder's, and the self- and cross-attention's), retried bit for bit
+    (a model without attention: no site, nothing flags, the logits the
+    clean run's); a bit flip in the first dense weight of a unit's first
+    block (an encoder-decoder's decoder and encoder ``wq``) flagging that
+    product's check, whose predicted side stays the clean run's bit for bit
+    (the master's fold: a fold missing from the flipped stack would read
+    the corrupted weight), restored bit for bit; then the same params cut to
+    ``cut_layers`` (whole units; an encoder to as many layers), the card
     against the CPU (the plain versions) — for an MoE model with the same
     routing on both and its smallest top-k margin reported.  A model with
     recurrent blocks also times its scans (:class:`scan_record`) over one
@@ -2827,11 +3097,17 @@ def lm_gates(torch, cfg, params, spec, cache_len):
     tag = cfg.name
     abft = ABFTConfig(mode="fused", threshold=1e-3, relative=True)
     off = ABFTConfig(mode="none")
-    eng = LMEngine(cfg, abft, params, cache_len=cache_len)
     gen = torch.Generator(device="cuda").manual_seed(spec["seed"] + 1)
     tokens = torch.randint(1, cfg.vocab_size, (spec["batch"], spec["prompt"]),
                            generator=gen, device="cuda", dtype=torch.int32)
-    per_step = lm_step_launches(cfg)
+    extra = lm_embeds(torch, cfg, spec, gen)
+    encdec = cfg.family == "encdec"
+    offset = 0 if encdec else spec.get("prefix", 0)
+    pos0 = offset + spec["prompt"]
+    eng = embeds_engine(cfg, abft, params, cache_len, extra) if extra else \
+        LMEngine(cfg, abft, params, cache_len=cache_len)
+    per_step = {step: lm_step_launches(cfg, step)
+                for step in ("prefill", "decode")}
     types = block_types(cfg)
     recurrent = any(bt in RECURRENT for bt in types)
     if recurrent and torch.backends.cuda.matmul.allow_tf32:
@@ -2843,11 +3119,11 @@ def lm_gates(torch, cfg, params, spec, cache_len):
     runtime.reset_counts()
     ref_logits, ref_tokens, ref_ms = lm_trajectory(
         torch,
-        lambda tok, inj: model_prefill(params, cfg, {"tokens": tok}, off,
-                                       cache_len)[:2],
+        lambda tok, inj: model_prefill(params, cfg, {"tokens": tok, **extra},
+                                       off, cache_len)[:2],
         lambda st, tok, pos, inj: model_decode(params, cfg, st, tok, pos,
                                                off)[:2],
-        tokens, spec["new"])
+        tokens, spec["new"], pos0=pos0)
     ref_counts = runtime.launch_counts()
 
     # the main path: the guarded engine, clean
@@ -2864,12 +3140,12 @@ def lm_gates(torch, cfg, params, spec, cache_len):
     metrics = []
     runtime.reset_counts()
     logits, toks, step_ms = lm_trajectory(torch, g_prefill, g_decode, tokens,
-                                          spec["new"])
+                                          spec["new"], pos0=pos0)
     counts, plain = runtime.launch_counts(), runtime.plain_counts()
-    want = {name: n * (spec["new"] + 1) for name, n in per_step.items()
-            if n and name != "flash_checksum"}
-    if per_step["flash_checksum"]:
-        want["flash_checksum"] = per_step["flash_checksum"]
+    want = {name: per_step["prefill"][name]
+            + spec["new"] * per_step["decode"][name]
+            for name in per_step["prefill"]}
+    want = {name: n for name, n in want.items() if n}
     others = {k: v for k, v in counts.items() if k not in want}
     if {k: counts[k] for k in want} != want or any(others.values()) \
             or any(plain.values()) or ref_counts != counts:
@@ -2880,14 +3156,16 @@ def lm_gates(torch, cfg, params, spec, cache_len):
     if not identical or eng.guard.flags:
         raise AssertionError(f"{tag}: guarded trajectory bit-identical "
                              f"{identical}, clean flags {eng.guard.flags}")
-    ids = metrics[0]["abft_op_ids"]
-    if list(ids) != lm_op_ids(cfg) or any(m["abft_op_ids"] != ids
-                                          for m in metrics):
-        raise AssertionError(f"{tag}: op ids {ids[:3]}..{ids[-2:]} (want "
-                             f"{lm_op_ids(cfg)[:3]}..)")
+    ids = {step: lm_op_ids(cfg, step) for step in ("prefill", "decode")}
+    if list(metrics[0]["abft_op_ids"]) != ids["prefill"] or any(
+            list(m["abft_op_ids"]) != ids["decode"] for m in metrics[1:]):
+        raise AssertionError(f"{tag}: op ids {metrics[0]['abft_op_ids'][:3]}"
+                             f".. / {metrics[1]['abft_op_ids'][:3]}.. (want "
+                             f"{ids['prefill'][:3]}.. / "
+                             f"{ids['decode'][:3]}..)")
     max_rel = max(float(m["abft_max_rel"]) for m in metrics)
     witness = clean_witness(torch, cfg, eng.params, abft, tokens, toks,
-                            cache_len, logits)
+                            cache_len, logits, extra=extra, pos0=pos0)
     if witness["max_rel"] != max_rel or not all(
             w["rounding"] for w in witness["over_tol"]):
         raise AssertionError(f"{tag}: clean max_rel {max_rel:.3e} (replay "
@@ -2901,89 +3179,140 @@ def lm_gates(torch, cfg, params, spec, cache_len):
         raise AssertionError(f"{tag}: logits finite {finite}, shape "
                              f"{tuple(logits[0].shape)}")
 
-    # a transient accumulator upset on one decode step: one retry, bit for bit
-    flags0, retries0 = eng.guard.flags, eng.guard.retries
-    metrics = []
-    inj_logits, _, _ = lm_trajectory(
-        torch, g_prefill, g_decode, tokens, spec["new"],
-        inject_at=spec["inject_at"], delta=spec["inject_delta"])
-    # the upset's site is every attention accumulator: a model with no
-    # attention has none, so nothing may flag and nothing may change
+    # a transient accumulator upset on one decode step, then one in
+    # prefill: each flags only attention chains — a decode step's every
+    # self-attention chain on the models with a front end, some on the
+    # others; a prefill's some of each group of chains —, one retry, bit
+    # for bit.  A model with no attention has no site: nothing may flag and
+    # nothing may change
     site = "attention accumulator" if "attn" in types else None
-    inject = dict(decode_step=spec["inject_at"], delta=spec["inject_delta"],
-                  site=site, flags=eng.guard.flags - flags0,
-                  retries=eng.guard.retries - retries0,
-                  bitwise=all(torch.equal(a, b) for a, b in
-                              zip(inj_logits, ref_logits)))
-    hits = 1 if site else 0
-    if inject["flags"] != hits or inject["retries"] != hits \
-            or not inject["bitwise"]:
-        raise AssertionError(f"{tag}: injected upset {inject}")
+    upsets = {}
+    for step, at, n_new in (("decode", spec["inject_at"], spec["new"]),
+                            ("prefill", -1, 0)):
+        flags0, retries0 = eng.guard.flags, eng.guard.retries
+        metrics = []
+        with attempt_record(eng) as rows:
+            inj_logits, _, _ = lm_trajectory(
+                torch, g_prefill, g_decode, tokens, n_new, inject_at=at,
+                delta=spec["inject_delta"], pos0=pos0)
+        groups = lm_upset_sites(cfg, step)
+        sites = [i for ids_ in groups.values() for i in ids_]
+        flagged = [r for r in rows if r]
+        hit = flagged[0] if flagged else []
+        upsets[step] = dict(
+            step=at, delta=spec["inject_delta"], site=site,
+            flags=eng.guard.flags - flags0,
+            retries=eng.guard.retries - retries0,
+            sites=len(sites), sites_flagged=len(hit),
+            groups_flagged={g: len(set(hit) & set(v))
+                            for g, v in groups.items()},
+            bitwise=all(torch.equal(a, b) for a, b in
+                        zip(inj_logits, ref_logits)))
+        exact = step == "decode" and bool(extra)
+        ok = upsets[step]["bitwise"] and len(flagged) == (1 if sites else 0) \
+            and upsets[step]["flags"] == upsets[step]["retries"] \
+            == (1 if sites else 0) and set(hit) <= set(sites) \
+            and all(upsets[step]["groups_flagged"].values()) \
+            and (not exact or sorted(hit) == sorted(sites))
+        if not ok:
+            raise AssertionError(f"{tag}: injected upset {upsets[step]}; "
+                                 f"flagged {hit[:8]}.. of sites "
+                                 f"{sites[:8]}..")
 
-    # a bit flip in one unit's first dense weight after load: a corrupted
+    # a bit flip in one unit's first dense weight after load — the
+    # decoder's and, for an encoder-decoder, the encoder's —: a corrupted
     # clone replaces the working leaf (the master shares the tensor and
     # stays pristine)
-    flags0, restores0 = eng.guard.flags, eng.guard.restores
     block, name = FLIP_LEAF[cfg.block_pattern[0]]
-    seg = dict(eng.params["segments"][0])
-    b0 = dict(seg["b0"])
-    blk = dict(b0[block])
-    leaf = dict(blk[name])
-    w = leaf["w"].clone()
-    word = w.view(torch.int32)
-    word[(spec["flip_layer"],) + (0,) * (w.dim() - 1)] ^= \
-        (1 << spec["flip_bit"])
-    leaf["w"], blk[name], b0[block], seg["b0"] = w, leaf, blk, b0
-    eng.params = dict(eng.params,
-                      segments=[seg] + list(eng.params["segments"][1:]))
-    metrics = []
-    flip_logits, _, _ = lm_trajectory(torch, g_prefill, g_decode, tokens, 2)
-    flip = dict(layer=spec["flip_layer"], bit=spec["flip_bit"],
-                leaf=f"b0.{block}.{name}.w", flags=eng.guard.flags - flags0,
-                restores=eng.guard.restores - restores0,
-                bitwise=all(torch.equal(a, b) for a, b in
-                            zip(flip_logits, ref_logits)),
-                master_pristine=not torch.equal(
-                    params["segments"][0]["b0"][block][name]["w"], w))
-    del w, word, leaf, blk, b0, seg
-    if flip["flags"] != 1 or flip["restores"] != 1 or not flip["bitwise"] \
-            or not flip["master_pristine"]:
-        raise AssertionError(f"{tag}: weight flip {flip}")
+    targets = [("decoder", ["segments", 0, "b0", block, name, "w"],
+                1 if encdec else 0)]
+    if encdec:
+        targets.append(("encoder", ["encoder", "segments", 0, "b0", "attn",
+                                    "wq", "w"], 0))
+    flips = []
+    batch = {"tokens": tokens, **extra}
+    for where, path, seg in targets:
+        at = first_check_id(cfg, seg, spec["flip_layer"])
+        clean_pred, _ = site_corner(torch, abft, model_prefill(
+            eng.params, cfg, batch, abft, cache_len, return_checks=True)[3],
+            at)
+        flags0, restores0 = eng.guard.flags, eng.guard.restores
+        eng.params, w = flip_leaf(torch, eng.params, path,
+                                  spec["flip_layer"], spec["flip_bit"])
+        # the site's predicted side is the master's fold times the
+        # unchanged input: the clean run's, bit for bit
+        flip_pred, flip_act = site_corner(torch, abft, model_prefill(
+            eng.params, cfg, batch, abft, cache_len, return_checks=True)[3],
+            at)
+        metrics = []
+        with attempt_record(eng) as rows:
+            flip_logits, _, _ = lm_trajectory(torch, g_prefill, g_decode,
+                                              tokens, 2, pos0=pos0)
+        master = params
+        for key in path:
+            master = master[key]
+        hit = next((r for r in rows if r), [])
+        flip = dict(where=where, layer=spec["flip_layer"],
+                    bit=spec["flip_bit"], leaf=".".join(map(str, path)),
+                    flags=eng.guard.flags - flags0,
+                    restores=eng.guard.restores - restores0,
+                    site=at, site_flagged=at in hit, flagged=hit[:8],
+                    site_predicted_bitwise=torch.equal(flip_pred,
+                                                       clean_pred),
+                    site_predicted=float(flip_pred),
+                    site_actual=float(flip_act),
+                    bitwise=all(torch.equal(a, b) for a, b in
+                                zip(flip_logits, ref_logits)),
+                    master_pristine=not torch.equal(master, w))
+        del w, master, flip_pred, flip_act
+        flips.append(flip)
+        if flip["flags"] != 1 or flip["restores"] != 1 \
+                or not flip["bitwise"] or not flip["master_pristine"] \
+                or not flip["site_flagged"] \
+                or not flip["site_predicted_bitwise"]:
+            raise AssertionError(f"{tag}: weight flip {flip}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     scans = scan_times(torch, eng, tokens, toks[0]) if recurrent else None
 
-    # the same params cut to whole units: the card against the CPU's plain
-    # versions, prefill and decode logits within LOGIT_ATOL + LM_LOGIT_RTOL
+    # the same params cut to whole units (an encoder to as many layers):
+    # the card against the CPU's plain versions, prefill and decode logits
+    # within LOGIT_ATOL + LM_LOGIT_RTOL
     import dataclasses
     n_cut = spec["cut_layers"]
     unit = len(cfg.block_pattern)
     if n_cut % unit:
         raise AssertionError(f"{tag}: cut of {n_cut} layers is not whole "
                              f"units of {unit}")
-    cut_cfg = dataclasses.replace(cfg, n_layers=n_cut)
+    cut_cfg = dataclasses.replace(cfg, n_layers=n_cut,
+                                  enc_layers=n_cut if encdec else 0)
     cut = dict(params, segments=[_slice_tree(params["segments"][0],
                                              n_cut // unit)])
+    if encdec:
+        cut["encoder"] = dict(params["encoder"], segments=[_slice_tree(
+            params["encoder"]["segments"][0], n_cut)])
     cut_tokens = tokens[:, :spec["cut_prompt"]]
-    cut_len = spec["cut_prompt"] + spec["cut_decode"]
+    cut_pos0 = offset + spec["cut_prompt"]
+    cut_len = cut_pos0 + spec["cut_decode"]
     runs = {}
     for dev in ("cuda", "cpu"):
         p_dev = _tree_to(cut, dev)
         folded = fold_lm_w_r(p_dev, cut_cfg, abft)
+        batch = {k: v.to(dev) for k, v in extra.items()}
         t0 = time.perf_counter()
         with routing_record() as routes:
-            lg, st, rep = model_prefill(folded, cut_cfg,
-                                        {"tokens": cut_tokens.to(dev)}, abft,
-                                        cut_len)
+            lg, st, rep = model_prefill(
+                folded, cut_cfg, {"tokens": cut_tokens.to(dev), **batch},
+                abft, cut_len)
             outs, flags = [lg], [bool(rep.flag)]
             for i in range(spec["cut_decode"]):
                 nxt = _argmax_tokens(torch, outs[-1])
                 lg, st, rep = model_decode(folded, cut_cfg, st, nxt,
-                                           spec["cut_prompt"] + i, abft)
+                                           cut_pos0 + i, abft)
                 outs.append(lg)
                 flags.append(bool(rep.flag))
         runs[dev] = dict(logits=[x.cpu() for x in outs], flags=flags,
                          seconds=time.perf_counter() - t0, routes=routes)
-        del p_dev, folded, st
+        del p_dev, folded, st, batch
     pairs = [(a[..., :cfg.vocab_size], b[..., :cfg.vocab_size])
              for a, b in zip(runs["cuda"]["logits"], runs["cpu"]["logits"])]
     cut_errs = [max_err(a, b) for a, b in pairs]
@@ -3011,6 +3340,7 @@ def lm_gates(torch, cfg, params, spec, cache_len):
                                                      runs["cpu"]["flags"]),
         fields=dict(
             model=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers,
+            encoder_layers=cfg.enc_layers or None,
             d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
             head_dim=cfg.hd, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
             padded_vocab=cfg.padded_vocab, window=cfg.window,
@@ -3018,20 +3348,22 @@ def lm_gates(torch, cfg, params, spec, cache_len):
             local_window=(cfg.local_window if len(cfg.block_pattern) > 1
                           else None),
             batch=spec["batch"], prompt=spec["prompt"], new=spec["new"],
+            src=spec.get("src"), prefix=spec.get("prefix"),
             cache_len=cache_len, launches=counts, plain_calls=plain,
-            launches_per_step=dict(
-                prefill=per_step, decode=dict(per_step, flash_checksum=0)),
-            checks_per_layer={bt: layer_checks(cfg, bt)
-                              for bt in cfg.block_pattern},
+            launches_per_step=per_step,
+            checks_per_layer={step: {bt: layer_checks(cfg, bt, step, encdec)
+                                     for bt in cfg.block_pattern}
+                              for step in ("prefill", "decode")},
             moe=moe_fields(cfg, spec), scans=scans,
             clean=dict(bitwise_identical=identical, flags=0, max_rel=max_rel,
-                       op_ids=len(ids), over_tol=witness["over_tol"],
+                       op_ids={k: len(v) for k, v in ids.items()},
+                       over_tol=witness["over_tol"],
                        largest=witness["largest"]),
             prefill_ms=prefill_ms, unguarded_prefill_ms=ref_ms[0],
             decode_ms_per_step=sum(decode_ms) / len(decode_ms),
             decode_ms_min_max=[min(decode_ms), max(decode_ms)],
             unguarded_decode_ms_per_step=sum(ref_ms[1:]) / len(ref_ms[1:]),
-            inject=inject, weight_flip=flip, peak_memory_gb=peak_gb,
+            inject=upsets, weight_flip=flips, peak_memory_gb=peak_gb,
             cut=dict(layers=n_cut, prompt=spec["cut_prompt"],
                      decode=spec["cut_decode"],
                      max_abs_err_card_vs_cpu=max(cut_errs),
@@ -3084,10 +3416,12 @@ class _Witnessed:
         return y, chk
 
 
-def clean_witness(torch, cfg, params, abft, tokens, toks, cache_len, want):
-    """Replays the guarded clean trajectory (the prompt, then the guarded
-    run's tokens ``toks``; every step's logits must equal ``want``'s bit
-    for bit) with each ``dense`` product witnessed in float64.  Returns the
+def clean_witness(torch, cfg, params, abft, tokens, toks, cache_len, want,
+                  extra=None, pos0=None):
+    """Replays the guarded clean trajectory (the prompt with the front
+    end's ``extra`` embeddings, then the guarded run's tokens ``toks`` from
+    position ``pos0``; every step's logits must equal ``want``'s bit for
+    bit) with each ``dense`` product witnessed in float64.  Returns the
     guard's largest clean ``|pred - actual| / max(1, |actual|)`` and, for
     every check element over CORNER_RTOL and for the largest, the witness
     of its gap, four f32 rounding steps that sum to it exactly:
@@ -3145,10 +3479,10 @@ def clean_witness(torch, cfg, params, abft, tokens, toks, cache_len, want):
 
     common._DENSE, rglru.matmul_abft_grouped = wit, wit.grouped
     try:
-        t0 = tokens.shape[1]
+        t0 = tokens.shape[1] if pos0 is None else pos0
         logits, states, rep, checks = model_prefill(
-            params, cfg, {"tokens": tokens}, abft, cache_len,
-            return_checks=True, attn_inject=0.0)
+            params, cfg, {"tokens": tokens, **(extra or {})}, abft,
+            cache_len, return_checks=True, attn_inject=0.0)
         note(0, logits, rep, checks)
         for i, nxt in enumerate(toks):
             logits, states, rep, checks = model_decode(
@@ -3319,12 +3653,13 @@ def phase_lm_serve(torch, smi):
 
 def phase_lm_archs(torch, smi):
     """qwen1.5-4b, chatglm3-6b, h2o-danube-3-4b, deepseek-moe-16b (all
-    layers), qwen3-moe-30b-a3b (24 of 48 layers), rwkv6-7b and
-    recurrentgemma-9b (all layers) served at full width, f32, seeded
-    weights, one at a time through :func:`lm_gates` (each master freed
-    before the next); one guarded decode step of each MoE and recurrent
-    model traced on the device.  Returns the B4, grouped B4 and B5
-    launches of the guarded clean runs."""
+    layers), qwen3-moe-30b-a3b (24 of 48 layers), rwkv6-7b,
+    recurrentgemma-9b, whisper-medium (all layers; 1500 source frames) and
+    internvl2-26b (32 of 48 layers; 256 prefix embeddings) served at full
+    width, f32, seeded weights, one at a time through :func:`lm_gates`
+    (each master freed before the next); one guarded decode step of each
+    MoE, recurrent and front-end model traced on the device.  Returns the
+    B4, grouped B4 and B5 launches of the guarded clean runs."""
     from repro_torch.models.transformer import init_model
 
     launches = {"matmul_abft": 0, "matmul_abft_grouped": 0,
@@ -3338,11 +3673,14 @@ def phase_lm_archs(torch, smi):
         n_params = sum(x.numel() for x in _leaves(params))
         run = lm_gates(torch, cfg, params, spec, spec["cache"])
         trace = None
-        if cfg.moe is not None or run["fields"]["scans"] is not None:
+        if cfg.moe is not None or run["fields"]["scans"] is not None \
+                or cfg.frontend:
             eng = run["eng"]
             _, st0, _ = eng.prefill(run["tokens"])
+            pos0 = spec["prompt"] + (0 if cfg.family == "encdec"
+                                     else spec.get("prefix", 0))
             trace = decode_trace(torch, lambda: eng.decode(
-                st0, run["toks"][0], spec["prompt"], inject=0.0))
+                st0, run["toks"][0], pos0, inject=0.0))
             del eng, st0
         from repro_torch.configs import get_config
         emit("lm_archs", nvidia_smi=smi, init_seconds=t_init,
@@ -3359,6 +3697,33 @@ def phase_lm_archs(torch, smi):
         gc.collect()
         torch.cuda.empty_cache()
     return launches
+
+
+def phase_serve_cli(torch):
+    """``python -m repro_torch.launch.serve --arch A --smoke`` on the card
+    for whisper-medium and internvl2-26b (the smoke twins at the entry
+    point's defaults: B 4, prompt 64, 64 new tokens), each in a process of
+    its own that loads the library this run built: exit 0, no flag."""
+    runs = []
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+    for arch in ("whisper-medium", "internvl2-26b"):
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             arch, "--smoke"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, timeout=600)
+        lines = done.stdout.strip().splitlines()
+        runs.append(dict(arch=arch, returncode=done.returncode,
+                         seconds=time.perf_counter() - t0,
+                         output=lines[-2:]))
+        if done.returncode or "flag=False" not in done.stdout \
+                or "flags=0" not in done.stdout:
+            emit("serve_cli", runs=runs, log=lines[-20:])
+            raise AssertionError(f"launch.serve --arch {arch} --smoke: "
+                                 f"{runs[-1]}")
+    emit("serve_cli", runs=runs)
 
 
 def _leaves(tree):
@@ -3669,6 +4034,7 @@ def main() -> int:
     for phase in (phase_lm_serve, phase_lm_archs):
         for name, count in phase(torch, smi).items():
             launches[name] = launches.get(name, 0) + count
+    phase_serve_cli(torch)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -4,9 +4,9 @@ Counterpart of the JAX package's ``repro/configs/__init__.py``.  Registered:
 the attention decoders gemma-2b, qwen1.5-4b, chatglm3-6b and h2o-danube-3-4b
 (sliding window) with dense MLPs, deepseek-moe-16b and qwen3-moe-30b-a3b
 with mixture-of-experts MLPs, and the recurrent families rwkv6-7b
-(attention-free) and recurrentgemma-9b (RG-LRU with local attention).
-whisper-medium (encoder-decoder) and internvl2-26b (prefix embeddings) are
-still to port (ROADMAP A10).
+(attention-free) and recurrentgemma-9b (RG-LRU with local attention), the
+encoder-decoder whisper-medium (``src_embeds``: stub audio frames) and
+internvl2-26b (``prefix_embeds``: stub image patches before the tokens).
 """
 from __future__ import annotations
 
@@ -43,8 +43,10 @@ def _ensure_loaded() -> None:
         deepseek_moe_16b,
         gemma_2b,
         h2o_danube3_4b,
+        internvl2_26b,
         qwen3_moe_30b_a3b,
         qwen15_4b,
         recurrentgemma_9b,
         rwkv6_7b,
+        whisper_medium,
     )

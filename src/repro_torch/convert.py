@@ -3,8 +3,10 @@
 The JAX package's GCN params are a tree ``{"layers": [{"w": ..., "w_r"?:
 ...}, ...]}``, its GAT params the same with ``a_l`` and ``a_r`` beside each
 ``w``, and its LM params a tree ``{"embed": {"table"}, "segments":
-[layer-stacked unit dicts], "final_norm": {"scale"}}`` of ``jax.Array``
-leaves; exported with ``jax.tree.map(np.asarray, params)`` they become
+[layer-stacked unit dicts], "final_norm": {"scale"}}`` (an untied
+``"head"``; an encoder-decoder's ``"encoder": {"segments",
+"final_norm"}`` and each decoder layer's ``"lnx"`` and ``"xattn"``) of
+``jax.Array`` leaves; exported with ``jax.tree.map(np.asarray, params)`` they become
 numpy arrays, which is the form this module reads and writes.  Neither side
 imports the other.
 """

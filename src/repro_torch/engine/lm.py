@@ -49,13 +49,15 @@ def fold_lm_w_r(params: Params, cfg: ModelConfig, abft: ABFTConfig) -> Params:
     Segment trees are layer-stacked on a leading axis, so they fold with
     ``lead_axes=1``: ``w [L, d_in, *out] -> w_r [L, d_in]``, sliced per
     layer to the ``[d_in]`` vector :func:`~repro_torch.models.common.dense`
-    consumes.  The head folds flat.  Folds are taken through the compute
-    dtype so the comparison sees the quantization the product does.  The
-    embed table is left alone — the tied head checks against the table
-    directly.  In an MoE layer the router and the shared experts fold (their
-    ``"w"`` leaves); the stacked expert weights ``w_up``, ``w_gate``,
-    ``w_down`` are not ``"w"`` leaves and do not, as in the reference —
-    ``moe_block`` sums their ``b_r`` on every call.  Returns a new tree that shares the weight tensors with
+    consumes.  The head folds flat, an encoder's segments as the decoder's
+    (a decoder layer's cross-attention ``xattn`` lies in its segment).
+    Folds are taken through the compute dtype so the comparison sees the
+    quantization the product does.  The embed table is left alone — the
+    tied head checks against the table directly.  In an MoE layer the
+    router and the shared experts fold (their ``"w"`` leaves); the stacked
+    expert weights ``w_up``, ``w_gate``, ``w_down`` are not ``"w"`` leaves
+    and do not, as in the reference — ``moe_block`` sums their ``b_r`` on
+    every call.  Returns a new tree that shares the weight tensors with
     ``params``; ``params`` is not mutated (so a fault must replace a leaf of
     the returned tree, never write into a shared tensor)."""
     if not abft.enabled:
@@ -67,6 +69,13 @@ def fold_lm_w_r(params: Params, cfg: ModelConfig, abft: ABFTConfig) -> Params:
                        for seg in params["segments"]]
     if "head" in params:
         out["head"] = fold_w_r_tree(params["head"], abft, compute_dtype=cdt)
+    if isinstance(params.get("encoder"), dict):
+        enc = dict(params["encoder"])
+        if "segments" in enc:
+            enc["segments"] = [fold_w_r_tree(seg, abft, lead_axes=1,
+                                             compute_dtype=cdt)
+                               for seg in enc["segments"]]
+        out["encoder"] = enc
     return out
 
 

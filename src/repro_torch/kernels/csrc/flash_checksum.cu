@@ -1,17 +1,21 @@
-// Causal online-softmax (flash) attention carrying the fused ABFT chain
-// column, for NVIDIA Hopper.
+// Online-softmax (flash) attention, causal or not, carrying the fused ABFT
+// chain column, for NVIDIA Hopper.
 //
 // Replaces the TPU kernel `flash_checksum_kernel` (`_kernel`) of
 // src/repro/kernels/flash_checksum/kernel.py:
 //
-//   o       = softmax(q kᵀ · dh^-0.5, causal) v     [B, T, H, dh] (q's dtype)
-//   o_extra = softmax(q kᵀ · dh^-0.5, causal) vr    [B, T, H]     (f32)
+//   o       = softmax(q kᵀ · dh^-0.5, mask) v     [B, T, H, dh] (q's dtype)
+//   o_extra = softmax(q kᵀ · dh^-0.5, mask) vr    [B, T, H]     (f32)
 //
 // with the key/value head of query head h at h / (H / Kh) (GQA / MQA: the
 // wrapper never repeats K and V per query head), and vr = V·w_or the carried
 // check column, so Σ o_extra = eᵀ(A V W_o)e.  The causal mask compares
-// query and key *indices*, as the TPU kernel does; the LM calls it only for
-// self-attention over positions 0..T-1, where indices and positions agree.
+// query and key *indices*, as the TPU kernel does; the LM calls it so only
+// for self-attention over positions 0..T-1, where indices and positions
+// agree.  Without it (causal = 0) every one of the S keys is valid for
+// every query, T and S independent: an encoder's self-attention (T = S) and
+// a decoder's cross-attention over its encoder's output (T ≠ S, keys at
+// 0..S-1); the key block past S is masked here, so S needs no padding.
 // An optional sliding window (causal only; the reference's
 // models/attention.py masks so) keeps key j for query i iff
 // i - window < j <= i: a query tile then walks only the key blocks from

@@ -13,7 +13,9 @@ column vr [B, S, H] (= V·w_or, in q's dtype).  Outputs o [B, T, H, dh] in
 q's dtype and o_extra [B, T, H] f32 with Σ o_extra = eᵀ(A·V·W_o)e.  The
 causal mask compares query and key indices; a sliding ``window`` > 0
 (causal only) keeps key j for query i iff ``i - window < j <= i``, the
-reference's ``models/attention.py`` mask.  ``vr=None`` skips the column;
+reference's ``models/attention.py`` mask.  ``causal=False`` keeps all S
+keys for every query, T and S independent (an encoder's self-attention, a
+decoder's cross-attention); a ragged S is masked by the kernel, unpadded.  ``vr=None`` skips the column;
 o does not change.
 """
 from __future__ import annotations

@@ -11,18 +11,22 @@ o_extra = A·vr, and Σ_q o_extra = eᵀ(A V W_o)e.
 
 Where the work runs:
 
-* prefill self-attention (causal, with or without a sliding window,
-  positions 0..T-1 over the prompt itself) runs through the
-  ``flash_checksum`` kernel — the CUDA kernel for tensors on the card, its
-  plain version on the CPU — with the ``vr`` column this block computes;
-* any other attention (cross-attention, non-causal with or without a
-  window, or the split baseline's second pass) is plain PyTorch
-  (:func:`streaming_attention`, :func:`_split_second_pass`) on the CPU and
-  raises ``NotImplementedError`` on the card: the kernel does not take it
-  yet, and the port does not fall back (ROADMAP A10);
-* decode attention (one query over the ring-buffer cache, position-masked)
-  is plain PyTorch on every device, as the JAX package computes it outside
-  any Pallas kernel.
+* prefill attention runs through the ``flash_checksum`` kernel — the
+  CUDA kernel for tensors on the card, its plain version on the CPU — with
+  the ``vr`` column this block computes, in three cases: causal
+  self-attention over positions 0..T-1 with or without a sliding window,
+  non-causal self-attention over 0..T-1 (an encoder), and non-causal
+  cross-attention from T queries to S keys at positions 0..S-1 (a
+  decoder over its encoder's output; the mask reads no query position);
+* any other prefill attention (a non-causal window, causal
+  cross-attention, positions that are not 0..T-1, or the split baseline's
+  second pass) is plain PyTorch (:func:`streaming_attention`,
+  :func:`_split_second_pass`) on the CPU and raises
+  ``NotImplementedError`` on the card: the kernel does not take it, and
+  the port does not fall back;
+* decode attention (one query over the ring-buffer cache, position-masked,
+  or over the static encoder cache) is plain PyTorch on every device, as
+  the JAX package computes it outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -259,18 +263,38 @@ def _split_second_pass(q, k, v, m, l, *, q_positions, k_positions, causal,
 
 
 def _flash_path(q: Tensor, causal: bool, window: int, cross: bool,
-                positions_are_indices: bool) -> bool:
-    """True when prefill attention goes through the flash_checksum kernel;
-    raises on the card for a case the kernel does not take."""
-    ok = causal and not cross and positions_are_indices
+                queries_are_indices: bool, keys_are_indices: bool) -> bool:
+    """True when prefill attention goes through the flash_checksum kernel:
+    causal self-attention (any window) or non-causal self-attention (no
+    window) over positions 0..T-1, or non-causal cross-attention (no
+    window) over keys at 0..S-1.  Raises on the card for any other case."""
+    if cross:
+        ok = not causal and window == 0 and keys_are_indices
+    else:
+        ok = (causal or window == 0) and queries_are_indices \
+            and keys_are_indices
     if not ok and q.is_cuda:
         raise NotImplementedError(
             f"attention on the card runs only through the flash_checksum "
             f"kernel, which takes causal self-attention over positions "
-            f"0..T-1, with or without a sliding window (got causal={causal}, "
-            f"window={window}, cross={cross}); other cases are still to port "
-            f"(ROADMAP A10)")
+            f"0..T-1 (with or without a sliding window), non-causal "
+            f"self-attention over 0..T-1 and non-causal cross-attention over "
+            f"keys at 0..S-1, both without a window (got causal={causal}, "
+            f"window={window}, cross={cross}, query positions 0..T-1: "
+            f"{queries_are_indices}, key positions 0..S-1: "
+            f"{keys_are_indices}); other cases are still to port (ROADMAP "
+            f"A10)")
     return ok
+
+
+def _are_indices(given: Optional[Tensor], n: int) -> bool:
+    """``given`` positions [B, n] are 0..n-1 in every row (``None``: they
+    are); compared on the device (one host sync)."""
+    if given is None:
+        return True
+    want = torch.arange(n, device=given.device)[None].expand(given.shape[0],
+                                                             n)
+    return bool(torch.equal(given.to(want.dtype), want))
 
 
 def attention_block(
@@ -291,24 +315,25 @@ def attention_block(
     kv_x = x if kv_x is None else kv_x
     s = kv_x.shape[1]
     dev = x.device
-    indices = torch.arange(t, device=dev)[None].expand(b, t)
-    given = positions
-    if positions is None:
-        positions = indices
-    if kv_positions is None:
-        kv_positions = positions if not cross else \
-            torch.arange(s, device=dev)[None].expand(b, s)
     causal = cfg.causal if causal is None else causal
     if abft.mode == "split" and x.is_cuda:
         raise NotImplementedError(
             "the split baseline's second scoring pass needs the softmax "
             "statistics, which the flash_checksum kernel does not emit; "
-            "split mode on the card is still to port (ROADMAP A10)")
-    # positions=None is the prompt from its start; given positions are
-    # compared on the device (one host sync)
-    flash = _flash_path(
-        x, causal, window, cross,
-        given is None or bool(torch.equal(given.to(indices.dtype), indices)))
+            "split mode on the card is still to port (ROADMAP A10.9)")
+    # positions=None is the prompt from its start, kv_positions=None the
+    # queries' positions (self-attention) or 0..S-1 (cross-attention)
+    q_idx = _are_indices(positions, t)
+    if kv_positions is not None:
+        k_idx = _are_indices(kv_positions, s)
+    else:
+        k_idx = True if cross else q_idx
+    flash = _flash_path(x, causal, window, cross, q_idx, k_idx)
+    if positions is None:
+        positions = torch.arange(t, device=dev)[None].expand(b, t)
+    if kv_positions is None:
+        kv_positions = positions if not cross else \
+            torch.arange(s, device=dev)[None].expand(b, s)
 
     q, k, v, checks = _project_qkv(p, x, kv_x, cfg, abft)
     if use_rope and cfg.rope_frac > 0:
@@ -326,7 +351,7 @@ def attention_block(
     if flash:
         o, o_extra = flash_checksum_kernel(
             q.contiguous(), k.contiguous(), v.contiguous(),
-            None if vr is None else vr.contiguous(), causal=True,
+            None if vr is None else vr.contiguous(), causal=causal,
             window=window)
         m = l = None
     else:

@@ -101,6 +101,17 @@ def norm_apply(x: Tensor, p: Params, cfg) -> Tensor:
     return rms_norm(x, p, cfg.norm_eps)
 
 
+def sinusoid_positions(positions: Tensor, d: int, dtype) -> Tensor:
+    """[B, T] -> [B, T, d] standard transformer sinusoids: the sines of the
+    first ``d // 2`` frequencies, then their cosines, the frequencies
+    ``10000^(-i / (half - 1))`` as the reference spaces them."""
+    half = d // 2
+    i = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = torch.exp(-math.log(10000.0) * i / max(half - 1, 1))
+    ang = positions[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 def gelu(x: Tensor) -> Tensor:
     """The tanh approximation, as ``jax.nn.gelu`` computes by default."""
     return F.gelu(x, approximate="tanh")

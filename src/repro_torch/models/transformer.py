@@ -21,11 +21,19 @@ mix and the WKV matrix; RG-LRU: ``h`` and the conv history) that ignores
 ``cache_len``; prefill starts from the zero state and a decode step runs a
 one-token sequence with the state carried.
 
-Encoder-decoder models (cross-attention) and prefix or source embeddings
-raise ``NotImplementedError`` (ROADMAP A10.7).
+An encoder-decoder model (``cfg.family == "encdec"``, whisper) runs its
+encoder (:func:`encode`: non-causal attention blocks, no RoPE, sinusoid
+positions) over the caller's ``src_embeds`` once in prefill; each decoder
+attention block then cross-attends to the encoder output after its
+self-attention (``lnx``, ``xattn``) and caches the cross keys, values and
+check column (``xk``, ``xv``, ``xvr``), over which every decode step
+attends in plain PyTorch.  A model with a ``frontend`` that is not an
+encoder-decoder (internvl2) prepends the caller's ``prefix_embeds`` to the
+token embeddings; decode positions then count the prefix.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
@@ -40,6 +48,7 @@ from repro_torch.models.attention import (
     attention_fault_injection,
     init_attention,
     init_cache,
+    streaming_attention,
 )
 from repro_torch.models.common import (
     cdtype,
@@ -50,6 +59,7 @@ from repro_torch.models.common import (
     init_embed,
     init_norm,
     norm_apply,
+    sinusoid_positions,
 )
 from repro_torch.models.mlp import init_mlp, mlp_block
 from repro_torch.models.moe import init_moe, moe_block
@@ -70,17 +80,6 @@ Params = Dict[str, Any]
 RECURRENT = ("rglru", "rwkv")
 
 
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: the port runs decoders without cross-"
-        f"attention or prefix embeddings (ROADMAP A10.7)")
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family != "decoder":
-        raise _unported(f"family {cfg.family!r}")
-
-
 def seg_structure(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
     bp, n = cfg.block_pattern, cfg.n_layers
     unit = len(bp)
@@ -98,8 +97,6 @@ def seg_structure(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, btype: str,
                cross: bool, lead: Tuple[int, ...] = ()) -> Params:
-    if cross:
-        raise _unported("cross-attention")
     d = cfg.d_model
     p = {"ln1": init_norm(d, lead, gen_device(gen)),
          "ln2": init_norm(d, lead, gen_device(gen))}
@@ -117,6 +114,9 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, btype: str,
         p["moe"] = init_moe(gen, cfg, lead=lead)
     else:
         p["mlp"] = init_mlp(gen, cfg, lead=lead)
+    if cross:
+        p["lnx"] = init_norm(d, lead, gen_device(gen))
+        p["xattn"] = init_attention(gen, cfg, cross=True, lead=lead)
     return p
 
 
@@ -127,28 +127,44 @@ def init_unit(gen: torch.Generator, cfg: ModelConfig,
             for i, bt in enumerate(pattern)}
 
 
+def encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder of an encoder-decoder ``cfg``: ``enc_layers`` attention
+    blocks, non-causal, without RoPE, a window or experts."""
+    return dataclasses.replace(
+        cfg, n_layers=cfg.enc_layers, causal=False, rope_frac=0.0,
+        block_pattern=("attn",), moe=None, window=0)
+
+
 def init_model(cfg: ModelConfig,
                generator: Union[int, torch.Generator, None] = 0, *,
                device: DeviceLike = "cuda") -> Params:
     """Random params for ``cfg``: ``{"embed", "segments": [stacked unit
     params, leading axis = unit count], "final_norm"}`` (+ ``"head"`` when
-    the embeddings are untied), truncated-normal weights as the reference
-    draws them.  ``generator`` is a seed (the draws are then made on
-    ``device``) or a ``torch.Generator`` (draws on its device, then moved to
-    ``device``).  ``device="meta"`` builds the shapes alone."""
-    _require_ported(cfg)
+    the embeddings are untied; + ``"encoder": {"segments", "final_norm"}``
+    and each decoder layer's ``"lnx"``, ``"xattn"`` for an encoder-decoder),
+    truncated-normal weights as the reference draws them.  ``generator`` is
+    a seed (the draws are then made on ``device``) or a ``torch.Generator``
+    (draws on its device, then moved to ``device``).  ``device="meta"``
+    builds the shapes alone."""
     dev = resolve_device(device)
     gen = generator
     if dev.type == "meta":
         gen = None
     elif not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=dev).manual_seed(int(gen or 0))
+    cross = cfg.family == "encdec"
     p: Params = {"embed": init_embed(gen, cfg.padded_vocab, cfg.d_model)}
-    p["segments"] = [init_unit(gen, cfg, pattern, False, (count,))
+    p["segments"] = [init_unit(gen, cfg, pattern, cross, (count,))
                      for pattern, count in seg_structure(cfg)]
     p["final_norm"] = init_norm(cfg.d_model, device=gen_device(gen))
     if not cfg.tie_embeddings:
         p["head"] = init_dense(gen, cfg.d_model, cfg.padded_vocab)
+    if cross:
+        ecfg = encoder_cfg(cfg)
+        p["encoder"] = {
+            "segments": [init_unit(gen, ecfg, pattern, False, (count,))
+                         for pattern, count in seg_structure(ecfg)],
+            "final_norm": init_norm(cfg.d_model, device=gen_device(gen))}
     return _map(p, lambda t: t.to(dev))
 
 
@@ -190,11 +206,19 @@ def _stack_checks(per_unit: List[List[Check]]) -> List[Check]:
 def layer_state_init(cfg: ModelConfig, btype: str, batch: int,
                      cache_len: int, dtype, cross: bool,
                      device=None) -> Params:
+    """A layer's zeroed decode state: an attention block's cache (with
+    ``cross``, its cross-attention's ``xk``, ``xv``, ``xvr`` beside it) or
+    a recurrent block's state."""
+    if btype != "attn":
+        return _zero_recurrent_state(cfg, btype, batch, device)
+    st = init_cache(cfg, batch, cache_len, dtype, device)
     if cross:
-        raise _unported(f"decode state of {btype!r} with cross-attention")
-    if btype == "attn":
-        return init_cache(cfg, batch, cache_len, dtype, device)
-    return _zero_recurrent_state(cfg, btype, batch, device)
+        kv = (batch, cache_len, cfg.n_kv_heads, cfg.hd)
+        st["xk"] = torch.zeros(kv, dtype=dtype, device=device)
+        st["xv"] = torch.zeros(kv, dtype=dtype, device=device)
+        st["xvr"] = torch.zeros((batch, cache_len, cfg.n_heads), dtype=dtype,
+                                device=device)
+    return st
 
 
 def _zero_recurrent_state(cfg: ModelConfig, btype: str, batch: int,
@@ -213,9 +237,9 @@ def layer_apply_seq(lp: Params, x: Tensor, btype: str, cfg: ModelConfig,
                                Optional[Params]]:
     """Returns (x, checks, aux_loss, new cache or state).  A recurrent block
     starts from ``state`` (``None``: the zero state) and returns its new
-    state when ``build_cache``; ``positions=None`` means 0..T-1."""
-    if enc_out is not None:
-        raise _unported("cross-attention")
+    state when ``build_cache``; ``positions=None`` means 0..T-1.  An
+    attention block given ``enc_out`` [B, S, d] cross-attends to it after
+    its self-attention and caches the cross keys, values and column."""
     checks: List[Check] = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     b, t, _ = x.shape
@@ -254,6 +278,13 @@ def layer_apply_seq(lp: Params, x: Tensor, btype: str, cfg: ModelConfig,
         lp["attn"], h, cfg, abft, positions=positions, window=window)
     x = x + y
     checks += cs
+    if enc_out is not None:
+        h = norm_apply(x, lp["lnx"], cfg)
+        y, cs, (xk, xv, _, xvr) = attention_block(
+            lp["xattn"], h, cfg, abft, kv_x=enc_out, positions=positions,
+            causal=False, use_rope=False)
+        x = x + y
+        checks += cs
     h = norm_apply(x, lp["ln2"], cfg)
     if "moe" in lp:
         y, cs, aux = moe_block(lp["moe"], h, cfg, abft)
@@ -275,7 +306,38 @@ def layer_apply_seq(lp: Params, x: Tensor, btype: str, cfg: ModelConfig,
             "pos": fpad(kpos.to(torch.int32), (0, pad),
                         value=2 ** 30),            # unwritten -> masked
         }
+        if enc_out is not None:
+            new_state["xk"], new_state["xv"] = xk, xv
+            new_state["xvr"] = xvr.to(k.dtype) if xvr is not None else \
+                torch.zeros((*xk.shape[:2], cfg.n_heads), dtype=k.dtype,
+                            device=k.device)
     return x, checks, aux, new_state
+
+
+def _cross_attention_decode(p: Params, h: Tensor, state: Params, pos: int,
+                            cfg: ModelConfig, abft: ABFTConfig
+                            ) -> Tuple[Tensor, List[Check]]:
+    """One query over the static encoder cache (``xk``, ``xv`` and the check
+    column ``xvr``, all S keys valid), in plain PyTorch as the reference
+    computes it; no accumulator inject site, as in the reference."""
+    b = h.shape[0]
+    s = state["xk"].shape[1]
+    kvpos = torch.arange(s, device=h.device)[None].expand(b, s)
+    q, c1 = dense(p["wq"], h, abft)
+    vr = state["xvr"].to(q.dtype) if abft.mode == "fused" else None
+    o, o_extra, _, _ = streaming_attention(
+        q, state["xk"], state["xv"], vr,
+        q_positions=torch.full((b, 1), pos, dtype=torch.int32,
+                               device=h.device),
+        k_positions=kvpos, causal=False, window=0,
+        chunk=min(cfg.attn_chunk, s))
+    y, c2 = dense(p["wo"], o.reshape(b, 1, -1).to(h.dtype),
+                  abft if abft.mode == "split" else ABFTConfig(mode="none"))
+    checks = c1 + c2
+    if abft.mode == "fused":
+        checks.append(Check(predicted=o_extra.to(torch.float32).sum(),
+                            actual=y.to(abft.dtype).sum()))
+    return y, checks
 
 
 def layer_apply_decode(lp: Params, x: Tensor, btype: str, cfg: ModelConfig,
@@ -286,8 +348,6 @@ def layer_apply_decode(lp: Params, x: Tensor, btype: str, cfg: ModelConfig,
         x, checks, _aux, new_state = layer_apply_seq(
             lp, x, btype, cfg, abft, None, None, state, True, 1)
         return x, checks, new_state
-    if "xattn" in lp:
-        raise _unported("cross-attention")
     window = cfg.window
     if len(cfg.block_pattern) > 1:
         window = cfg.local_window
@@ -295,6 +355,14 @@ def layer_apply_decode(lp: Params, x: Tensor, btype: str, cfg: ModelConfig,
     y, new_state, checks = attention_decode(lp["attn"], h, state, pos, cfg,
                                             abft, window=window)
     x = x + y
+    if "xattn" in lp:
+        h = norm_apply(x, lp["lnx"], cfg)
+        y, cs = _cross_attention_decode(lp["xattn"], h, state, pos, cfg,
+                                        abft)
+        x = x + y
+        checks += cs
+        new_state = dict(new_state, xk=state["xk"], xv=state["xv"],
+                         xvr=state["xvr"])
     h = norm_apply(x, lp["ln2"], cfg)
     if "moe" in lp:
         y, cs, _ = moe_block(lp["moe"], h, cfg, abft)
@@ -324,7 +392,7 @@ def _apply_segments(params_segs, cfg: ModelConfig, x: Tensor,
                 all_checks += cs
         else:
             all_checks += _stack_checks(per_unit)
-        states.append(_stack(outs))
+        states.append(None if outs[0] is None else _stack(outs))
     return x, all_checks, states
 
 
@@ -359,16 +427,96 @@ def _lm_head(params: Params, cfg: ModelConfig, x: Tensor,
     return logits, checks
 
 
+def _run_layers(params_segs, cfg: ModelConfig, x: Tensor, abft: ABFTConfig,
+                enc_out: Optional[Tensor], build_cache: bool,
+                cache_len: int) -> Tuple[Tensor, List[Check], Tensor,
+                                         List[Params]]:
+    """Every layer of ``params_segs`` over the whole sequence x (positions
+    0..T-1, from the zero state).  Returns (x, checks, the summed aux loss,
+    per segment stacked caches or ``None``s)."""
+    aux = [torch.zeros((), dtype=torch.float32, device=x.device)]
+
+    def unit_fn(x, unit_p, si, ui, pattern):
+        cs_all: List[Check] = []
+        ns = {}
+        for i, bt in enumerate(pattern):
+            x, cs, a, ns[f"b{i}"] = layer_apply_seq(
+                unit_p[f"b{i}"], x, bt, cfg, abft, None, enc_out, None,
+                build_cache, cache_len)
+            cs_all += cs
+            aux[0] = aux[0] + a
+        return x, cs_all, (ns if build_cache else None)
+
+    x, checks, states = _apply_segments(params_segs, cfg, x, abft, unit_fn)
+    return x, checks, aux[0], states
+
+
+def encode(params: Params, cfg: ModelConfig, src_embeds: Tensor,
+           abft: ABFTConfig) -> Tuple[Tensor, List[Check]]:
+    """The encoder of an encoder-decoder over ``src_embeds`` [B, S, d] (the
+    front end's frames) with sinusoid positions: (its normed output
+    [B, S, d], its checks)."""
+    ecfg = encoder_cfg(cfg)
+    b, s, _ = src_embeds.shape
+    positions = torch.arange(s, device=src_embeds.device)[None].expand(b, s)
+    x = src_embeds.to(cdtype(cfg)) + sinusoid_positions(
+        positions, cfg.d_model, cdtype(cfg))
+    x, checks, _aux, _ = _run_layers(params["encoder"]["segments"], ecfg, x,
+                                     abft, None, False, 0)
+    return norm_apply(x, params["encoder"]["final_norm"], cfg), checks
+
+
+def _embed_inputs(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
+                  abft: ABFTConfig
+                  ) -> Tuple[Tensor, int, Optional[Tensor], List[Check]]:
+    """The decoder's input [B, P + T, d]: the token embeddings after the
+    ``prefix_embeds`` [B, P, d] of a non-encoder-decoder model, or with
+    sinusoid positions added for an encoder-decoder, whose encoder runs
+    over ``src_embeds`` here.  Returns (x, P, encoder output or None, the
+    encoder's checks)."""
+    x = embed(params["embed"], batch["tokens"], cfg)
+    offset = 0
+    if "prefix_embeds" in batch and cfg.family != "encdec":
+        pre = batch["prefix_embeds"].to(x.dtype)
+        x = torch.cat([pre, x], dim=1)
+        offset = pre.shape[1]
+    enc_out, checks = None, []
+    if cfg.family == "encdec":
+        enc_out, checks = encode(params, cfg, batch["src_embeds"], abft)
+        b, tt = x.shape[:2]
+        positions = torch.arange(tt, device=x.device)[None].expand(b, tt)
+        x = x + sinusoid_positions(positions, cfg.d_model, x.dtype)
+    return x, offset, enc_out, checks
+
+
+def model_forward(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
+                  abft: ABFTConfig):
+    """The whole-sequence forward (no cache).  ``batch``: ``"tokens"``
+    [B, T]; ``"prefix_embeds"`` [B, P, d] (a front end's stub) or, for an
+    encoder-decoder, ``"src_embeds"`` [B, S, d].  Returns (logits
+    [B, T, V_padded] of the token positions, report, aux loss)."""
+    x, offset, enc_out, checks = _embed_inputs(params, cfg, batch, abft)
+    x, cs, aux, _ = _run_layers(params["segments"], cfg, x, abft, enc_out,
+                                False, 0)
+    checks += cs
+    x = norm_apply(x, params["final_norm"], cfg)
+    if offset:
+        x = x[:, offset:]
+    logits, lc = _lm_head(params, cfg, x, abft)
+    checks += lc
+    return logits, summarize(checks, abft, device=logits.device), aux
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, *,
                       device: DeviceLike = "cuda") -> List[Params]:
     """Zeroed per-segment stacked decode states."""
-    _require_ported(cfg)
     dev = resolve_device(device)
     dtype = cdtype(cfg)
+    cross = cfg.family == "encdec"
     states = []
     for pattern, count in seg_structure(cfg):
         unit = {f"b{i}": layer_state_init(cfg, bt, batch, cache_len, dtype,
-                                          False, dev)
+                                          cross, dev)
                 for i, bt in enumerate(pattern)}
         states.append(_map(unit, lambda a: a[None].expand(
             count, *a.shape).clone()))
@@ -379,10 +527,12 @@ def model_prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
                   abft: ABFTConfig, cache_len: int, *,
                   return_checks: bool = False,
                   attn_inject: Optional[float] = None):
-    """Run the prompt, build decode state.  Returns (last-token logits
+    """Run the prompt, build decode state.  ``batch`` as
+    :func:`model_forward` takes it.  Returns (last-token logits
     [B, 1, V_padded], states, report) — plus the flat per-op Check list when
     ``return_checks=True`` (the guarded engine's per-op verdict source;
-    multi-unit segments contribute stacked per-layer checks).
+    multi-unit segments contribute stacked per-layer checks, the encoder's
+    first).
 
     ``attn_inject``, when given, is added to element 0 of every attention
     accumulator O = A·V (the fault-campaign accumulator site); 0.0 is a
@@ -391,26 +541,10 @@ def model_prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
         with attention_fault_injection(attn_inject):
             return model_prefill(params, cfg, batch, abft, cache_len,
                                  return_checks=return_checks)
-    _require_ported(cfg)
-    if "prefix_embeds" in batch or "src_embeds" in batch:
-        raise _unported("prefix / source embeddings")
-    tokens = batch["tokens"]
-    b, t = tokens.shape
-    x = embed(params["embed"], tokens, cfg)
-
-    def unit_fn(x, unit_p, si, ui, pattern):
-        cs_all: List[Check] = []
-        ns = {}
-        for i, bt in enumerate(pattern):
-            # positions None: 0..T-1, the prompt from its start
-            x, cs, _aux, ns[f"b{i}"] = layer_apply_seq(
-                unit_p[f"b{i}"], x, bt, cfg, abft, None, None, None,
-                True, cache_len)
-            cs_all += cs
-        return x, cs_all, ns
-
-    x, checks, states = _apply_segments(params["segments"], cfg, x, abft,
-                                        unit_fn)
+    x, _offset, enc_out, checks = _embed_inputs(params, cfg, batch, abft)
+    x, cs, _aux, states = _run_layers(params["segments"], cfg, x, abft,
+                                      enc_out, True, cache_len)
+    checks += cs
     x = norm_apply(x, params["final_norm"], cfg)
     logits, lc = _lm_head(params, cfg, x[:, -1:], abft)
     checks += lc
@@ -424,17 +558,20 @@ def model_decode(params: Params, cfg: ModelConfig, states: List[Params],
                  tokens: Tensor, pos: int, abft: ABFTConfig, *,
                  return_checks: bool = False,
                  attn_inject: Optional[float] = None):
-    """One decode step.  tokens: [B,1]; pos: the position of the token.
-    ``return_checks=True`` appends the flat per-op Check list;
-    ``attn_inject`` is the attention-accumulator fault (see
+    """One decode step.  tokens: [B,1]; pos: the position of the token (a
+    prefix counts).  ``return_checks=True`` appends the flat per-op Check
+    list; ``attn_inject`` is the attention-accumulator fault (see
     :func:`model_prefill`)."""
     if attn_inject is not None:
         with attention_fault_injection(attn_inject):
             return model_decode(params, cfg, states, tokens, pos, abft,
                                 return_checks=return_checks)
-    _require_ported(cfg)
     pos = int(pos)
     x = embed(params["embed"], tokens, cfg)
+    if cfg.family == "encdec":
+        positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                               device=x.device)
+        x = x + sinusoid_positions(positions, cfg.d_model, x.dtype)
 
     def unit_fn(x, unit_p, si, ui, pattern):
         unit_state = _index(states[si], ui)
