@@ -64,11 +64,23 @@ ragged windowed and non-causal shapes, the bfloat16 ones (windowed) also
 on ``FLASH_SEEDS``, each bfloat16 chain corner with its float64 witness
 (``chain_witness``).
 
+Split mode, the paper's two-check baseline, runs a guarded prefill on the
+card per attention kind (``split`` inside ``lm_serve`` for gemma-2b's causal
+attention and inside ``lm_archs`` for h2o-danube-3-4b's window and
+whisper-medium's encoder and cross-attention): B5 emits each row's softmax
+statistics m and l, which the plain second scoring pass reads; every B5
+check also holds m and l against the plain version's.  ``lm_grads`` holds
+the backward of each kernel's autograd Function against autograd of its
+plain version, and ``lm_train`` drives the LM train step
+(``launch.steps.make_train_step`` under ``ABFTGuard.run_step``): three
+guarded gemma-2b steps at full width (B 2 x T 512, an upset retried on
+step 2), a 2-layer cut against the CPU, then one whisper-medium step.
+
 One JSON object per phase is printed (``env``, ``build``, ``kernel_checks``,
-``lm_kernels``, ``serve``, ``fault``, ``stream``, ``full_graph``,
-``campaign_gcn``, ``sparse``, ``sharded``, ``gat`` (one a graph),
-``lm_serve``, ``campaign_lm``, ``lm_archs`` (one a model),
-``serve_cli``), then the
+``lm_kernels``, ``lm_grads``, ``serve``, ``fault``, ``stream``,
+``full_graph``, ``campaign_gcn``, ``sparse``, ``sharded``, ``gat`` (one a
+graph), ``lm_serve``, ``campaign_lm``, ``lm_archs`` (one a model),
+``lm_train``, ``serve_cli``), then the
 ``kernels``
 summary line, the card's name and power limit as ``nvidia-smi`` gives them,
 and a last line ``{"ok": true, "device": {...}}``.
@@ -80,6 +92,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -167,6 +180,19 @@ ARCHS = (
          src=1500),
     dict(arch="internvl2-26b", batch=2, prompt=512, cache=776, new=8,
          prefix=256, layers=32))
+# the LM train step (launch.steps.make_train_step under ABFTGuard.run_step):
+# gemma-2b at its published widths, all 18 layers, f32, seed 0, batches of
+# SyntheticLM(seed=0) at B 2 x T 512, 3 steps, an accumulator upset of
+# `delta` on step 2's first attempt; AdamW at its defaults (lr 3e-4) with a
+# 2-step warmup (step 1's learning rate is 0, step 2's half); the card
+# against the CPU on a 2-layer cut at T 128; then one step of
+# whisper-medium at its ARCHS spec (1500 source frames, T 224)
+TRAIN = dict(batch=2, seq=512, steps=3, seed=0, delta=25.0, warmup=2,
+             total=100, cut_layers=2, cut_seq=128)
+# the models whose split-mode prefill runs on the card, one an attention
+# kind: gemma-2b (causal, in lm_serve), h2o-danube-3-4b (its window),
+# whisper-medium (non-causal encoder, cross-attention)
+SPLIT_ARCHS = ("h2o-danube-3-4b", "whisper-medium")
 # the leaf a weight bit flip goes into: the first dense weight of unit
 # ``flip_layer``'s first block
 FLIP_LEAF = {"attn": ("attn", "wq"), "rwkv": ("tm", "wr"),
@@ -174,6 +200,16 @@ FLIP_LEAF = {"attn": ("attn", "wq"), "rwkv": ("tm", "wr"),
 # B5's sliding window at small ragged shapes: T = S = 257 (B, H, Kh, dh),
 # and danube's head dim at a short window
 FLASH_WINDOWS = (1, 31, 32, 33, 100, 300)
+FLASH_WINDOWED = (((1, 257, 257, 4, 2, 64), FLASH_WINDOWS),
+                  ((1, 300, 300, 8, 2, 120), (64,)))
+# B5 at small ragged shapes (B, T, S, H, Kh, dh): causal (GQA, T < S, a
+# ragged T, dh 16 and 70) and non-causal (S not a multiple of the 32-key
+# block, T > S, T < S, S under one block, T 1 over 1500 keys, dh 70)
+FLASH_RAGGED = ((1, 100, 100, 4, 2, 64), (2, 128, 256, 4, 2, 64),
+                (1, 70, 70, 4, 4, 16), (1, 33, 50, 2, 2, 70))
+FLASH_NONCAUSAL_RAGGED = ((1, 100, 100, 4, 2, 64), (1, 300, 70, 4, 2, 64),
+                          (2, 40, 257, 4, 4, 64), (2, 33, 17, 2, 2, 64),
+                          (2, 1, 1500, 16, 16, 64), (1, 33, 50, 2, 2, 70))
 # guarded GAT (engine/gat.py): the adjacency pattern of make_dataset(graph,
 # normalize=False), A + I, dense on the card, its raw features, weights
 # from seed 0; 64 is the published GAT's hidden width (8 heads x 8,
@@ -302,40 +338,46 @@ def assert_close(name, got, want, atol=OUT_ATOL, rtol=OUT_RTOL) -> float:
     return max_err(got, want)
 
 
-def check_block_sums(torch, name, c, got, want) -> dict:
+def check_block_sums(torch, name, c, got, want, acc=None) -> dict:
     """B4's block sums ``got`` against the plain version's ``want`` (both
     [..., tiles of M, tiles of N]; ``c`` [..., M, N] the kernel's output),
-    element by element within OUT_ATOL + OUT_RTOL · |want|.  In float32 an
-    element over it passes only with its float64 witness: the kernel's
-    block sum within SUM_ULPS unit roundoffs of its tile's Σ|c| of the
-    float64 sum of the kernel's own tile of C (C itself is held against the
-    plain version's).  A tile of large outputs that cancels (the 4096-wide
-    tied head, |c| ~ 64) rounds its sum past 1e-4 (ROADMAP C5), at a
-    witness ratio far under 1.  Every call also plants the fault the rule
-    exists for — every block sum moved by C's mean |c|, one dropped or
+    element by element within OUT_ATOL + OUT_RTOL · |want|.  An element
+    over it passes only with its float64 witness: the kernel's block sum
+    within SUM_ULPS unit roundoffs of its tile's Σ|c| of the float64 sum of
+    the tile's f32 accumulator — in float32 the kernel's own C (C itself
+    is held against the plain version's); in bfloat16, whose C is rounded
+    after the sum, ``acc``, the plain version's own f32 accumulator (the
+    plain version on the operands widened to f32, exactly: it widens each
+    chunk before its product).  A tile of large outputs that cancels (the
+    4096-wide tied head, |c| ~ 64) rounds its sum past 1e-4 (ROADMAP C5),
+    at a witness ratio far under 1.  Every call also plants the fault the
+    rule exists for — every block sum moved by C's mean |c|, one dropped or
     doubled typical element, about 2^24 / (SUM_ULPS · n) times the witness
     bound of an n-element tile — and fails unless the rule rejects each
     planted sum.  Returns the max abs error, the elements over the
-    tolerance and the largest witness ratio of all (float32)."""
+    tolerance and the largest witness ratio of all."""
     from repro_torch.kernels.matmul_abft.kernel import tile_sums
     if got.shape != want.shape or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
                              f"{tuple(want.shape)}, or non-finite values")
-    f32 = c.dtype == torch.float32
-    if f32:
-        m, n = c.shape[-2:]
-        cs = c.reshape(-1, m, n).to(torch.float64)
-        exact = torch.stack([tile_sums(x, m, n) for x in cs]).reshape(
-            got.shape)
-        scale = SUM_ULPS * U32 * torch.stack(
-            [tile_sums(x.abs(), m, n) for x in cs]).reshape(got.shape)
+    if c.dtype == torch.float32:
+        acc = c
+    elif acc is None or acc.dtype != torch.float32 \
+            or acc.shape != c.shape:
+        raise AssertionError(f"{name}: a {c.dtype} product's block sums "
+                             f"need the plain version's f32 accumulator")
+    m, n = acc.shape[-2:]
+    cs = acc.reshape(-1, m, n).to(torch.float64)
+    exact = torch.stack([tile_sums(x, m, n) for x in cs]).reshape(got.shape)
+    scale = SUM_ULPS * U32 * torch.stack(
+        [tile_sums(x.abs(), m, n) for x in cs]).reshape(got.shape)
 
     def witness(sums):
         return (sums.to(torch.float64) - exact).abs() / scale
 
     def rejected(sums):
         over = (sums - want).abs() > OUT_ATOL + OUT_RTOL * want.abs()
-        return over & (witness(sums) > 1.0) if f32 else over
+        return over & (witness(sums) > 1.0)
     bad = rejected(got)
     if bad.any():
         raise AssertionError(f"{name}: {int(bad.sum())} block sums over "
@@ -348,7 +390,37 @@ def check_block_sums(torch, name, c, got, want) -> dict:
                              f"typical |c| pass")
     over = (got - want).abs() > OUT_ATOL + OUT_RTOL * want.abs()
     return dict(max_abs_err=max_err(got, want), over_tol=int(over.sum()),
-                max_witness_ratio=float(witness(got).max()) if f32 else None)
+                max_witness_ratio=float(witness(got).max()))
+
+
+def bf16_acc(torch, a, b, trans_b=False):
+    """A bfloat16 product's f32 accumulator in the plain version's
+    association (the plain version on the operands widened to f32: it
+    widens each chunk before its product, so the sums are the same), or
+    None for a float32 product."""
+    from repro_torch.kernels.matmul_abft.kernel import matmul_abft_plain
+    if a.dtype == torch.float32:
+        return None
+    return matmul_abft_plain(a.float(), b.float(), trans_b=trans_b)[0]
+
+
+def block_sums_second_draw(torch, a_shape, b_shape, b_std, kernel, plain,
+                           tag) -> dict:
+    """The bfloat16 block-sum gate (:func:`check_block_sums`) on a second
+    operand draw of one shape, from a generator seeded by the shape alone:
+    the gate does not rest on the operands one shape order draws.
+    ``kernel(a, b)`` / ``plain(a, b)`` return (c, block_sums, ...)."""
+    seed = hash((tuple(a_shape), tuple(b_shape))) % (2 ** 31)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn(*a_shape, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    b = (torch.randn(*b_shape, generator=gen, device="cuda") * b_std).to(
+        torch.bfloat16)
+    got, want = kernel(a, b), plain(a, b)
+    acc = plain(a.float(), b.float())[0]
+    return dict(seed=seed, **check_block_sums(
+        torch, f"{tag} block_sums (second draw)", got[0], got[1], want[1],
+        acc))
 
 
 def corner_rel(pred, actual) -> float:
@@ -2011,18 +2083,21 @@ def layer_products(cfg, btype):
     return [(d, hq), (d, hkv), (d, hkv), (hq, d)] + _mlp_products(cfg)
 
 
-def layer_checks(cfg, btype, step="prefill", cross=False):
+def layer_checks(cfg, btype, step="prefill", cross=False, mode="fused"):
     """Checks of one fused-mode layer of type ``btype``: RWKV6's seven;
     attention's four — with ``cross``, then the cross-attention's four in
     prefill (q, k, v, its chain) and two in decode (q, its chain) — or the
     RG-LRU's five (proj_x, proj_gate, the two gates, proj_out), then a
     gated MLP's three, a plain one's two, or an MoE layer's router, up,
-    gate and fused combine checks and its shared experts' three."""
+    gate and fused combine checks and its shared experts' three.  A
+    split-mode prefill (``mode="split"``) checks W_o's product too: an
+    attention block's five (q, k, v, o, its chain)."""
     if btype == "rwkv":
         return 7
-    mixer = 5 if btype == "rglru" else 4
+    attn = 5 if mode == "split" else 4
+    mixer = 5 if btype == "rglru" else attn
     if cross and btype == "attn":
-        mixer += 4 if step == "prefill" else 2
+        mixer += attn if step == "prefill" else 2
     if cfg.moe is None:
         return mixer + len(_mlp_products(cfg))
     return mixer + 4 + (3 if cfg.moe.n_shared else 0)
@@ -2095,16 +2170,18 @@ def lm_step_launches(cfg, step="prefill"):
         flash_checksum=flash)
 
 
-def check_segments(cfg, step="prefill"):
+def check_segments(cfg, step="prefill", mode="fused"):
     """(checks a unit, units, stacked, [(offset, group)] of the attention
     chain checks in a unit that an accumulator upset reaches) of each
     segment of one step, an encoder's first: every attention chain in
     prefill (group ``encoder``, ``self`` or ``cross`` for an
     encoder-decoder, else ``attention``), a decoder's self-attention chain
     alone in decode (its cross-attention over the static encoder cache has
-    no inject site, as in the reference)."""
+    no inject site, as in the reference); ``mode="split"``: a split-mode
+    prefill's (the chain after W_o's check)."""
     from repro_torch.models.transformer import seg_structure
     segs = []
+    attn = 5 if mode == "split" else 4
     for c, cross in _stacks(cfg, step):
         encdec = cfg.family == "encdec"
         group = "attention" if not encdec else \
@@ -2113,19 +2190,19 @@ def check_segments(cfg, step="prefill"):
             n, sites = 0, []
             for bt in pattern:
                 if bt == "attn":
-                    sites.append((n + 3, group))
+                    sites.append((n + attn - 1, group))
                     if cross and step == "prefill":
-                        sites.append((n + 7, "cross"))
-                n += layer_checks(c, bt, step, cross)
+                        sites.append((n + 2 * attn - 1, "cross"))
+                n += layer_checks(c, bt, step, cross, mode)
             segs.append((n, count, count > 1 and c.scan_layers, sites))
     return segs
 
 
-def _op_ids(cfg, step):
+def _op_ids(cfg, step, mode="fused"):
     """(the per-op ids of one step's checks, {group: the ids an
     accumulator upset reaches}) — see :func:`lm_op_ids`."""
     ids, hit, off = [], {}, 0
-    for n, count, stacked, at in check_segments(cfg, step):
+    for n, count, stacked, at in check_segments(cfg, step, mode):
         if stacked:
             ids += [f"op{off + i}:L{j}" for i in range(n)
                     for j in range(count)]
@@ -2142,17 +2219,17 @@ def _op_ids(cfg, step):
     return ids + [f"op{off}"], hit
 
 
-def lm_op_ids(cfg, step="prefill"):
+def lm_op_ids(cfg, step="prefill", mode="fused"):
     """The per-op ids of one step's checks: a segment of several units
     stacks each position's checks (``op{i}:L{j}``), a segment of one unit
     keeps them flat, the head's last."""
-    return _op_ids(cfg, step)[0]
+    return _op_ids(cfg, step, mode)[0]
 
 
-def lm_upset_sites(cfg, step="prefill"):
+def lm_upset_sites(cfg, step="prefill", mode="fused"):
     """The ids of one step's checks that an accumulator upset reaches, by
     group (:func:`check_segments`)."""
-    return _op_ids(cfg, step)[1]
+    return _op_ids(cfg, step, mode)[1]
 
 
 def first_check_id(cfg, seg, unit, step="prefill"):
@@ -2250,6 +2327,7 @@ def check_matmul_shape(torch, m, k, n, trans_b, dtype, gen, timed):
     tag = f"matmul_abft M={m} K={k} N={n} trans_b={trans_b} {dtype}"
     tol = OUT_ATOL if dtype == torch.float32 else BF16_TOL["matmul_abft"]
     worst = worst_c = 0.0
+    acc = bf16_acc(torch, a, b, trans_b)
     for with_br in (True, False):
         got = matmul_abft_kernel(a, b, br if with_br else None,
                                  trans_b=trans_b)
@@ -2261,7 +2339,7 @@ def check_matmul_shape(torch, m, k, n, trans_b, dtype, gen, timed):
                                             rtol=tol))
         worst = max(worst, worst_c)
         sums = check_block_sums(torch, f"{tag} block_sums", got[0], got[1],
-                                want[1])
+                                want[1], acc)
         worst = max(worst, sums["max_abs_err"])
         if with_br:
             worst = max(worst, assert_close(f"{tag} extra", got[2], want[2],
@@ -2274,6 +2352,12 @@ def check_matmul_shape(torch, m, k, n, trans_b, dtype, gen, timed):
         elif got[2] is not None or not torch.equal(got[0], c_checked):
             raise AssertionError(f"{tag}: the unchecked product differs "
                                  f"from the checked one")
+    if dtype == torch.bfloat16:
+        sums = dict(sums, second_draw=block_sums_second_draw(
+            torch, (m, k), ((n, k) if trans_b else (k, n)), 1.0 if trans_b
+            else k ** -0.5, lambda x, y: matmul_abft_kernel(
+                x, y, None, trans_b=trans_b), lambda x, y: matmul_abft_plain(
+                x, y, None, trans_b=trans_b), tag))
     c, chk = matmul_abft(a, b, br, trans_b=trans_b)
     rel = corner_rel(chk.predicted, chk.actual)
     if not rel <= (CORNER_RTOL if dtype == torch.float32 else 1e-2):
@@ -2366,7 +2450,13 @@ def check_grouped_shape(torch, g, m, k, n, dtype, gen, timed):
     worst_c = assert_close(f"{tag} c", got[0].float(), want[0].float(),
                            atol=tol, rtol=tol)
     sums = check_block_sums(torch, f"{tag} block_sums", got[0], got[1],
-                            want[1])
+                            want[1], None if dtype == torch.float32 else
+                            matmul_abft_grouped_plain(a.float(), b.float())[0])
+    if dtype == torch.bfloat16:
+        sums["second_draw"] = block_sums_second_draw(
+            torch, (g, m, k), (g, k, n), k ** -0.5,
+            lambda x, y: matmul_abft_grouped_kernel(x, y, None),
+            lambda x, y: matmul_abft_grouped_plain(x, y, None), tag)
     worst = max(worst_c, sums["max_abs_err"],
                 assert_close(f"{tag} extra", got[2], want[2], atol=OUT_ATOL,
                              rtol=OUT_RTOL))
@@ -2595,7 +2685,7 @@ def check_flash_shape(torch, b, t, s, h, kh, dh, dtype, gen, timed,
     mask = dict(window=window, causal=causal)
     got = flash_checksum_kernel(q, k, v, vr, **mask)
     torch.cuda.synchronize()
-    want = flash_checksum_plain(q, k, v, vr, **mask)
+    want = flash_checksum_plain(q, k, v, vr, with_stats=True, **mask)
     worst = max(assert_close(f"{tag} o", got[0].float(), want[0].float(),
                              atol=tol, rtol=tol),
                 assert_close(f"{tag} o_extra", got[1], want[1],
@@ -2604,6 +2694,21 @@ def check_flash_shape(torch, b, t, s, h, kh, dh, dtype, gen, timed,
     o_bare, ex_bare = flash_checksum_kernel(q, k, v, None, **mask)
     if ex_bare is not None or not torch.equal(o_bare, got[0]):
         raise AssertionError(f"{tag}: o without the carried column differs")
+    # the split baseline's statistics: m and l against the plain version's,
+    # o and o_extra unchanged by asking for them, with or without vr
+    st = flash_checksum_kernel(q, k, v, vr, with_stats=True, **mask)
+    st_bare = flash_checksum_kernel(q, k, v, None, with_stats=True, **mask)
+    stats = dict(max_abs_err_m=assert_close(f"{tag} m", st[2], want[2],
+                                            atol=tol, rtol=tol),
+                 max_abs_err_l=assert_close(f"{tag} l", st[3], want[3],
+                                            atol=tol, rtol=tol))
+    if not (torch.equal(st[0], got[0]) and torch.equal(st[1], got[1])
+            and torch.equal(st_bare[0], got[0]) and st_bare[1] is None
+            and torch.equal(st_bare[2], st[2])
+            and torch.equal(st_bare[3], st[3])):
+        raise AssertionError(f"{tag}: o, o_extra or the statistics change "
+                             f"with the statistics asked for or vr left out")
+    del st, st_bare
     again = flash_checksum_kernel(q, k, v, vr, **mask)
     if not all(torch.equal(x, y) for x, y in zip(again, got)):
         raise AssertionError(f"{tag}: a second run differs")
@@ -2634,7 +2739,7 @@ def check_flash_shape(torch, b, t, s, h, kh, dh, dtype, gen, timed,
                              f"only {div}")
     entry = dict(b=b, t=t, s=s, h=h, kh=kh, dh=dh, window=window,
                  causal=causal, dtype=str(dtype), max_abs_err=worst,
-                 max_rel_corner=rel,
+                 max_rel_corner=rel, stats=dict(stats, o_bitwise=True),
                  corrupted_divergence=div, repeat_bitwise=True)
     if witness is not None:
         entry["chain_witness"] = witness
@@ -2695,9 +2800,7 @@ def phase_lm_kernels(torch):
     flash_other = [check_flash_shape(torch, b, t, t, h, kh, dh,
                                      torch.bfloat16, gen, False)] + [
         check_flash_shape(torch, *shape, dt, gen, False)
-        for shape in ((1, 100, 100, 4, 2, 64), (2, 128, 256, 4, 2, 64),
-                      (1, 70, 70, 4, 4, 16), (1, 33, 50, 2, 2, 70))
-        for dt in (torch.float32, torch.bfloat16)]
+        for shape in FLASH_RAGGED for dt in (torch.float32, torch.bfloat16)]
 
     # the other served models: B4 at every launch shape they add (f32,
     # prefill and decode, the untied heads, the MoE routers and shared
@@ -2796,14 +2899,11 @@ def phase_lm_kernels(torch):
     ngen = torch.Generator(device="cuda").manual_seed(11)
     flash_noncausal_ragged = [
         check_flash_shape(torch, *shape, dt, ngen, False, causal=False)
-        for shape in ((1, 100, 100, 4, 2, 64), (1, 300, 70, 4, 2, 64),
-                      (2, 40, 257, 4, 4, 64), (2, 33, 17, 2, 2, 64),
-                      (2, 1, 1500, 16, 16, 64), (1, 33, 50, 2, 2, 70))
+        for shape in FLASH_NONCAUSAL_RAGGED
         for dt in (torch.float32, torch.bfloat16)]
     flash_window = [
         check_flash_shape(torch, *shape, dt, gen, False, window=w)
-        for shape, windows in (((1, 257, 257, 4, 2, 64), FLASH_WINDOWS),
-                               ((1, 300, 300, 8, 2, 120), (64,)))
+        for shape, windows in FLASH_WINDOWED
         for w in windows for dt in (torch.float32, torch.bfloat16)]
     # the windowed bf16 cases again on FLASH_SEEDS streams, a generator
     # each: the chain corner's gate must hold on more than one input; a
@@ -3617,6 +3717,538 @@ def moe_fields(cfg, spec):
                     decode=_capacity(spec["batch"], mc)))
 
 
+# ---------------------------------------------------------------------------
+# split mode (the paper's two-check baseline) on the card
+# ---------------------------------------------------------------------------
+
+class o_record:
+    """Records the attention output o of every ``flash_checksum`` call the
+    model's attention blocks make while entered."""
+
+    def __enter__(self):
+        from repro_torch.models import attention
+        self.mod, self.real, outs = attention, attention.flash_checksum, []
+
+        def spy(*args, **kw):
+            out = self.real(*args, **kw)
+            outs.append(out[0])
+            return out
+        attention.flash_checksum = spy
+        return outs
+
+    def __exit__(self, *exc):
+        self.mod.flash_checksum = self.real
+        return False
+
+
+def second_pass_times(torch, cfg, params, batch, abft, cache_len):
+    """One more split-mode prefill with each call of the plain second
+    scoring pass (``models.attention._split_second_pass``) synchronised
+    and timed on the host clock: its calls and total ms beside the
+    prefill's."""
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import model_prefill
+    real, ms = attention._split_second_pass, []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        return out
+    attention._split_second_pass = timed
+    try:
+        t0 = time.perf_counter()
+        model_prefill(params, cfg, batch, abft, cache_len)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        attention._split_second_pass = real
+    return dict(calls=len(ms), ms=sum(ms), prefill_ms=total,
+                max_call_ms=max(ms))
+
+
+def split_gates(torch, cfg, params, spec, cache_len):
+    """One guarded split-mode prefill of the full-width master ``params``
+    (``spec`` and the tokens and front-end input as :func:`lm_gates` draws
+    them): every attention on B5, which emits m and l for the second
+    scoring pass; every product on B4 (W_o's checked too), 0 plain calls;
+    no clean flag; the split op ids; logits bit for bit the unguarded
+    (``mode="none"``) prefill's; each attention's o bit for bit the
+    fused-mode and the unguarded prefill's; an accumulator upset flagging
+    only split chains — some of each group —, retried bit for bit."""
+    from repro_torch.core.abft import ABFTConfig
+    from repro_torch.engine.lm import LMEngine, fold_lm_w_r
+    from repro_torch.kernels import runtime
+    from repro_torch.models.transformer import model_prefill
+
+    spec = {**LM, **spec}
+    tag = f"{cfg.name} split"
+    split = ABFTConfig(mode="split", threshold=1e-3, relative=True)
+    fused = ABFTConfig(mode="fused", threshold=1e-3, relative=True)
+    gen = torch.Generator(device="cuda").manual_seed(spec["seed"] + 1)
+    tokens = torch.randint(1, cfg.vocab_size, (spec["batch"], spec["prompt"]),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    extra = lm_embeds(torch, cfg, spec, gen)
+    batch = {"tokens": tokens, **extra}
+    eng = embeds_engine(cfg, split, params, cache_len, extra) if extra else \
+        LMEngine(cfg, split, params, cache_len=cache_len)
+    with o_record() as o_none:
+        ref = model_prefill(params, cfg, batch, ABFTConfig(mode="none"),
+                            cache_len)[0]
+    runtime.reset_counts()
+    t0 = time.perf_counter()
+    with o_record() as o_split:
+        logits, _states, m = eng.prefill(tokens)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts, plain = runtime.launch_counts(), runtime.plain_counts()
+    del _states
+    with o_record() as o_fused:
+        model_prefill(fold_lm_w_r(params, cfg, fused), cfg, batch, fused,
+                      cache_len)
+    want = {k: n for k, n in lm_step_launches(cfg).items() if n}
+    if {k: counts[k] for k in want} != want or any(plain.values()) or any(
+            v for k, v in counts.items() if k not in want):
+        raise AssertionError(f"{tag}: launches {counts} (want {want}), "
+                             f"plain {plain}")
+    ids = lm_op_ids(cfg, "prefill", "split")
+    o_bitwise = len(o_split) == len(o_fused) == len(o_none) == want[
+        "flash_checksum"] and all(torch.equal(a, b) and torch.equal(a, c)
+                                  for a, b, c in zip(o_split, o_fused,
+                                                     o_none))
+    out = dict(
+        prefill_ms=ms, launches=counts, plain_calls=plain,
+        flags=eng.guard.flags, max_rel=float(m["abft_max_rel"]),
+        op_ids=len(ids), guarded_bitwise=torch.equal(logits, ref),
+        o_split_eq_fused_bitwise=o_bitwise,
+        finite=bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()))
+    del o_split, o_fused, o_none
+    if list(m["abft_op_ids"]) != ids or eng.guard.flags \
+            or not out["guarded_bitwise"] or not o_bitwise \
+            or not out["finite"]:
+        raise AssertionError(f"{tag}: {out}; op ids "
+                             f"{list(m['abft_op_ids'])[:6]}.. (want "
+                             f"{ids[:6]}..)")
+    out["second_pass"] = second_pass_times(torch, cfg, eng.params, batch,
+                                           split, cache_len)
+    groups = lm_upset_sites(cfg, "prefill", "split")
+    sites = {i for v in groups.values() for i in v}
+    with attempt_record(eng) as rows:
+        inj, _states, _ = eng.prefill(tokens, inject=spec["inject_delta"])
+    del _states
+    hit = next((r for r in rows if r), [])
+    out["upset"] = dict(
+        delta=spec["inject_delta"], flags=eng.guard.flags,
+        retries=eng.guard.retries, sites=len(sites), sites_flagged=len(hit),
+        groups_flagged={g: len(set(hit) & set(v)) for g, v in groups.items()},
+        bitwise=torch.equal(inj, logits))
+    up = out["upset"]
+    if not (up["bitwise"] and up["flags"] == up["retries"] == 1
+            and hit and set(hit) <= sites
+            and all(up["groups_flagged"].values())):
+        raise AssertionError(f"{tag}: upset {up}; flagged {hit[:8]}..")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the kernels' autograd Functions: backward vs autograd of the plain version
+# ---------------------------------------------------------------------------
+
+def grad_entry(torch, tag, function, plain, inputs, grad_out):
+    """The Function's gradients (``function(*inputs)``'s first output) two
+    runs, bit for bit, and each within ``atol = rtol = 1e-4`` of autograd
+    of ``plain(*inputs)``'s first output; the kernel launches of one
+    Function forward and backward."""
+    from repro_torch.kernels import runtime
+
+    def grads(fn):
+        xs = [x.detach().requires_grad_(True) for x in inputs]
+        return torch.autograd.grad(fn(*xs)[0], xs, grad_out)
+    runtime.reset_counts()
+    got = grads(function)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in runtime.launch_counts().items() if v}
+    again = grads(function)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{tag}: a second backward differs")
+    want = grads(plain)
+    errs = [assert_close(f"{tag} grad {i}", g, w)
+            for i, (g, w) in enumerate(zip(got, want))]
+    return dict(launches=launches, max_abs_err=errs, repeat_bitwise=True,
+                max_abs_grad=[float(w.abs().max()) for w in want])
+
+
+def phase_lm_grads(torch):
+    """Each kernel's autograd Function against autograd of its plain
+    version on the card: B4 at gemma-2b's train-step MLP product (B 2 x T
+    512: M 1024, K 2048, N 16384) and tied head (B^T, N 256,000; its output
+    gradient that of ``lm_loss`` over random labels), the grouped B4 at
+    deepseek-moe-16b's prefill expert up product, B5 at gemma-2b's causal
+    attention and whisper-medium's encoder and cross-attention; one
+    Function forward launches B4 once and its backward twice (B5 once, its
+    backward none)."""
+    from repro_torch.kernels.flash_checksum.kernel import flash_checksum_plain
+    from repro_torch.kernels.flash_checksum.ops import FlashChecksumFunction
+    from repro_torch.kernels.matmul_abft.kernel import (
+        matmul_abft_grouped_plain, matmul_abft_plain)
+    from repro_torch.kernels.matmul_abft.ops import (
+        GroupedMatmulAbftFunction, MatmulAbftFunction)
+    from repro_torch.models.transformer import lm_loss
+
+    cfg = lm_config()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    d, m = cfg.d_model, LM["batch"] * LM["prompt"]
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * std
+    out = {}
+    a, w = rnd(m, d), rnd(d, cfg.d_ff, std=d ** -0.5)
+    out["matmul_mlp"] = dict(m=m, k=d, n=cfg.d_ff, **grad_entry(
+        torch, "matmul_abft MLP", lambda x, y: MatmulAbftFunction.apply(
+            x, y, None, False), lambda x, y: matmul_abft_plain(x, y),
+        (a, w), rnd(m, cfg.d_ff)))
+    table = rnd(cfg.padded_vocab, d)
+    logits = (a @ table.t()).requires_grad_(True)
+    labels = torch.randint(0, cfg.vocab_size, (m,), generator=gen,
+                           device="cuda")
+    dlogits, = torch.autograd.grad(lm_loss(logits, labels), logits)
+    del logits
+    out["matmul_tied_head"] = dict(m=m, k=d, n=cfg.padded_vocab, **grad_entry(
+        torch, "matmul_abft tied head", lambda x, y: MatmulAbftFunction.apply(
+            x, y, None, True), lambda x, y: matmul_abft_plain(
+            x, y, trans_b=True), (a, table), dlogits))
+    del table, dlogits, a, w
+    acfg = arch_config("deepseek-moe-16b")
+    g, gm, gk, gn = next(iter(lm_grouped_shapes(acfg)))
+    out["matmul_grouped_expert"] = dict(g=g, m=gm, k=gk, n=gn, **grad_entry(
+        torch, "matmul_abft_grouped expert",
+        lambda x, y: GroupedMatmulAbftFunction.apply(x, y, None),
+        lambda x, y: matmul_abft_grouped_plain(x, y),
+        (rnd(g, gm, gk), rnd(g, gk, gn, std=gk ** -0.5)), rnd(g, gm, gn)))
+    wcfg = arch_config("whisper-medium")
+    spec = next(s for s in ARCHS if s["arch"] == "whisper-medium")
+    shapes = (("gemma_causal", (LM["batch"], LM["prompt"], LM["prompt"],
+                                cfg.n_heads, cfg.n_kv_heads, cfg.hd), True),
+              ("whisper_encoder", (spec["batch"], spec["src"], spec["src"],
+                                   wcfg.n_heads, wcfg.n_kv_heads, wcfg.hd),
+               False),
+              ("whisper_cross", (spec["batch"], spec["prompt"], spec["src"],
+                                 wcfg.n_heads, wcfg.n_kv_heads, wcfg.hd),
+               False))
+    for name, (b, t, s, h, kh, dh), causal in shapes:
+        q, k, v = rnd(b, t, h, dh), rnd(b, s, kh, dh), rnd(b, s, kh, dh)
+        vr = rnd(b, s, h)
+        out[f"flash_{name}"] = dict(
+            b=b, t=t, s=s, h=h, kh=kh, dh=dh, causal=causal, **grad_entry(
+                torch, f"flash_checksum {name}",
+                lambda x, y, z: FlashChecksumFunction.apply(
+                    x, y, z, vr, causal, 0, False),
+                lambda x, y, z: flash_checksum_plain(x, y, z, vr,
+                                                     causal=causal),
+                (q, k, v), rnd(b, t, h, dh)))
+    for name, e in out.items():
+        want = {"matmul_abft_grouped": 3} if "grouped" in name else \
+            {"flash_checksum": 1} if name.startswith("flash") else \
+            {"matmul_abft": 3}
+        if e["launches"] != want:
+            raise AssertionError(f"{name}: a Function forward and backward "
+                                 f"launched {e['launches']}, want {want}")
+    emit("lm_grads", tolerance=dict(atol=OUT_ATOL, rtol=OUT_RTOL), **out)
+
+
+# ---------------------------------------------------------------------------
+# the LM train step
+# ---------------------------------------------------------------------------
+
+def _host_leaves(torch, tree):
+    from repro_torch.optim import tree_leaves
+    return [x.cpu() for x in tree_leaves(tree)]
+
+
+def _equal_host(torch, tree, host):
+    """Every leaf of the device ``tree`` equals its host copy bit for bit
+    (each leaf copied to the host in turn)."""
+    from repro_torch.optim import tree_leaves
+    leaves = tree_leaves(tree)
+    return len(leaves) == len(host) and all(
+        x.dtype == y.dtype and torch.equal(x.cpu(), y)
+        for x, y in zip(leaves, host))
+
+
+def _equal_trees(torch, a, b):
+    from repro_torch.optim import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def train_trace(torch, step):
+    """One call of ``step`` under ``torch.profiler``: the device time of its
+    CUDA kernels summed, and B4's (its kernels ``wide_kernel``,
+    ``thin_split_kernel``, ``thin_reduce_kernel``).  Returns (what
+    ``step`` returned, the trace); where the profiler cannot trace the
+    card, its error instead of the trace (``step`` then runs untraced if
+    it has not run)."""
+    result = None
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            result = step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if getattr(e, "device_type", None) is not None
+                   and "CUDA" in str(e.device_type)]
+
+        def dev_us(e):
+            return float(getattr(e, "self_device_time_total", None)
+                         or getattr(e, "self_cuda_time_total", 0.0))
+        b4 = [e for e in kernels if any(n in e.key for n in (
+            "wide_kernel", "thin_split_kernel", "thin_reduce_kernel"))]
+        return result, dict(
+            profiled_wall_ms=wall_ms,
+            device_busy_ms=sum(dev_us(e) for e in kernels) / 1e3,
+            b4_device_ms=sum(dev_us(e) for e in b4) / 1e3,
+            launches=sum(e.count for e in kernels),
+            top=[dict(name=e.key[:80], count=e.count, ms=dev_us(e) / 1e3)
+                 for e in sorted(kernels, key=dev_us, reverse=True)[:8]])
+    except Exception as exc:  # the tracer may not reach this card
+        return step() if result is None else result, dict(
+            error=f"{type(exc).__name__}: {exc}")
+
+
+def phase_lm_train(torch, smi):
+    """The LM train step on the card (``launch.steps.make_train_step``,
+    driven through ``ABFTGuard.run_step`` as the reference's
+    ``launch/train.py`` drives it): gemma-2b at full width, all 18 layers,
+    f32, seed 0, fused mode, tau 1e-3 relative, 3 steps of
+    ``SyntheticLM(seed=0)`` batches of B 2 x T 512 through the
+    ``Prefetcher``; every product forward and backward on B4, attention
+    forward on B5, 0 plain calls, the launches derived from the layer
+    products; guarded == unguarded and a second run bit for bit; an upset
+    on step 2 flags, its attempt returns the input state bit for bit and
+    the guard retries it; losses finite, no clean flag; a 2-layer cut at
+    T 128, card against CPU (loss, every gradient leaf); then one guarded
+    whisper-medium step (24 + 24 layers, 1500 frames, T 224), which puts
+    B5's non-causal and cross launches under the backward.  Returns the
+    launches of the counted clean steps."""
+    from repro_torch.core.abft import ABFTConfig
+    from repro_torch.data import Prefetcher, SyntheticLM
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.steps import (init_train_state, loss_and_grads,
+                                          make_train_step)
+    from repro_torch.models.attention import attention_fault_injection
+    from repro_torch.models.transformer import model_forward
+    from repro_torch.optim import AdamWConfig, tree_leaves
+    from repro_torch.runtime.abft_guard import ABFTGuard
+
+    abft = ABFTConfig(mode="fused", threshold=1e-3, relative=True)
+    opt = AdamWConfig()
+    sched = dict(total_steps=TRAIN["total"], warmup=TRAIN["warmup"])
+    cfg = lm_config()
+    step = make_train_step(cfg, abft, opt, **sched)
+    loose = make_train_step(cfg, abft, opt, guard_in_graph=False, **sched)
+    runtime.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, TRAIN["seed"], device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    data = Prefetcher(SyntheticLM(cfg.vocab_size, TRAIN["seq"],
+                                  TRAIN["batch"], seed=TRAIN["seed"]
+                                  ).batches(), device="cuda")
+    batches = [next(data) for _ in range(TRAIN["steps"])]
+    guard = ABFTGuard()
+    per_step = lm_step_launches(cfg)
+    want = {k: 3 * n if k.startswith("matmul") else n
+            for k, n in per_step.items() if n}
+    metrics, step_ms, counts = [], [], []
+
+    def run(fn, *args):
+        runtime.reset_counts()
+        t = time.perf_counter()
+        out, m = fn(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        counts.append({k: v for k, v in runtime.launch_counts().items()
+                       if v})
+        metrics.append({k: float(v) for k, v in m.items()})
+        return out
+
+    # step 1, through the guard; a host copy of its state; unguarded and
+    # again from the same input, each compared with it leaf by leaf
+    s1 = run(guard.run_step, step, state, batches[0])
+    host = _host_leaves(torch, s1)
+    del s1
+    u1 = run(loose, state, batches[0])
+    guarded_eq_unguarded = _equal_host(torch, u1, host)
+    del u1
+    r1 = run(guard.run_step, step, state, batches[0])
+    repeat_bitwise = _equal_host(torch, r1, host)
+    del host
+    state = r1
+    del r1
+    # step 2: an accumulator upset strikes the first attempt, whose state
+    # must be its input's bit for bit; the guard retries it clean
+    attempt = {}
+
+    def upset_once(st, b):
+        if attempt:
+            return step(st, b)
+        with attention_fault_injection(TRAIN["delta"]):
+            out, m = step(st, b)
+        attempt.update(flag=bool(m["abft_flag"]),
+                       max_rel=float(m["abft_max_rel"]),
+                       state_bitwise=_equal_trees(torch, out, st))
+        return out, m
+    flags0, retries0 = guard.flags, guard.retries
+    state = run(guard.run_step, upset_once, state, batches[1])
+    upset = dict(delta=TRAIN["delta"], **attempt,
+                 flags=guard.flags - flags0,
+                 retries=guard.retries - retries0)
+    # step 3, clean, traced on the device; the forward alone traced too
+    (state, m3), trace = train_trace(
+        torch, lambda: guard.run_step(step, state, batches[2]))
+    metrics.append({k: float(v) for k, v in m3.items()})
+    fwd_batch = {k: v for k, v in batches[2].items() if k != "labels"}
+    with torch.no_grad():
+        _, fwd_trace = train_trace(torch, lambda: model_forward(
+            state["params"], cfg, fwd_batch, abft))
+    if "b4_device_ms" in trace and "b4_device_ms" in fwd_trace:
+        trace["b4_forward_device_ms"] = fwd_trace["b4_device_ms"]
+        trace["b4_backward_device_ms"] = trace["b4_device_ms"] \
+            - fwd_trace["b4_device_ms"]
+        trace["forward_device_busy_ms"] = fwd_trace["device_busy_ms"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    plain = runtime.plain_counts()
+    # the adopted steps 1, 2 and 3 (metrics 1 and 2 are step 1's reruns)
+    losses = [metrics[i]["loss"] for i in (0, 3, 4)]
+    fields = dict(
+        model=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+        batch=TRAIN["batch"], seq=TRAIN["seq"], steps=TRAIN["steps"],
+        optimizer=dict(lr=opt.lr, warmup=TRAIN["warmup"],
+                       total_steps=TRAIN["total"]),
+        init_seconds=t_init,
+        runs=["step 1 guarded", "step 1 unguarded", "step 1 again",
+              "step 2 (upset, retried)", "step 3 (traced)"],
+        losses=losses, grad_norms=[m["grad_norm"] for m in metrics],
+        max_rel=[m["abft_max_rel"] for m in metrics],
+        clean_flags=sum(m["abft_flag"] for m in metrics),
+        step_ms=step_ms, launches=counts, want_launches=want,
+        plain_calls=plain, guarded_eq_unguarded=guarded_eq_unguarded,
+        repeat_bitwise=repeat_bitwise, upset=upset, trace=trace,
+        peak_memory_gb=peak_gb)
+    ok = all(math.isfinite(x) for x in losses) and not fields["clean_flags"] \
+        and guarded_eq_unguarded and repeat_bitwise \
+        and all(c == want for i, c in enumerate(counts) if i != 3) \
+        and not any(plain.values()) and upset.get("flag") \
+        and upset.get("state_bitwise") and upset["flags"] == 1 \
+        and upset["retries"] == 1
+    if not ok:
+        emit("lm_train", nvidia_smi=smi, **fields)
+        raise AssertionError(f"lm_train: gates failed: {fields}")
+
+    # a 2-layer cut at T 128: the card against the CPU's plain versions
+    n_cut, t_cut = TRAIN["cut_layers"], TRAIN["cut_seq"]
+    import dataclasses
+    cut_cfg = dataclasses.replace(cfg, n_layers=n_cut)
+    params = state["params"]
+    cut = dict(params, segments=[_slice_tree(params["segments"][0], n_cut)])
+    cut_batch = {k: v[:, :t_cut] for k, v in batches[0].items()}
+    del state, batches, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t = time.perf_counter()
+        loss, rep, grads = loss_and_grads(
+            _tree_to(cut, dev), cut_cfg,
+            {k: v.to(dev) for k, v in cut_batch.items()}, abft)
+        runs[dev] = dict(loss=float(loss), flag=bool(rep.flag),
+                         grads=[g.cpu() for g in grads],
+                         seconds=time.perf_counter() - t)
+        del grads
+    del cut, params
+    ratios = [float((g - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+              / 1e-4 for g, c in zip(runs["cuda"]["grads"],
+                                     runs["cpu"]["grads"])]
+    worst = max(range(len(ratios)), key=ratios.__getitem__)
+    loss_ratio = abs(runs["cuda"]["loss"] - runs["cpu"]["loss"]) / (
+        LOGIT_ATOL + LM_LOGIT_RTOL * abs(runs["cpu"]["loss"]))
+    fields["cut"] = dict(
+        layers=n_cut, seq=t_cut, loss_card=runs["cuda"]["loss"],
+        loss_cpu=runs["cpu"]["loss"], loss_gate_ratio=loss_ratio,
+        grad_leaves=len(ratios), worst_grad_leaf=worst,
+        worst_grad_gate_ratio=ratios[worst],
+        worst_grad_leaf_shape=list(runs["cpu"]["grads"][worst].shape),
+        flags=[runs["cuda"]["flag"], runs["cpu"]["flag"]],
+        tolerance=dict(loss=dict(atol=LOGIT_ATOL, rtol=LM_LOGIT_RTOL),
+                       grad="1e-4 x max|g_cpu| a leaf"),
+        card_seconds=runs["cuda"]["seconds"],
+        cpu_seconds=runs["cpu"]["seconds"])
+    del runs
+
+    # whisper-medium: one guarded step, unguarded and again, from one state
+    wcfg = arch_config("whisper-medium")
+    wspec = next(s for s in ARCHS if s["arch"] == "whisper-medium")
+    wstep = make_train_step(wcfg, abft, opt, **sched)
+    wstate = init_train_state(wcfg, TRAIN["seed"], device="cuda")
+    wbatch = next(Prefetcher(SyntheticLM(
+        wcfg.vocab_size, wspec["prompt"], wspec["batch"],
+        seed=TRAIN["seed"]).batches(), device="cuda"))
+    wbatch["src_embeds"] = torch.randn(
+        wspec["batch"], wspec["src"], wcfg.d_model, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(TRAIN["seed"]))
+    wguard = ABFTGuard()
+    runtime.reset_counts()
+    t = time.perf_counter()
+    ws, wm = wguard.run_step(wstep, wstate, wbatch)
+    torch.cuda.synchronize()
+    w_ms = (time.perf_counter() - t) * 1e3
+    w_counts = {k: v for k, v in runtime.launch_counts().items() if v}
+    w_plain = runtime.plain_counts()
+    w_per = lm_step_launches(wcfg)
+    w_want = {k: 3 * n if k.startswith("matmul") else n
+              for k, n in w_per.items() if n}
+    wu, _ = make_train_step(wcfg, abft, opt, guard_in_graph=False,
+                            **sched)(wstate, wbatch)
+    wr, _ = wstep(wstate, wbatch)
+    fields["whisper"] = dict(
+        model=wcfg.name, layers=wcfg.n_layers,
+        encoder_layers=wcfg.enc_layers, batch=wspec["batch"],
+        seq=wspec["prompt"], src=wspec["src"], loss=float(wm["loss"]),
+        grad_norm=float(wm["grad_norm"]), flag=bool(wm["abft_flag"]),
+        max_rel=float(wm["abft_max_rel"]), step_ms=w_ms, launches=w_counts,
+        want_launches=w_want, plain_calls=w_plain,
+        guarded_eq_unguarded=_equal_trees(torch, ws, wu),
+        repeat_bitwise=_equal_trees(torch, ws, wr),
+        moved=not _equal_trees(torch, ws["opt"], wstate["opt"]))
+    del ws, wu, wr, wstate
+    emit("lm_train", nvidia_smi=smi, **fields)
+    w = fields["whisper"]
+    if not (math.isfinite(w["loss"]) and not w["flag"]
+            and w["launches"] == w_want and not any(w_plain.values())
+            and w["guarded_eq_unguarded"] and w["repeat_bitwise"]
+            and w["moved"]):
+        raise AssertionError(f"lm_train whisper: {w}")
+    c = fields["cut"]
+    if not (c["loss_gate_ratio"] <= 1.0 and c["worst_grad_gate_ratio"] <= 1.0
+            and not any(c["flags"])):
+        raise AssertionError(f"lm_train cut, card vs CPU: {c}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {}
+    for cnt in (counts[0], w_counts):
+        for k, v in cnt.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def phase_lm_serve(torch, smi):
     """The checked-op main path: LMEngine at gemma-2b's full width, all 18
     layers, f32, through :func:`lm_gates`; then one guarded decode step
@@ -3630,6 +4262,7 @@ def phase_lm_serve(torch, smi):
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t_init
     run = lm_gates(torch, cfg, params, {}, cache_len)
+    run["fields"]["split"] = split_gates(torch, cfg, params, {}, cache_len)
     eng = run["eng"]
 
     # where a guarded decode step's time goes on the device
@@ -3672,6 +4305,9 @@ def phase_lm_archs(torch, smi):
         t_init = time.perf_counter() - t0
         n_params = sum(x.numel() for x in _leaves(params))
         run = lm_gates(torch, cfg, params, spec, spec["cache"])
+        if spec["arch"] in SPLIT_ARCHS:
+            run["fields"]["split"] = split_gates(torch, cfg, params, spec,
+                                                 spec["cache"])
         trace = None
         if cfg.moe is not None or run["fields"]["scans"] is not None \
                 or cfg.frontend:
@@ -4020,6 +4656,7 @@ def main() -> int:
     params = make_params(torch)
     entries = phase_kernels(torch, batches, params)
     entries.update(phase_lm_kernels(torch))
+    phase_lm_grads(torch)
     if stop_after == "kernels":
         return 0
     launches = phase_serve(torch, batches, params)
@@ -4031,7 +4668,7 @@ def main() -> int:
     for phase in (phase_sparse, phase_sharded, phase_gat):
         for name, count in phase(torch).items():
             launches[name] = launches.get(name, 0) + count
-    for phase in (phase_lm_serve, phase_lm_archs):
+    for phase in (phase_lm_serve, phase_lm_archs, phase_lm_train):
         for name, count in phase(torch, smi).items():
             launches[name] = launches.get(name, 0) + count
     phase_serve_cli(torch)

@@ -108,3 +108,18 @@ def gat_params_from_numpy(tree: Any, dims, *,
                          + ", ".join(f"{k} {have.get(k)} (want "
                                      f"{want.get(k)})" for k in diff[:6]))
     return params_from_numpy(tree, device=device)
+
+
+def train_state_from_numpy(tree: Any, *, device: DeviceLike = "cuda") -> Any:
+    """The JAX package's train state exported with ``jax.tree.map(
+    np.asarray, state)`` — ``{"params", "opt": {"m", "v", "step"}}`` (+
+    ``"ef"``) — as the port's :func:`~repro_torch.launch.steps.
+    init_train_state` makes it: every leaf copied to ``device`` with its
+    dtype (``step`` a 0-d int32 tensor)."""
+    return params_from_numpy(tree, device=device)
+
+
+def train_state_to_numpy(state: Any) -> Any:
+    """The port's train state -> numpy leaves (``step`` a 0-d int32 array),
+    ready for ``jax.tree.map(jnp.asarray, ...)``."""
+    return params_to_numpy(state)

@@ -213,6 +213,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 flash_checksum_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ vr,
                       T* __restrict__ o, float* __restrict__ o_extra,
+                      float* __restrict__ stats,
                       int n_t, int n_s, int n_h, int n_kh, int dh,
                       float scale, int causal, int window, int vec) {
   // q and k row stride: 32 bytes of padding put the 8 pieces a
@@ -515,13 +516,19 @@ flash_checksum_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                 // the factors are read
   }
 
-  // epilogue: divide by l (floored at 1e-30), write o and o_extra
+  // epilogue: divide by l (floored at 1e-30), write o and o_extra, and
+  // the row's folded softmax statistics (m, l) when asked
   if (kq == 0) {
     const float lsafe = fmaxf(l_i, 1e-30f);
     rowc[row] = lsafe;
     if (with_extra && q0 + row < n_t)
       o_extra[((size_t)b * n_t + q0 + row) * n_h + h] =
           __fdiv_rn(ex_i, lsafe);
+    if (stats != nullptr && q0 + row < n_t) {
+      float* srow = stats + (((size_t)b * n_t + q0 + row) * n_h + h) * 2;
+      srow[0] = m_i;
+      srow[1] = l_i;
+    }
   }
   __syncthreads();
 #pragma unroll
@@ -541,9 +548,9 @@ flash_checksum_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DHT>
 int launch_tiled(const void* q, const void* k, const void* v, const void* vr,
-                 void* o, float* o_extra, int n_b, int n_t, int n_s, int n_h,
-                 int n_kh, int dh, float scale, int causal, int window,
-                 cudaStream_t stream) {
+                 void* o, float* o_extra, float* stats, int n_b, int n_t,
+                 int n_s, int n_h, int n_kh, int dh, float scale, int causal,
+                 int window, cudaStream_t stream) {
   const int smem = smem_bytes(DHT, (int)sizeof(T));
   auto fn = flash_checksum_kernel<T, DHT>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -573,27 +580,28 @@ int launch_tiled(const void* q, const void* k, const void* v, const void* vr,
   err = cudaLaunchKernelEx(
       &cfg, fn, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(vr), static_cast<T*>(o),
-      o_extra, n_t, n_s, n_h, n_kh, dh, scale, causal, window, vec);
+      o_extra, stats, n_t, n_s, n_h, n_kh, dh, scale, causal, window, vec);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_typed(const void* q, const void* k, const void* v, const void* vr,
-                 void* o, float* o_extra, int n_b, int n_t, int n_s, int n_h,
-                 int n_kh, int dh, float scale, int causal, int window,
-                 cudaStream_t stream) {
+                 void* o, float* o_extra, float* stats, int n_b, int n_t,
+                 int n_s, int n_h, int n_kh, int dh, float scale, int causal,
+                 int window, cudaStream_t stream) {
   switch (head_tile(dh)) {
     case 64:
-      return launch_tiled<T, 64>(q, k, v, vr, o, o_extra, n_b, n_t, n_s, n_h,
-                                 n_kh, dh, scale, causal, window, stream);
+      return launch_tiled<T, 64>(q, k, v, vr, o, o_extra, stats, n_b, n_t,
+                                 n_s, n_h, n_kh, dh, scale, causal, window,
+                                 stream);
     case 128:
-      return launch_tiled<T, 128>(q, k, v, vr, o, o_extra, n_b, n_t, n_s,
-                                  n_h, n_kh, dh, scale, causal, window,
+      return launch_tiled<T, 128>(q, k, v, vr, o, o_extra, stats, n_b, n_t,
+                                  n_s, n_h, n_kh, dh, scale, causal, window,
                                   stream);
     default:
-      return launch_tiled<T, 256>(q, k, v, vr, o, o_extra, n_b, n_t, n_s,
-                                  n_h, n_kh, dh, scale, causal, window,
+      return launch_tiled<T, 256>(q, k, v, vr, o, o_extra, stats, n_b, n_t,
+                                  n_s, n_h, n_kh, dh, scale, causal, window,
                                   stream);
   }
 }
@@ -627,23 +635,29 @@ extern "C" int flash_checksum_part_start(int qt, int n_s, int causal,
 // vr); dtype 0 = float32, 1 = bfloat16 (q, k, v, vr, o).  window > 0 (causal
 // only): key j is valid for query i iff i - window < j <= i; 0 is none (the
 // default keeps a C++ caller of the window-less signature building).
+// stats [B, T, H, 2] f32 or null: each row's (m, l) after the part fold —
+// m the largest scaled score (natural exponent, -1e30 for a row with no
+// valid key), l the sum of e^(score - m), unfloored — which the split
+// baseline's second pass rescales by; null writes nothing else and leaves
+// every other output as it was.
 extern "C" int flash_checksum_launch(const void* q, const void* k,
                                      const void* v, const void* vr, void* o,
                                      float* o_extra, int n_b, int n_t,
                                      int n_s, int n_h, int n_kh, int dh,
                                      float scale, int causal, int dtype,
-                                     void* stream, int window = 0) {
+                                     void* stream, int window = 0,
+                                     float* stats = nullptr) {
   if (n_b <= 0 || n_t <= 0 || n_s <= 0 || n_kh <= 0 || n_h % n_kh ||
       dh <= 0 || dh > kMaxDH || (vr == nullptr) != (o_extra == nullptr) ||
       (n_t + kBQ - 1) / kBQ > 65535 || window < 0 || (window && !causal))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_typed<float>(q, k, v, vr, o, o_extra, n_b, n_t, n_s, n_h,
-                               n_kh, dh, scale, causal, window, s);
+    return launch_typed<float>(q, k, v, vr, o, o_extra, stats, n_b, n_t,
+                               n_s, n_h, n_kh, dh, scale, causal, window, s);
   if (dtype == 1)
-    return launch_typed<__nv_bfloat16>(q, k, v, vr, o, o_extra, n_b, n_t,
-                                       n_s, n_h, n_kh, dh, scale, causal,
+    return launch_typed<__nv_bfloat16>(q, k, v, vr, o, o_extra, stats, n_b,
+                                       n_t, n_s, n_h, n_kh, dh, scale, causal,
                                        window, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -17,6 +17,14 @@ reference's ``models/attention.py`` mask.  ``causal=False`` keeps all S
 keys for every query, T and S independent (an encoder's self-attention, a
 decoder's cross-attention); a ragged S is masked by the kernel, unpadded.  ``vr=None`` skips the column;
 o does not change.
+
+``with_stats=True`` also returns each row's softmax statistics after the
+part fold, ``m`` and ``l`` [B, T, H] f32: m the largest scaled score
+(``q·k · dh^-0.5``, natural exponent; -1e30 where a row has no valid key)
+and l the sum of ``e^(score - m)`` over its valid keys, not floored — the
+quantities the split baseline's second scoring pass rescales by, in the
+units of the reference's ``streaming_attention``.  o and o_extra do not
+change.
 """
 from __future__ import annotations
 
@@ -61,8 +69,8 @@ def _check_shapes(q: Tensor, k: Tensor, v: Tensor, vr: Optional[Tensor],
 
 def flash_checksum_plain(q: Tensor, k: Tensor, v: Tensor,
                          vr: Optional[Tensor] = None, *, causal: bool = True,
-                         window: int = 0
-                         ) -> Tuple[Tensor, Optional[Tensor]]:
+                         window: int = 0, with_stats: bool = False
+                         ) -> Tuple[Tensor, ...]:
     """Plain PyTorch version of :func:`flash_checksum_kernel`, in the
     kernel's association: each query tile's key blocks (of the kernel's
     width) are cut into the kernel's parts (``analysis.vmem``
@@ -74,7 +82,8 @@ def flash_checksum_plain(q: Tensor, k: Tensor, v: Tensor,
     query row's diagonal, before its window, or in another part, changes
     nothing (p = 0, corr = 1), so processing it equals the kernel's skip;
     a part in which a row has no valid key leaves it m = -1e30, l = 0, and
-    the fold adds nothing of it."""
+    the fold adds nothing of it.  ``with_stats``: also (m, l) after the
+    fold, the kernel's."""
     flash_checksum_plain.calls += 1
     b, t, h, dh, s, kh = _check_shapes(q, k, v, vr, causal, window)
     g = h // kh
@@ -132,7 +141,8 @@ def flash_checksum_plain(q: Tensor, k: Tensor, v: Tensor,
         m = m_new
     lsafe = torch.clamp(l, min=1e-30)
     o = (acc / lsafe[..., None]).to(q.dtype)
-    return o, (None if vr is None else ex / lsafe)
+    out = (o, None if vr is None else ex / lsafe)
+    return out + (m, l) if with_stats else out
 
 
 flash_checksum_plain.calls = 0
@@ -172,19 +182,20 @@ def _agreed_with_library(lib, what: str, dh: int, t: int = 1, s: int = 1,
 
 def flash_checksum_kernel(q: Tensor, k: Tensor, v: Tensor,
                           vr: Optional[Tensor] = None, *, causal: bool = True,
-                          window: int = 0
-                          ) -> Tuple[Tensor, Optional[Tensor]]:
+                          window: int = 0, with_stats: bool = False
+                          ) -> Tuple[Tensor, ...]:
     """q: [B, T, H, dh]; k, v: [B, S, Kh, dh]; vr: [B, S, H] or None; one
     dtype (float32 or bfloat16), dh <= 256; ``window`` > 0 a sliding window
     (causal only).  Returns (o [B, T, H, dh], o_extra [B, T, H] f32 |
-    None).
+    None), and with ``with_stats`` (m, l) [B, T, H] f32 after them (one
+    launch either way).
 
     Operands on a CUDA device launch the CUDA kernel (one launch, counted in
     ``flash_checksum_kernel.launches``) or raise; only operands that lie on
     the CPU take :func:`flash_checksum_plain`."""
     if q.device.type == "cpu":
         return flash_checksum_plain(q, k, v, vr, causal=causal,
-                                    window=window)
+                                    window=window, with_stats=with_stats)
     from repro_torch.kernels import runtime
 
     what = "flash_checksum_kernel"
@@ -198,6 +209,8 @@ def flash_checksum_kernel(q: Tensor, k: Tensor, v: Tensor,
     o_extra = None if vr is None else torch.empty((b, t, h),
                                                   dtype=torch.float32,
                                                   device=dev)
+    stats = torch.empty((b, t, h, 2), dtype=torch.float32,
+                        device=dev) if with_stats else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.flash_checksum_launch(
@@ -205,10 +218,13 @@ def flash_checksum_kernel(q: Tensor, k: Tensor, v: Tensor,
             None if vr is None else vr.data_ptr(), o.data_ptr(),
             None if o_extra is None else o_extra.data_ptr(),
             b, t, s, h, kh, dh, float(dh ** -0.5), int(causal),
-            DTYPES.index(q.dtype), stream, int(window))
+            DTYPES.index(q.dtype), stream, int(window),
+            None if stats is None else stats.data_ptr())
     runtime.check_launch(code, what)
     flash_checksum_kernel.launches += 1
-    return o, o_extra
+    if stats is None:
+        return o, o_extra
+    return o, o_extra, stats[..., 0], stats[..., 1]
 
 
 flash_checksum_kernel.launches = 0

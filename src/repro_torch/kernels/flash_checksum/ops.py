@@ -7,6 +7,16 @@ Counterpart of the JAX package's ``repro/kernels/flash_checksum/ops.py``.
 The kernel indexes the key/value head of each query head and handles ragged
 T and S itself, so nothing is repeated or padded here; there are no block
 or ``interpret`` arguments.
+
+Gradients.  :func:`flash_checksum` runs the kernel through
+:class:`FlashChecksumFunction` when autograd records: the forward is the
+launch (the plain version on the CPU); ``o_extra`` and the softmax
+statistics are not differentiable and ``vr`` takes no gradient (the chain
+check feeds the flag, never the loss); the backward recomputes
+``softmax(q·kᵀ·dh^-0.5 + mask)·v`` in plain PyTorch
+(:func:`attention_plain`) and differentiates it for dq, dk and dv.  The
+reference has no attention backward kernel either: it differentiates its
+plain streaming attention.
 """
 from __future__ import annotations
 
@@ -17,9 +27,75 @@ import torch
 from repro_torch.core.abft import ABFTConfig, Check, CheckedOp
 from repro_torch.kernels.matmul_abft.ops import matmul_abft
 
-from .kernel import flash_checksum_kernel
+from .kernel import NEG, flash_checksum_kernel
 
 Tensor = torch.Tensor
+
+
+def attention_plain(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: int = 0) -> Tensor:
+    """``softmax(q·kᵀ·dh^-0.5 + mask)·v`` in f32 with A materialized, the
+    kernel's masks (query and key indices; ``window`` > 0 keeps key j for
+    query i iff i - window < j <= i; ``causal=False`` keeps every key).
+    q [B, T, H, dh], k and v [B, S, Kh, dh]; returns o [B, T, H, dh] f32.
+    The backward of :class:`FlashChecksumFunction` differentiates it."""
+    b, t, h, dh = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    f32 = torch.float32
+    ke = k.to(f32).repeat_interleave(h // kh, dim=2)
+    ve = v.to(f32).repeat_interleave(h // kh, dim=2)
+    sc = torch.einsum("bthd,bshd->bhts", q.to(f32), ke) * dh ** -0.5
+    if causal:
+        qpos = torch.arange(t, device=q.device)[:, None]
+        kpos = torch.arange(s, device=q.device)[None, :]
+        valid = kpos <= qpos
+        if window > 0:
+            valid = valid & (kpos > qpos - window)
+        sc = torch.where(valid, sc, torch.full_like(sc, NEG))
+    return torch.einsum("bhts,bshd->bthd", torch.softmax(sc, dim=-1), ve)
+
+
+class FlashChecksumFunction(torch.autograd.Function):
+    """``(o, o_extra[, m, l]) = FlashChecksumFunction.apply(q, k, v, vr,
+    causal, window, with_stats)``: :func:`~.kernel.flash_checksum_kernel`
+    with a plain recompute for its backward (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, vr, causal, window, with_stats):
+        outs = flash_checksum_kernel(q, k, v, vr, causal=causal,
+                                     window=window, with_stats=with_stats)
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = dict(causal=causal, window=window)
+        ctx.mark_non_differentiable(*(x for x in outs[1:] if x is not None))
+        return outs
+
+    @staticmethod
+    def backward(ctx, do, *_rest):
+        q, k, v = ctx.saved_tensors
+        want = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [x.detach().requires_grad_(w) for x, w in zip((q, k, v),
+                                                                 want)]
+            o = attention_plain(*ins, **ctx.mask)
+            got = iter(torch.autograd.grad(
+                o, [x for x in ins if x.requires_grad], do.to(o.dtype)))
+        grads = [next(got).to(x.dtype) if w else None
+                 for x, w in zip((q, k, v), want)]
+        return (*grads, None, None, None, None)
+
+
+def flash_checksum(q: Tensor, k: Tensor, v: Tensor,
+                   vr: Optional[Tensor] = None, *, causal: bool = True,
+                   window: int = 0, with_stats: bool = False
+                   ) -> Tuple[Tensor, ...]:
+    """:func:`~.kernel.flash_checksum_kernel`, differentiable in q, k and
+    v through :class:`FlashChecksumFunction` when autograd records (one
+    launch either way; the same outputs bit for bit)."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashChecksumFunction.apply(q, k, v, vr, causal, window,
+                                           with_stats)
+    return flash_checksum_kernel(q, k, v, vr, causal=causal, window=window,
+                                 with_stats=with_stats)
 
 
 def carried_column(v: Tensor, w_or: Tensor, n_heads: int) -> Tensor:

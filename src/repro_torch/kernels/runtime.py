@@ -74,7 +74,7 @@ _SIGNATURES = {
     "flash_checksum_head_tile": [_I],
     "flash_checksum_parts": [],
     "flash_checksum_part_start": [_I, _I, _I, _I, _I],
-    "flash_checksum_launch": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P, _I],
+    "flash_checksum_launch": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -12,16 +12,20 @@ o_extra = A·vr, and Σ_q o_extra = eᵀ(A V W_o)e.
 Where the work runs:
 
 * prefill attention runs through the ``flash_checksum`` kernel — the
-  CUDA kernel for tensors on the card, its plain version on the CPU — with
-  the ``vr`` column this block computes, in three cases: causal
-  self-attention over positions 0..T-1 with or without a sliding window,
-  non-causal self-attention over 0..T-1 (an encoder), and non-causal
-  cross-attention from T queries to S keys at positions 0..S-1 (a
-  decoder over its encoder's output; the mask reads no query position);
+  CUDA kernel for tensors on the card, its plain version on the CPU;
+  differentiable through its autograd Function — with the ``vr`` column
+  this block computes (fused mode) or emitting the softmax statistics m
+  and l (split mode), in three cases: causal self-attention over
+  positions 0..T-1 with or without a sliding window, non-causal
+  self-attention over 0..T-1 (an encoder), and non-causal cross-attention
+  from T queries to S keys at positions 0..S-1 (a decoder over its
+  encoder's output; the mask reads no query position);
+* the split baseline's second scoring pass (:func:`_split_second_pass`)
+  is plain PyTorch on every device, as the reference computes it outside
+  any Pallas kernel, from the kernel's m and l;
 * any other prefill attention (a non-causal window, causal
-  cross-attention, positions that are not 0..T-1, or the split baseline's
-  second pass) is plain PyTorch (:func:`streaming_attention`,
-  :func:`_split_second_pass`) on the CPU and raises
+  cross-attention, positions that are not 0..T-1) is plain PyTorch
+  (:func:`streaming_attention`) on the CPU and raises
   ``NotImplementedError`` on the card: the kernel does not take it, and
   the port does not fall back;
 * decode attention (one query over the ring-buffer cache, position-masked,
@@ -36,7 +40,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.abft import ABFTConfig, Check
-from repro_torch.kernels.flash_checksum.kernel import flash_checksum_kernel
+from repro_torch.kernels.flash_checksum.ops import flash_checksum
 from repro_torch.models.common import apply_rope, dense, init_dense
 
 Tensor = torch.Tensor
@@ -316,11 +320,6 @@ def attention_block(
     s = kv_x.shape[1]
     dev = x.device
     causal = cfg.causal if causal is None else causal
-    if abft.mode == "split" and x.is_cuda:
-        raise NotImplementedError(
-            "the split baseline's second scoring pass needs the softmax "
-            "statistics, which the flash_checksum kernel does not emit; "
-            "split mode on the card is still to port (ROADMAP A10.9)")
     # positions=None is the prompt from its start, kv_positions=None the
     # queries' positions (self-attention) or 0..S-1 (cross-attention)
     q_idx = _are_indices(positions, t)
@@ -348,12 +347,14 @@ def attention_block(
         vr = torch.einsum("bskh,kgh->bskg", v.to(q.dtype),
                           w_org).reshape(b, s, cfg.n_heads)
 
+    split = abft.mode == "split"
     if flash:
-        o, o_extra = flash_checksum_kernel(
+        # split mode: the kernel's row statistics feed the second pass
+        o, o_extra, *ml = flash_checksum(
             q.contiguous(), k.contiguous(), v.contiguous(),
             None if vr is None else vr.contiguous(), causal=causal,
-            window=window)
-        m = l = None
+            window=window, with_stats=split)
+        m, l = ml if split else (None, None)
     else:
         o, o_extra, m, l = streaming_attention(
             q, k, v, vr, q_positions=positions, k_positions=kv_positions,
@@ -369,12 +370,7 @@ def attention_block(
         pred = o_extra.to(torch.float32).sum()
         actual = out.to(abft.dtype).sum()
         checks.append(Check(predicted=pred, actual=actual))
-    elif abft.mode == "split":
-        if m is None:
-            _, _, m, l = streaming_attention(
-                q, k, v, None, q_positions=positions,
-                k_positions=kv_positions, causal=causal, window=window,
-                chunk=min(cfg.attn_chunk, s))
+    elif split:
         pred = _split_second_pass(
             q, k, v, m, l, q_positions=positions, k_positions=kv_positions,
             causal=causal, window=window, chunk=min(cfg.attn_chunk, s),

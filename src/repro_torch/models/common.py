@@ -161,7 +161,13 @@ def init_embed(gen: torch.Generator, vocab: int, d: int) -> Params:
 
 
 def embed(p: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
-    x = p["table"][tokens.long()].to(cdtype(cfg))
+    """The table's rows of ``tokens``, in the compute dtype (scaled by
+    sqrt(d) where the config asks).  The lookup is ``F.embedding``, a
+    gather equal to ``table[tokens]``, whose backward on the card sorts the
+    tokens and sums each token's rows in a fixed order (indexing's backward
+    may add repeated tokens' rows with atomics): two train steps of one
+    batch give the table's gradient bit for bit."""
+    x = F.embedding(tokens.long(), p["table"]).to(cdtype(cfg))
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)

@@ -181,6 +181,20 @@ def _index(tree: Any, i: int) -> Any:
     return _map(tree, lambda t: t[i])
 
 
+def _unstack(tree: Any, n: int) -> List[Any]:
+    """The ``n`` units of a layer-stacked tree, each leaf unbound once:
+    unit ``i``'s leaves are the views ``_index`` gives, and autograd
+    stacks their gradients into the stacked leaf's in one write (indexing
+    each unit would add a full-size zero-filled gradient a unit)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [_unstack(v, n) for v in tree]
+        return [type(tree)(p[i] for p in parts) for i in range(n)]
+    return list(tree.unbind(0)) if isinstance(tree, Tensor) else [tree] * n
+
+
 def _stack(trees: List[Any]) -> Any:
     """Stack per-unit trees of one structure on a new leading axis."""
     first = trees[0]
@@ -383,8 +397,8 @@ def _apply_segments(params_segs, cfg: ModelConfig, x: Tensor,
     for si, ((pattern, count), seg_p) in enumerate(
             zip(seg_structure(cfg), params_segs)):
         per_unit, outs = [], []
-        for ui in range(count):
-            x, cs, ns = unit_fn(x, _index(seg_p, ui), si, ui, pattern)
+        for ui, unit_p in enumerate(_unstack(seg_p, count)):
+            x, cs, ns = unit_fn(x, unit_p, si, ui, pattern)
             per_unit.append(cs)
             outs.append(ns)
         if count == 1 or not cfg.scan_layers:
@@ -505,6 +519,34 @@ def model_forward(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
     logits, lc = _lm_head(params, cfg, x, abft)
     checks += lc
     return logits, summarize(checks, abft, device=logits.device), aux
+
+
+def constrain_batch(x: Tensor) -> Tensor:
+    """The identity.  The reference pins activations to a batch-sharded
+    layout at block boundaries so its SPMD partitioner keeps weight
+    shardings off the residual stream; on one card there is no layout to
+    pin."""
+    return x
+
+
+def lm_loss(logits: Tensor, labels: Tensor, mask: Optional[Tensor] = None
+            ) -> Tensor:
+    """Mean token cross-entropy: ``logsumexp(logits) - logits[label]``
+    over [B, T] (over ``mask``'s tokens when given, divided by
+    ``max(Σ mask, 1)``), as the reference's.
+
+    The picked logit is a ``gather`` along the vocabulary.  The reference
+    multiplies by a one-hot [B, T, V] and sums, to keep its sharded
+    backward elementwise; on one card that one-hot would be another
+    [B, T, V] f32 buffer (1 GB at gemma-2b's B 2 x T 512), and both forms
+    pick the same value: the one-hot sum adds exact zeros to it."""
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - picked
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, *,

@@ -243,6 +243,9 @@ class ABFTGuard:
                     self._backoff_level = 0   # clean first try
                 self._recent.append(step_flagged)
                 return out, metrics
+            # the flagged attempt's outputs are dropped before the retry
+            # runs: a train step's new state is as large as its input
+            out = None
             if not step_flagged:
                 step_flagged = True
                 self.flags += 1
