@@ -75,12 +75,18 @@ plain version, and ``lm_train`` drives the LM train step
 (``launch.steps.make_train_step`` under ``ABFTGuard.run_step``): three
 guarded gemma-2b steps at full width (B 2 x T 512, an upset retried on
 step 2), a 2-layer cut against the CPU, then one whisper-medium step.
+``train_driver`` drives ``launch.train`` and the checkpoint package on a
+2-layer full-width gemma-2b (uninterrupted, resumed, restored with the
+embedding on the host, the CLI as processes) and a stream engine's degrade
+checkpoints.  The card-vs-CPU cut of whisper-medium (and of any model
+whose cut sits over half its gate) also reports each side's distance from
+a float64 run of the same cut on the CPU (``card_vs_f64``, ``cpu_vs_f64``).
 
 One JSON object per phase is printed (``env``, ``build``, ``kernel_checks``,
 ``lm_kernels``, ``lm_grads``, ``serve``, ``fault``, ``stream``,
 ``full_graph``, ``campaign_gcn``, ``sparse``, ``sharded``, ``gat`` (one a
 graph), ``lm_serve``, ``campaign_lm``, ``lm_archs`` (one a model),
-``lm_train``, ``serve_cli``), then the
+``lm_train``, ``train_driver``, ``serve_cli``), then the
 ``kernels``
 summary line, the card's name and power limit as ``nvidia-smi`` gives them,
 and a last line ``{"ok": true, "device": {...}}``.
@@ -189,6 +195,17 @@ ARCHS = (
 # whisper-medium at its ARCHS spec (1500 source frames, T 224)
 TRAIN = dict(batch=2, seq=512, steps=3, seed=0, delta=25.0, warmup=2,
              total=100, cut_layers=2, cut_seq=128)
+# the training driver (launch.train) and its checkpoints: gemma-2b at its
+# published widths cut to lm_train's 2 layers (744.7 M parameters: the
+# 524.3 M embedding and 2 x 110.2 M; params, m and v are 8.94 GB a
+# checkpoint — the 18-layer state, ~30 GB, is not written), batches of
+# SyntheticLM(seed=0) at B 2 x T 512, fused mode; an uninterrupted run of
+# `steps` saving every `ckpt_every`, a run of `first` steps resumed to
+# `steps` (twice), the embedding restored onto the host, the CLI as
+# processes; then a stream engine's degrade checkpoints (the sticky fault
+# of tests/test_torch_stream.py) over the first `stream` graphs
+TRAIN_DRIVER = dict(arch="gemma-2b", layers=2, batch=2, seq=512, steps=4,
+                    ckpt_every=2, first=2, stream=12)
 # the models whose split-mode prefill runs on the card, one an attention
 # kind: gemma-2b (causal, in lm_serve), h2o-danube-3-4b (its window),
 # whisper-medium (non-causal encoder, cross-attention)
@@ -3188,7 +3205,7 @@ def lm_gates(torch, cfg, params, spec, cache_len):
     any gate but the cut's, which :func:`_raise_unless_cut_ok` holds after
     the caller has printed the numbers."""
     from repro_torch.core.abft import ABFTConfig
-    from repro_torch.engine.lm import LMEngine, fold_lm_w_r
+    from repro_torch.engine.lm import LMEngine
     from repro_torch.kernels import runtime
     from repro_torch.models.transformer import (RECURRENT, model_decode,
                                                 model_prefill)
@@ -3393,32 +3410,32 @@ def lm_gates(torch, cfg, params, spec, cache_len):
     cut_tokens = tokens[:, :spec["cut_prompt"]]
     cut_pos0 = offset + spec["cut_prompt"]
     cut_len = cut_pos0 + spec["cut_decode"]
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        p_dev = _tree_to(cut, dev)
-        folded = fold_lm_w_r(p_dev, cut_cfg, abft)
-        batch = {k: v.to(dev) for k, v in extra.items()}
-        t0 = time.perf_counter()
-        with routing_record() as routes:
-            lg, st, rep = model_prefill(
-                folded, cut_cfg, {"tokens": cut_tokens.to(dev), **batch},
-                abft, cut_len)
-            outs, flags = [lg], [bool(rep.flag)]
-            for i in range(spec["cut_decode"]):
-                nxt = _argmax_tokens(torch, outs[-1])
-                lg, st, rep = model_decode(folded, cut_cfg, st, nxt,
-                                           cut_pos0 + i, abft)
-                outs.append(lg)
-                flags.append(bool(rep.flag))
-        runs[dev] = dict(logits=[x.cpu() for x in outs], flags=flags,
-                         seconds=time.perf_counter() - t0, routes=routes)
-        del p_dev, folded, st, batch
+    cut_args = (cut, extra, cut_tokens, cut_pos0, cut_len,
+                spec["cut_decode"])
+    runs = {dev: cut_run(torch, cut_cfg, abft, *cut_args, dev=dev)
+            for dev in ("cuda", "cpu")}
     pairs = [(a[..., :cfg.vocab_size], b[..., :cfg.vocab_size])
              for a, b in zip(runs["cuda"]["logits"], runs["cpu"]["logits"])]
     cut_errs = [max_err(a, b) for a, b in pairs]
     # max |card - CPU| / (atol + rtol |CPU|): at most 1 passes
     cut_ratio = [float(((a - b).abs() / (LOGIT_ATOL + LM_LOGIT_RTOL
                                           * b.abs())).max()) for a, b in pairs]
+    # the float64 witness (ROADMAP C10): the same cut, tokens and decode
+    # steps on the CPU in float64, checks off (they do not move a logit);
+    # each f32 run's distance from it, in the gate's own units
+    f64_fields = {}
+    if encdec or max(cut_ratio) > 0.5:
+        f64 = cut_run(torch, dataclasses.replace(cut_cfg, dtype="float64"),
+                      off, *cut_args, dev="cpu", feed=runs["cpu"]["fed"])
+        f64_fields = dict(f64_seconds=f64["seconds"],
+                       fed_tokens_equal=all(torch.equal(a, b) for a, b in zip(
+                           runs["cuda"]["fed"], runs["cpu"]["fed"])),
+                       **{f"{side}_vs_f64": f64_distance(
+                           runs[dev]["logits"], f64["logits"],
+                           cfg.vocab_size)
+                          for side, dev in (("card", "cuda"),
+                                            ("cpu", "cpu"))})
+        del f64
     routing = None
     if cfg.moe is not None:
         card, cpu = runs["cuda"]["routes"], runs["cpu"]["routes"]
@@ -3474,7 +3491,52 @@ def lm_gates(torch, cfg, params, spec, cache_len):
                      tolerance=dict(atol=LOGIT_ATOL, rtol=LM_LOGIT_RTOL),
                      routing=routing,
                      card_seconds=runs["cuda"]["seconds"],
-                     cpu_seconds=runs["cpu"]["seconds"])))
+                     cpu_seconds=runs["cpu"]["seconds"], **f64_fields)))
+
+
+def cut_run(torch, cfg, abft, params, extra, tokens, pos0, cache_len,
+            n_decode, *, dev, feed=None):
+    """The card-vs-CPU cut's prefill and ``n_decode`` greedy decode steps
+    on ``dev``: ``params`` and the front end's ``extra`` inputs moved there
+    (cast to float64 when ``cfg.dtype`` is ``"float64"``: a witness run of
+    the plain versions) and folded for ``abft``; each decode step fed the
+    argmax of the step before, or the tokens of ``feed``.  Returns the
+    logits (on the host), flags, the tokens fed, the routings and the
+    seconds."""
+    from repro_torch.engine.lm import fold_lm_w_r
+    from repro_torch.models.transformer import model_decode, model_prefill
+
+    dtype = torch.float64 if cfg.dtype == "float64" else None
+    folded = fold_lm_w_r(_tree_to(params, dev, dtype), cfg, abft)
+    batch = {k: v.to(dev, dtype or v.dtype) for k, v in extra.items()}
+    t0 = time.perf_counter()
+    fed = []
+    with routing_record() as routes:
+        lg, st, rep = model_prefill(
+            folded, cfg, {"tokens": tokens.to(dev), **batch}, abft,
+            cache_len)
+        outs, flags = [lg], [bool(rep.flag)]
+        for i in range(n_decode):
+            nxt = _argmax_tokens(torch, outs[-1]) if feed is None \
+                else feed[i].to(dev)
+            fed.append(nxt.cpu())
+            lg, st, rep = model_decode(folded, cfg, st, nxt, pos0 + i, abft)
+            outs.append(lg)
+            flags.append(bool(rep.flag))
+    return dict(logits=[x.cpu() for x in outs], flags=flags, fed=fed,
+                seconds=time.perf_counter() - t0, routes=routes)
+
+
+def f64_distance(logits, f64, vocab):
+    """Each step's max |f32 logit − float64 logit| and its largest ratio to
+    the cut gate's ``LOGIT_ATOL + LM_LOGIT_RTOL · |float64 logit|``."""
+    errs, ratios = [], []
+    for a, w in zip(logits, f64):
+        d = (a[..., :vocab].double() - w[..., :vocab]).abs()
+        errs.append(float(d.max()))
+        ratios.append(float((d / (LOGIT_ATOL + LM_LOGIT_RTOL
+                                  * w[..., :vocab].abs())).max()))
+    return dict(per_step_max_abs_err=errs, per_step_gate_ratio=ratios)
 
 
 class _Witnessed:
@@ -4249,6 +4311,291 @@ def phase_lm_train(torch, smi):
     return total
 
 
+def _ckpt_base(need: int):
+    """The directory the driver's checkpoints go under: the temp dir or
+    the checkout's git-ignored ``build/``, whichever has more free space;
+    raises when that is under ``need`` bytes."""
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    free = {d: shutil.disk_usage(d).free
+            for d in (tempfile.gettempdir(), os.path.join(ROOT, "build"))}
+    base = max(free, key=free.get)
+    if free[base] < need:
+        raise RuntimeError(
+            f"train_driver: {free[base] / 1e9:.1f} GB free under {base} "
+            f"(the most of {sorted(free)}), under the {need / 1e9:.1f} GB "
+            f"of three checkpoints")
+    return base, free
+
+
+def phase_train_driver(torch, smi):
+    """The training driver (``python -m repro_torch.launch.train``) and the
+    checkpoint package on the card, at ``TRAIN_DRIVER``'s cut of gemma-2b:
+    (a) an uninterrupted run (``steps``, a checkpoint every ``ckpt_every``)
+    whose final state and last checkpoint, read back onto the card, equal
+    the direct sequence of train steps over the stream's first batches bit
+    for bit, its mid-run checkpoint labelled as the reference labels it
+    (the state after step ``i`` under ``i``); (b) a run of ``first`` steps
+    resumed to ``steps`` — the stream restarts, as the reference's does —
+    equal to its direct sequence bit for bit, twice; (c) ``reshard_restore``
+    of (a)'s checkpoint with the embedding on the host and every other
+    leaf on the card, bit for bit; (d) the CLI as processes: gemma-2b
+    trains, checkpoints and resumes, whisper-medium trains (B5's
+    non-causal and cross launches under the driver); (e) a
+    ``StreamingEngine(checkpoint_dir=)`` on the card under a sticky
+    accumulator fault: every request served, the ladder degraded, each
+    degrade's checkpoint with the reference's ``extra`` and the engine's
+    folded params bit for bit.  Reports the bytes of a checkpoint, each
+    save's blocking snapshot and writer seconds, and the restores'.
+    Returns the launches of the driven runs ((a), (b), (e))."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import load_checkpoint, reshard_restore
+    from repro_torch.core.abft import ABFTConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.engine import StreamingEngine, plan_rungs, \
+        synth_graph_stream
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim import AdamWConfig, tree_leaves, tree_map
+    from repro_torch.runtime import ABFTGuard, GuardConfig
+
+    spec = TRAIN_DRIVER
+    cfg = arch_config(spec["arch"], layers=spec["layers"])
+    n_params = sum(x.numel() for x in tree_leaves(
+        init_model(cfg, 0, device="meta")))
+    need = 3 * 12 * n_params               # params, m and v in f32
+    base, free = _ckpt_base(need)
+    root = tempfile.mkdtemp(prefix="train_driver_", dir=base)
+    launches: dict = {}
+    log: list = []
+    run_kw = dict(batch=spec["batch"], seq=spec["seq"], device="cuda",
+                  log=log.append)
+
+    def driven(**kw):
+        """One driver run, its launches added to ``launches``."""
+        runtime.reset_counts()
+        out = train(cfg, **run_kw, **kw)
+        torch.cuda.synchronize()
+        for k, v in runtime.launch_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        if any(runtime.plain_counts().values()) or out["flags"]:
+            raise AssertionError(f"train_driver {kw}: plain calls "
+                                 f"{runtime.plain_counts()}, flags "
+                                 f"{out['flags']}")
+        return out
+
+    def direct(state, steps, n, times=None):
+        """``n`` train steps of a ``steps``-step run over the stream's first
+        batches, built as the driver builds its step (``times``: each
+        synchronised step's host ms appended)."""
+        step = make_train_step(
+            cfg, ABFTConfig(mode="fused", threshold=5e-2, relative=True),
+            AdamWConfig(lr=1e-3), total_steps=steps,
+            warmup=max(steps // 10, 1))
+        it = SyntheticLM(cfg.vocab_size, spec["seq"], spec["batch"],
+                         seed=0).batches()
+        for _ in range(n):
+            batch = {k: torch.from_numpy(v).to("cuda")
+                     for k, v in next(it).items()}
+            t = time.perf_counter()
+            state, _m = step(state, batch)
+            torch.cuda.synchronize()
+            if times is not None:
+                times.append((time.perf_counter() - t) * 1e3)
+        return state
+
+    fields = dict(model=cfg.name, layers=cfg.n_layers, params=n_params,
+                  batch=spec["batch"], seq=spec["seq"], dir_base=base,
+                  free_gb={d: f / 1e9 for d, f in free.items()},
+                  need_gb=need / 1e9)
+    t_phase = time.perf_counter()
+    try:
+        # (a) uninterrupted
+        da = os.path.join(root, "a")
+        out = driven(steps=spec["steps"], ckpt_dir=da,
+                     ckpt_every=spec["ckpt_every"])
+        step_ms: list = []
+        want = direct(init_train_state(cfg, 0, device="cuda"),
+                      spec["steps"], spec["steps"], step_ms)
+        final_bitwise = _equal_trees(torch, out["state"], want)
+        out.pop("state")
+        t = time.perf_counter()
+        saved, label = load_checkpoint(da, want)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t
+        ckpt_bitwise = label == spec["steps"] and _equal_trees(
+            torch, saved, want)
+        del saved
+        with np.load(os.path.join(
+                da, f"step_{spec['ckpt_every']:08d}", "host0.npz")) as f:
+            mid_opt_step = int(f["opt__step"])
+        dirs = sorted(d for d in os.listdir(da) if d.startswith("step_"))
+        ckpt_bytes = sum(os.path.getsize(os.path.join(da, dirs[-1], f))
+                         for f in os.listdir(os.path.join(da, dirs[-1])))
+        fields["uninterrupted"] = dict(
+            steps=spec["steps"], ckpt_every=spec["ckpt_every"], dirs=dirs,
+            final_bitwise=final_bitwise, checkpoint_bitwise=ckpt_bitwise,
+            mid_label=spec["ckpt_every"], mid_opt_step=mid_opt_step,
+            saves=out["ckpt_timings"], read_back_s=read_s,
+            loop_s=out["seconds"], direct_step_ms=step_ms, log=log[-1:])
+        fields["checkpoint_bytes"] = ckpt_bytes
+        if not (final_bitwise and ckpt_bitwise
+                and mid_opt_step == spec["ckpt_every"] + 1
+                and dirs == [f"step_{spec['ckpt_every']:08d}",
+                             f"step_{spec['steps']:08d}"]):
+            raise AssertionError(f"train_driver (a): {fields}")
+
+        # (c) placement: the embedding on the host, the rest on the card
+        places = tree_map(lambda _: "cuda", want)
+        places["params"]["embed"]["table"] = "cpu"
+        t = time.perf_counter()
+        placed, label = reshard_restore(da, want, places)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t
+        where = [x.device.type for x in tree_leaves(placed)]
+        placed_bitwise = all(torch.equal(x.to(y.device), y) for x, y in zip(
+            tree_leaves(placed), tree_leaves(want)))
+        host_leaves = [i for i, d in enumerate(where) if d == "cpu"]
+        fields["placement"] = dict(
+            label=label, seconds=place_s, host_leaves=len(host_leaves),
+            card_leaves=where.count("cuda"), bitwise=placed_bitwise,
+            embed_on_host=placed["params"]["embed"]["table"].device.type
+            == "cpu")
+        del placed, want
+        shutil.rmtree(da)
+        if not (placed_bitwise and len(host_leaves) == 1
+                and fields["placement"]["embed_on_host"]):
+            raise AssertionError(f"train_driver (c): {fields['placement']}")
+
+        # (b) resumed, twice from a fresh first run
+        db = os.path.join(root, "b")
+        resumed = []
+        for _ in range(2):
+            shutil.rmtree(db, ignore_errors=True)
+            first = driven(steps=spec["first"], ckpt_dir=db,
+                           ckpt_every=spec["ckpt_every"])
+            first.pop("state")
+            res = driven(steps=spec["steps"], ckpt_dir=db,
+                         ckpt_every=spec["ckpt_every"])
+            resumed.append(dict(res, first_saves=first["ckpt_timings"]))
+        want = direct(direct(init_train_state(cfg, 0, device="cuda"),
+                             spec["first"], spec["first"]),
+                      spec["steps"], spec["steps"] - spec["first"])
+        fields["resumed"] = [dict(
+            started=r["started"], bitwise=_equal_trees(torch, r["state"],
+                                                        want),
+            restore_s=r["restore_s"], first_saves=r["first_saves"],
+            saves=r["ckpt_timings"], loop_s=r["seconds"])
+            for r in resumed]
+        del resumed, want, res, first
+        shutil.rmtree(db)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not all(r["bitwise"] and r["started"] == spec["first"]
+                   for r in fields["resumed"]):
+            raise AssertionError(f"train_driver (b): {fields['resumed']}")
+
+        # (d) the CLI as processes
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.join(ROOT, "src")] + [p for p in os.environ.get(
+                "PYTHONPATH", "").split(os.pathsep) if p]))
+        dc, dw = os.path.join(root, "cli"), os.path.join(root, "cli_w")
+        cli = []
+        for arch, extra_args, ckdir, want_line in (
+                ("gemma-2b", ["--steps", "4", "--ckpt-every", "2"], dc,
+                 "abft flags 0"),
+                ("gemma-2b", ["--steps", "6", "--ckpt-every", "2"], dc,
+                 "resumed from step 4"),
+                ("whisper-medium", ["--steps", "2"], dw, "abft flags 0")):
+            t = time.perf_counter()
+            done = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                 arch, "--smoke", "--ckpt-dir", ckdir, *extra_args],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, timeout=600)
+            lines = done.stdout.strip().splitlines()
+            cli.append(dict(arch=arch, args=extra_args,
+                            returncode=done.returncode,
+                            seconds=time.perf_counter() - t,
+                            output=lines[-3:]))
+            if done.returncode or want_line not in done.stdout \
+                    or "abft flags 0" not in done.stdout:
+                fields["cli"] = cli
+                emit("train_driver", nvidia_smi=smi, log=lines[-20:],
+                     **fields)
+                raise AssertionError(f"launch.train {arch} {extra_args}: "
+                                     f"{cli[-1]}")
+        fields["cli"] = cli
+
+        # (e) the stream engine's degrade checkpoints
+        de = os.path.join(root, "stream")
+        stream = synth_graph_stream(spec["stream"], n_lo=SERVE["n_lo"],
+                                    n_hi=SERVE["n_hi"], feat=DIMS[0],
+                                    avg_deg=SERVE["avg_deg"],
+                                    seed=SERVE["seed"])
+        rungs = plan_rungs(stream[:STREAM["n_slots"]],
+                           n_slots=STREAM["n_slots"], block=SERVE["block"],
+                           stripe_multiple=SERVE["stripe_multiple"],
+                           width_multiple=SERVE["width_multiple"])
+        eng = StreamingEngine(
+            make_params(torch), ABFTConfig(mode="fused", threshold=1e-3,
+                                           relative=True), rungs,
+            guard=ABFTGuard(GuardConfig(max_retries=1, max_restores=1,
+                                        persistent_window=4,
+                                        persistent_threshold=2)),
+            inject=(0, 0, 0, 100.0), checkpoint_dir=de, device="cuda")
+        runtime.reset_counts()
+        results = []
+        for s, h0 in stream:
+            eng.submit(s, h0)
+            results.extend(eng.take_results())
+        results += eng.drain()
+        torch.cuda.synchronize()
+        for k, v in runtime.launch_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        stats = eng.stats(results)
+        steps = sorted(d for d in os.listdir(de) if d.startswith("step_"))
+        extras = [json.load(open(os.path.join(de, d, "manifest.json")))[
+            "extra"] for d in steps]
+        saved, label = load_checkpoint(de, eng.params)
+        fields["stream"] = dict(
+            requests=len(stream), served=stats["served"],
+            statuses=sorted({r.status for r in results}),
+            flagged=sum(bool(r.flag) for r in results),
+            degrades=stats["degrades"], failovers=stats["failovers"],
+            ladder=stats["backend_ladder"],
+            active_backend=stats["active_backend"], checkpoints=steps,
+            extras=extras,
+            params_bitwise=label >= 0 and _equal_trees(torch, saved,
+                                                       eng.params),
+            on_card=all(x.is_cuda for x in tree_leaves(saved)))
+        del eng, saved
+        s = fields["stream"]
+        if not (s["served"] == s["requests"] and s["statuses"] == ["served"]
+                and s["degrades"] >= 1 and 1 <= len(steps) <= s["degrades"]
+                and all(set(e) == {"reason", "backend", "degrade_level"}
+                        and e["backend"] in s["ladder"] for e in extras)
+                and s["params_bitwise"] and s["on_card"]
+                and s["flagged"] == 0):
+            raise AssertionError(f"train_driver (e): {s}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fields["seconds"] = time.perf_counter() - t_phase
+    fields["launches"] = launches
+    emit("train_driver", nvidia_smi=smi, **fields)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_lm_serve(torch, smi):
     """The checked-op main path: LMEngine at gemma-2b's full width, all 18
     layers, f32, through :func:`lm_gates`; then one guarded decode step
@@ -4624,12 +4971,38 @@ def _slice_tree(tree, n):
     return tree[:n]
 
 
-def _tree_to(tree, dev):
+def _tree_to(tree, dev, dtype=None):
     if isinstance(tree, dict):
-        return {k: _tree_to(v, dev) for k, v in tree.items()}
+        return {k: _tree_to(v, dev, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_tree_to(v, dev) for v in tree]
-    return tree.to(dev)
+        return [_tree_to(v, dev, dtype) for v in tree]
+    return tree.to(dev, dtype or tree.dtype)
+
+
+def run_only(torch, smi, names, archs=None) -> int:
+    """The phases ``names`` alone, after the build (``lm_archs`` over the
+    models ``archs`` when given); prints each phase's line and no final
+    one."""
+    global ARCHS
+    if archs:
+        ARCHS = tuple(s for s in ARCHS if s["arch"] in archs)
+    phases = dict(lm_kernels=lambda: phase_lm_kernels(torch),
+                  lm_grads=lambda: phase_lm_grads(torch),
+                  lm_serve=lambda: phase_lm_serve(torch, smi),
+                  lm_archs=lambda: phase_lm_archs(torch, smi),
+                  lm_train=lambda: phase_lm_train(torch, smi),
+                  train_driver=lambda: phase_train_driver(torch, smi),
+                  serve_cli=lambda: phase_serve_cli(torch),
+                  sparse=lambda: phase_sparse(torch),
+                  sharded=lambda: phase_sharded(torch),
+                  gat=lambda: phase_gat(torch))
+    unknown = [n for n in names if n not in phases]
+    if unknown:
+        raise SystemExit(f"chip_smoke: --only takes {sorted(phases)}, not "
+                         f"{unknown}")
+    for name in names:
+        phases[name]()
+    return 0
 
 
 def main() -> int:
@@ -4644,14 +5017,23 @@ def main() -> int:
         return 2
 
     # --stop-after build|kernels cuts the run short (a first look at a new
-    # kernel); such a run prints no final "ok" line
-    stop_after = sys.argv[2] if len(sys.argv) == 3 \
-        and sys.argv[1] == "--stop-after" else None
+    # kernel); --only runs the build and the phases named (the LM phases,
+    # train_driver, serve_cli), --archs cuts lm_archs to the models named:
+    # a first look at a changed phase.  Such runs print no final "ok" line
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--stop-after", choices=("build", "kernels"))
+    ap.add_argument("--only", type=lambda s: s.split(","))
+    ap.add_argument("--archs", type=lambda s: s.split(","))
+    args = ap.parse_args()
+    stop_after = args.stop_after
     t0 = time.perf_counter()
     smi = phase_env(torch)
     phase_build()
     if stop_after == "build":
         return 0
+    if args.only:
+        return run_only(torch, smi, args.only, args.archs)
     _stream, batches = make_stream_batches(SERVE["block"])
     params = make_params(torch)
     entries = phase_kernels(torch, batches, params)
@@ -4668,7 +5050,8 @@ def main() -> int:
     for phase in (phase_sparse, phase_sharded, phase_gat):
         for name, count in phase(torch).items():
             launches[name] = launches.get(name, 0) + count
-    for phase in (phase_lm_serve, phase_lm_archs, phase_lm_train):
+    for phase in (phase_lm_serve, phase_lm_archs, phase_lm_train,
+                  phase_train_driver):
         for name, count in phase(torch, smi).items():
             launches[name] = launches.get(name, 0) + count
     phase_serve_cli(torch)

@@ -227,7 +227,7 @@ def pack_graphs(graphs: Sequence[Tuple[np.ndarray, np.ndarray]],
     row_offsets = np.zeros(n_slots, np.int64)
     off = 0  # running stripe offset == column-block offset (square blocks)
     for g, (s, _) in enumerate(graphs):
-        bell_g = dense_to_block_ell(np.asarray(s), block_m=block,
+        bell_g = dense_to_block_ell(np.asarray(s), block_m=block,  # abftlint: sync-ok (host numpy packing, not device data)
                                     block_k=block)
         bells.append(bell_g)
         offsets.append(off)
@@ -349,7 +349,7 @@ def synth_graph_stream(n_graphs: int, *, n_lo: int = 24, n_hi: int = 120,
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n_graphs):
-        n = int(rng.integers(n_lo, n_hi + 1))
+        n = int(rng.integers(n_lo, n_hi + 1))  # abftlint: sync-ok (host RNG)
         m = max(n * avg_deg // 2, 1)
         e = rng.integers(0, n, size=(3 * m + 16, 2), dtype=np.int64)
         e = e[e[:, 0] != e[:, 1]]

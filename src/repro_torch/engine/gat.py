@@ -151,9 +151,10 @@ def gat_forward(params: Params, h: Tensor, adj: Tensor, cfg: ABFTConfig, *,
     ``inject_layer`` (none when it is ``None``)."""
     checks: List[Optional[Check]] = []
     n_layers = len(params["layers"])
+    at = None if inject_delta is None or inject_layer is None \
+        else int(inject_layer)
     for i, p in enumerate(params["layers"]):
-        inj = inject_delta if inject_delta is not None \
-            and inject_layer is not None and int(inject_layer) == i else None
+        inj = inject_delta if at == i else None
         h, c = gat_layer(p, h, adj, cfg, inject=inj)
         checks.append(c)
         if i < n_layers - 1:

@@ -107,8 +107,10 @@ def make_guarded_decode_step(cfg: ModelConfig, abft: ABFTConfig) -> Callable:
     metrics)`` with per-op verdicts (see :func:`make_guarded_prefill_step`)."""
 
     def step(params, states, tokens, pos, inject=0.0):
+        # int(pos) reads the position on the host: ROADMAP rule-2 item 1's
+        # known sync, which goes when a decode step becomes a CUDA graph
         logits, new_states, rep, checks = model_decode(
-            params, cfg, states, tokens, int(pos), abft,
+            params, cfg, states, tokens, int(pos), abft,  # abftlint: sync-ok (ROADMAP rule-2 item 1)
             return_checks=True, attn_inject=float(inject))
         return (logits, new_states), _metrics(rep, checks, abft,
                                               logits.device)

@@ -235,7 +235,7 @@ class _Repair:
         rel = _host(rel)
         for k, s in enumerate(todo):
             g = self.stripe_graph[s]
-            self.graph_rel[g] = max(self.graph_rel[g], float(rel[k]))
+            self.graph_rel[g] = max(self.graph_rel[g], float(rel[k]))  # abftlint: sync-ok (host array)
         return sub_out
 
     def splice(self, ell: int, s: int, rows: Tensor,
@@ -299,7 +299,7 @@ def surgical_stripe_retry(pb, params, cfg: ABFTConfig, out: Tensor,
         _host(metrics["abft_stripe_flags"]).astype(bool), rep.n_layers)
     dirty_cols: set = set()          # column blocks whose H rows changed
     for ell in range(rep.n_layers):
-        flagged = set(np.nonzero(sflags[ell])[0].tolist())
+        flagged = set(np.nonzero(sflags[ell])[0].tolist())  # abftlint: sync-ok (host array, post-flag repair path)
         if rep.padding_flagged(flagged):
             return rep.escalate("padding stripe flagged")
         todo = sorted(flagged | rep.live(
@@ -368,7 +368,7 @@ def surgical_slot_retry(pb, params, cfg: ABFTConfig, out: Tensor, metrics,
         _host(metrics["abft_slot_flags"]).astype(bool), rep.n_layers)
     dirty: Dict[int, np.ndarray] = {}    # col block -> [bm] changed rows
     for ell in range(rep.n_layers):
-        flagged = set(np.nonzero(slflags[ell].any(axis=1))[0].tolist())
+        flagged = set(np.nonzero(slflags[ell].any(axis=1))[0].tolist())  # abftlint: sync-ok (host array, post-flag repair path)
         if rep.padding_flagged(flagged):
             return rep.escalate("padding stripe flagged")
         todo = sorted(flagged | rep.live(

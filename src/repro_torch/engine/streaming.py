@@ -352,8 +352,8 @@ class PackedRunner:
                     int(sub.n_nodes.sum()) * n_layers}
             out = out.clone()
             for j, gi in enumerate(idx):
-                o, n = int(pb.row_offsets[gi]), int(pb.n_nodes[gi])
-                so, sn = int(sub.row_offsets[j]), int(sub.n_nodes[j])
+                o, n = int(pb.row_offsets[gi]), int(pb.n_nodes[gi])  # abftlint: sync-ok (host pack tables)
+                so, sn = int(sub.row_offsets[j]), int(sub.n_nodes[j])  # abftlint: sync-ok (host pack tables)
                 out[o:o + n] = sub_logits[so:so + sn]
             return out, sub_metrics
         return retry
@@ -551,9 +551,11 @@ class StreamingEngine:
     path itself: every N dispatches the folded ``w_r`` operands are
     re-derived bitwise (:mod:`repro_torch.faults.selfcheck`) and a
     mismatch refolds them and discards every runner built on the stale
-    fold.  ``checkpoint_dir=`` (a checkpoint at every degrade) needs the
-    port's checkpoint module, which is not ported yet: passing it raises
-    ``NotImplementedError``.
+    fold.  ``checkpoint_dir=`` writes a checkpoint of the folded params at
+    every degrade, before the ladder moves (:mod:`repro_torch.checkpoint`,
+    the reference's layout; synchronous, the last three kept): its step is
+    ``batches_dispatched`` and its ``extra`` the reason, the backend being
+    left and its ladder level.
 
     ``params`` are moved to ``device``, which defaults to the GPU and
     raises when there is none (pass ``device="cpu"`` for the plain PyTorch
@@ -578,10 +580,6 @@ class StreamingEngine:
                  selfcheck_interval: Optional[int] = None,
                  clock: Callable[[], float] = time.perf_counter,
                  device: DeviceLike = "cuda"):
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir= needs the port's checkpoint/ package, "
-                "which is not ported yet — ROADMAP A12")
         if oversize_policy not in ("singleton", "reject"):
             raise ValueError(f"oversize_policy {oversize_policy!r} not in "
                              f"('singleton', 'reject')")
@@ -629,6 +627,14 @@ class StreamingEngine:
         self.guard = guard if guard is not None else ABFTGuard()
         self.watchdog = watchdog
         self.hang_timeout = hang_timeout
+        self._ckpt = None
+        if checkpoint_dir is not None:
+            from repro_torch.checkpoint import CheckpointManager
+            # synchronous writes: the save happens at the degrade moment,
+            # where a half-written checkpoint racing the backend swap is
+            # the last thing anyone wants
+            self._ckpt = CheckpointManager(checkpoint_dir, keep=3,
+                                           async_write=False)
         self.queue_capacity = queue_capacity
         self.flush_deadline = flush_deadline
         self.oversize_policy = oversize_policy
@@ -698,10 +704,12 @@ class StreamingEngine:
         return self._ladder[self._degrade_level]["dense"]
 
     def _degrade(self, reason: str) -> None:
-        """Swap to the next ladder level and reset the guard's per-backend
-        state (its site classifications and rolling window describe the
-        replaced execution path — lifetime counters stand)."""
+        """Swap to the next ladder level: checkpoint the folded params,
+        advance, and reset the guard's per-backend state (its site
+        classifications and rolling window describe the replaced execution
+        path — lifetime counters stand)."""
         old = self._ladder[self._degrade_level]["name"]
+        self._checkpoint(reason)
         self._degrade_level += 1
         self.degrades += 1
         self.guard.reset_backend_state()
@@ -713,6 +721,15 @@ class StreamingEngine:
         log.error("stream: degrading backend %s -> %s (%s); continuing "
                   "to serve", old,
                   self._ladder[self._degrade_level]["name"], reason)
+
+    def _checkpoint(self, reason: str) -> None:
+        if self._ckpt is None:
+            return
+        self._ckpt.save(self.batches_dispatched, self.params,
+                        extra={"reason": reason,
+                               "backend":
+                                   self._ladder[self._degrade_level]["name"],
+                               "degrade_level": self._degrade_level})
 
     def _failover(self, inf: Dict[str, Any], reason: str) -> None:
         """A batch the guard could not verify on this backend (persistent
@@ -1059,7 +1076,7 @@ class StreamingEngine:
         for k, rid in enumerate(rids):
             res = self._results.pop(rid)
             res.status = "served"
-            res.flag = bool(gflags[k])
+            res.flag = bool(gflags[k])  # abftlint: sync-ok (host array, verdict read)
             res.t_verdict = t
             batch.append((k, res))
             self._done.append(res)
@@ -1097,7 +1114,7 @@ class StreamingEngine:
             grel_np = (np.zeros(n_slots, np.float32) if grel is None
                        else _host(grel, dtype=np.float32))
             for k, res in batch:
-                res.max_rel = float(grel_np[k])
+                res.max_rel = float(grel_np[k])  # abftlint: sync-ok (host array, stats flush)
                 if out_np is None:
                     continue
                 if kind == "packed":

@@ -220,13 +220,13 @@ class FaultInjector:
         coords = self._coords("cols", flat.size)
         for i in coords:
             if m.kind == "stuck" and m.stuck_value is not None:
-                v = int(m.stuck_value)
+                v = int(m.stuck_value)  # abftlint: sync-ok (host scalar)
                 flat[i] = v % n_cols
             else:
                 # a corrupted index must still land on a valid column
                 # block (a wild pointer traps instead of silently
                 # corrupting — the interesting case is the silent one)
-                v = int(flat[i])
+                v = int(flat[i])  # abftlint: sync-ok (host array)
                 flat[i] = (v ^ (1 << (m.bit % 8))) % n_cols
         if m.sticky:
             self._stuck["cols"] = [(i, flat[i]) for i in coords]

@@ -37,14 +37,19 @@ from repro_torch.analysis.vmem import (FLASH_BLOCK_K, FLASH_BLOCK_Q,
                                         FUSED_SMEM_BUDGET, flash_first_block,
                                         flash_head_tile, flash_part_start,
                                         flash_smem_bytes)
+from repro_torch.kernels import acc_dtype
 
 Tensor = torch.Tensor
 DTYPES = (torch.float32, torch.bfloat16)
+# the plain version also takes float64 (a witness run on the CPU), with
+# float64 statistics and accumulators in the same association
+PLAIN_DTYPES = DTYPES + (torch.float64,)
 NEG = -1e30
 
 
 def _check_shapes(q: Tensor, k: Tensor, v: Tensor, vr: Optional[Tensor],
-                  causal: bool = True, window: int = 0):
+                  causal: bool = True, window: int = 0,
+                  dtypes: Tuple = DTYPES):
     if window < 0 or (window and not causal):
         raise ValueError(f"window {window} must be >= 0, and > 0 only with "
                          f"the causal mask (causal={causal})")
@@ -62,8 +67,8 @@ def _check_shapes(q: Tensor, k: Tensor, v: Tensor, vr: Optional[Tensor],
     for name, x in (("k", k), ("v", v), ("vr", vr)):
         if x is not None and x.dtype != q.dtype:
             raise ValueError(f"{name} has dtype {x.dtype}, q {q.dtype}")
-    if q.dtype not in DTYPES:
-        raise ValueError(f"q has dtype {q.dtype}, not one of {DTYPES}")
+    if q.dtype not in dtypes:
+        raise ValueError(f"q has dtype {q.dtype}, not one of {dtypes}")
     return b, t, h, dh, s, kh
 
 
@@ -83,11 +88,12 @@ def flash_checksum_plain(q: Tensor, k: Tensor, v: Tensor,
     nothing (p = 0, corr = 1), so processing it equals the kernel's skip;
     a part in which a row has no valid key leaves it m = -1e30, l = 0, and
     the fold adds nothing of it.  ``with_stats``: also (m, l) after the
-    fold, the kernel's."""
+    fold, the kernel's.  float64 operands run in float64 throughout."""
     flash_checksum_plain.calls += 1
-    b, t, h, dh, s, kh = _check_shapes(q, k, v, vr, causal, window)
+    b, t, h, dh, s, kh = _check_shapes(q, k, v, vr, causal, window,
+                                       PLAIN_DTYPES)
     g = h // kh
-    f32 = torch.float32
+    f32 = acc_dtype(q.dtype)
     scale = dh ** -0.5
     dev = q.device
     qf = q.to(f32)

@@ -38,13 +38,18 @@ from repro_torch.analysis.vmem import (MATMUL_BLOCK_K, MATMUL_SMALL_M,
                                       MATMUL_WIDE_TILE, matmul_split_k,
                                       matmul_splits, matmul_thin_smem_bytes,
                                       matmul_tile, matmul_wide_smem_bytes)
+from repro_torch.kernels import acc_dtype
 
 Tensor = torch.Tensor
 DTYPES = (torch.float32, torch.bfloat16)
+# the plain version also takes float64 (a witness run on the CPU), summed
+# in float64 in the same association
+PLAIN_DTYPES = DTYPES + (torch.float64,)
 
 
 def _check_shapes(a: Tensor, b: Tensor, br: Optional[Tensor],
-                  trans_b: bool) -> Tuple[int, int, int]:
+                  trans_b: bool, dtypes: Tuple = DTYPES
+                  ) -> Tuple[int, int, int]:
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must be "
                          f"2-D")
@@ -55,11 +60,12 @@ def _check_shapes(a: Tensor, b: Tensor, br: Optional[Tensor],
                          f"(trans_b={trans_b})")
     if br is not None and br.numel() != k:
         raise ValueError(f"br has {br.numel()} entries, K = {k}")
-    if a.dtype != b.dtype or a.dtype not in DTYPES:
+    if a.dtype != b.dtype or a.dtype not in dtypes:
         raise ValueError(f"a ({a.dtype}) and b ({b.dtype}) must share one of "
-                         f"{DTYPES}")
-    if br is not None and br.dtype != torch.float32:
-        raise ValueError(f"br has dtype {br.dtype}; it is float32")
+                         f"{dtypes}")
+    if br is not None and br.dtype != acc_dtype(a.dtype):
+        raise ValueError(f"br has dtype {br.dtype}; it is "
+                         f"{acc_dtype(a.dtype)}")
     return m, n, k
 
 
@@ -78,25 +84,27 @@ def matmul_abft_plain(a: Tensor, b: Tensor, br: Optional[Tensor] = None, *,
     association: f32 products of 32-wide K chunks, each added to its split's
     accumulator in order, the splits added in order.  The CPU tests and the
     port's CPU runs use this; on a GPU it is the yardstick the kernel is
-    held against, never the serving path."""
+    held against, never the serving path.  float64 operands are summed in
+    float64 in the same association (``block_sums`` and ``extra`` too)."""
     matmul_abft_plain.calls += 1
     return _plain(a, b, br, trans_b)
 
 
 def _plain(a: Tensor, b: Tensor, br: Optional[Tensor], trans_b: bool
            ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
-    m, n, k = _check_shapes(a, b, br, trans_b)
+    m, n, k = _check_shapes(a, b, br, trans_b, PLAIN_DTYPES)
+    f32 = acc_dtype(a.dtype)
     bk = b.t() if trans_b else b
     brc = None if br is None else br.reshape(k, 1)
     kc = matmul_split_k(m, n, k)
     acc = ex = None
     for k_lo in range(0, k, kc):
-        part = torch.zeros((m, n), dtype=torch.float32, device=a.device)
+        part = torch.zeros((m, n), dtype=f32, device=a.device)
         pex = None if br is None else torch.zeros(
-            (m, 1), dtype=torch.float32, device=a.device)
+            (m, 1), dtype=f32, device=a.device)
         for k0 in range(k_lo, min(k_lo + kc, k), MATMUL_BLOCK_K):
-            af = a[:, k0:k0 + MATMUL_BLOCK_K].to(torch.float32)
-            part.add_(af @ bk[k0:k0 + MATMUL_BLOCK_K].to(torch.float32))
+            af = a[:, k0:k0 + MATMUL_BLOCK_K].to(f32)
+            part.add_(af @ bk[k0:k0 + MATMUL_BLOCK_K].to(f32))
             if pex is not None:
                 pex.add_(af @ brc[k0:k0 + MATMUL_BLOCK_K])
         acc = part if acc is None else acc.add_(part)
@@ -197,19 +205,21 @@ matmul_abft_kernel.launches = 0
 
 
 def _check_grouped(a: Tensor, b: Tensor, br: Optional[Tensor],
-                   trans_b: bool) -> Tuple[int, int, int, int]:
+                   trans_b: bool, dtypes: Tuple = DTYPES
+                   ) -> Tuple[int, int, int, int]:
     if a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0]:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must be "
                          f"3-D with one group count")
     g = a.shape[0]
     if g < 1:
         raise ValueError("a grouped product needs at least one group")
-    m, n, k = _check_shapes(a[0], b[0], None, trans_b)
+    m, n, k = _check_shapes(a[0], b[0], None, trans_b, dtypes)
     if br is not None:
         if br.numel() != g * k:
             raise ValueError(f"br has {br.numel()} entries, G x K = {g} x {k}")
-        if br.dtype != torch.float32:
-            raise ValueError(f"br has dtype {br.dtype}; it is float32")
+        if br.dtype != acc_dtype(a.dtype):
+            raise ValueError(f"br has dtype {br.dtype}; it is "
+                             f"{acc_dtype(a.dtype)}")
     return g, m, n, k
 
 
@@ -220,7 +230,7 @@ def matmul_abft_grouped_plain(a: Tensor, b: Tensor,
     """Plain PyTorch version of :func:`matmul_abft_grouped_kernel`: the
     single product's plain version on each group in turn, stacked."""
     matmul_abft_grouped_plain.calls += 1
-    g, _m, _n, k = _check_grouped(a, b, br, trans_b)
+    g, _m, _n, k = _check_grouped(a, b, br, trans_b, PLAIN_DTYPES)
     brg = None if br is None else br.reshape(g, k)
     outs = [_plain(a[i], b[i], None if brg is None else brg[i], trans_b)
             for i in range(g)]

@@ -17,7 +17,7 @@ tensor:
     in shard order on the first device;
   * per-stripe check partials concatenate, each stripe from its one owner.
 
-The LM's production ``ShardingRules`` are not ported (ROADMAP A12).
+The LM's production ``ShardingRules`` are not ported (ROADMAP A12.3).
 """
 from __future__ import annotations
 

@@ -85,13 +85,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
     pos0 = args.prompt + (PREFIX if prefix else 0)
     t0 = time.perf_counter()
-    flags = 0
+    step_flags = []
     for i in range(args.new - 1):
         logits, states, m = decode(params, states, tok, pos0 + i)
-        flags += int(bool(m["abft_flag"]))
+        step_flags.append(m["abft_flag"])      # read once, after the loop
         tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
     _sync(dev)
     dt = time.perf_counter() - t0
+    flags = int(torch.stack(step_flags).sum()) if step_flags else 0
     print(f"decode: {args.new - 1} steps in {dt:.2f}s "
           f"({dt / max(args.new - 1, 1) * 1e3:.1f} ms/tok/batch), "
           f"flags={flags}")

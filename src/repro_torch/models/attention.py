@@ -40,6 +40,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.abft import ABFTConfig, Check
+from repro_torch.kernels import acc_dtype
 from repro_torch.kernels.flash_checksum.ops import flash_checksum
 from repro_torch.models.common import apply_rope, dense, init_dense
 
@@ -164,7 +165,7 @@ def streaming_attention(
     s = k.shape[1]
     kh = k.shape[2]
     g = h // kh
-    f32 = torch.float32
+    f32 = acc_dtype(q.dtype)
     qg = _group(q, kh)                                    # [B,T,Kh,G,hd]
     vrg = vr.reshape(b, s, kh, g) if vr is not None else None
     scale = hd ** -0.5
@@ -287,7 +288,7 @@ def _flash_path(q: Tensor, causal: bool, window: int, cross: bool,
             f"window={window}, cross={cross}, query positions 0..T-1: "
             f"{queries_are_indices}, key positions 0..S-1: "
             f"{keys_are_indices}); other cases are still to port (ROADMAP "
-            f"A10)")
+            f"A10.10)")
     return ok
 
 

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.abft import ABFTConfig, Check
+from repro_torch.kernels import acc_dtype
 from repro_torch.kernels.matmul_abft.ops import MatmulAbftOp, matmul_abft
 
 Tensor = torch.Tensor
@@ -30,7 +31,11 @@ Params = Dict[str, Any]
 
 
 def cdtype(cfg: ModelConfig) -> torch.dtype:
-    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    """The compute dtype: bfloat16 or float32 as served; ``"float64"`` is
+    a witness run of the plain versions on the CPU (every accumulation
+    then in float64, :func:`~repro_torch.kernels.acc_dtype`)."""
+    return {"bfloat16": torch.bfloat16,
+            "float64": torch.float64}.get(cfg.dtype, torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -78,7 +83,7 @@ def init_norm(d: int, lead: Tuple[int, ...] = (), device=None) -> Params:
 def rms_norm(x: Tensor, p: Params, eps: float, offset_base: float = 1.0
              ) -> Tensor:
     dt = x.dtype
-    x = x.to(torch.float32)
+    x = x.to(acc_dtype(dt))
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps) * (offset_base + p["scale"])
     return y.to(dt)
@@ -86,7 +91,7 @@ def rms_norm(x: Tensor, p: Params, eps: float, offset_base: float = 1.0
 
 def layer_norm(x: Tensor, p: Params, eps: float) -> Tensor:
     dt = x.dtype
-    x = x.to(torch.float32)
+    x = x.to(acc_dtype(dt))
     mu = x.mean(-1, keepdim=True)
     var = x.var(-1, keepdim=True, unbiased=False)
     y = (x - mu) * torch.rsqrt(var + eps) * (1.0 + p["scale"])
@@ -106,9 +111,10 @@ def sinusoid_positions(positions: Tensor, d: int, dtype) -> Tensor:
     first ``d // 2`` frequencies, then their cosines, the frequencies
     ``10000^(-i / (half - 1))`` as the reference spaces them."""
     half = d // 2
-    i = torch.arange(half, dtype=torch.float32, device=positions.device)
+    f32 = acc_dtype(dtype)
+    i = torch.arange(half, dtype=f32, device=positions.device)
     freqs = torch.exp(-math.log(10000.0) * i / max(half - 1, 1))
-    ang = positions[..., None].to(torch.float32) * freqs
+    ang = positions[..., None].to(f32) * freqs
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
@@ -125,9 +131,9 @@ def act_fn(name: str):
 # RoPE (full / partial "2d" à la ChatGLM / none)
 # ---------------------------------------------------------------------------
 
-def rope_freqs(hd_rot: int, theta: float, device=None) -> Tensor:
-    exps = torch.arange(0, hd_rot, 2, dtype=torch.float32,
-                        device=device) / hd_rot
+def rope_freqs(hd_rot: int, theta: float, device=None,
+               dtype: torch.dtype = torch.float32) -> Tensor:
+    exps = torch.arange(0, hd_rot, 2, dtype=dtype, device=device) / hd_rot
     return 1.0 / (theta ** exps)
 
 
@@ -142,8 +148,9 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float,
     if hd_rot == 0:
         return x
     xr, xp = x[..., :hd_rot], x[..., hd_rot:]
-    freqs = rope_freqs(hd_rot, theta, x.device)              # [hd_rot/2]
-    ang = positions[..., None].to(torch.float32) * freqs     # [B,T,hd_rot/2]
+    f32 = acc_dtype(x.dtype)
+    freqs = rope_freqs(hd_rot, theta, x.device, f32)         # [hd_rot/2]
+    ang = positions[..., None].to(f32) * freqs               # [B,T,hd_rot/2]
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = xr[..., ::2], xr[..., 1::2]
     out1 = x1 * cos - x2 * sin
@@ -187,7 +194,7 @@ def unembed(p: Params, x: Tensor, cfg: ModelConfig,
         br = w.to(abft.dtype).sum(dim=0 if tied else 1)
     logits, chk = matmul_abft(x2, w, br, trans_b=tied,
                               with_check=abft.enabled)
-    return (logits.reshape(b, t, -1).to(torch.float32),
+    return (logits.reshape(b, t, -1).to(acc_dtype(logits.dtype)),
             [chk] if chk is not None else [])
 
 

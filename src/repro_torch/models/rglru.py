@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.abft import ABFTConfig, Check
+from repro_torch.kernels import acc_dtype
 from repro_torch.kernels.matmul_abft.ops import matmul_abft_grouped
 from repro_torch.models.common import dense, gelu, gen_device, init_dense, \
     trunc_normal
@@ -90,8 +91,8 @@ def _rglru_scan(x: Tensor, i_gate: Tensor, a: Tensor, h0: Tensor
     h0 [B, dr].  Returns (every h_t [B, T, dr], the last)."""
     gx = i_gate * x * torch.sqrt(torch.clamp_min(1.0 - torch.square(a),
                                                  1e-9)).to(x.dtype)
-    a32 = a.to(torch.float32)
-    g32 = gx.to(torch.float32)
+    a32 = a.to(acc_dtype(x.dtype))
+    g32 = gx.to(acc_dtype(x.dtype))
     h = h0
     ys = []
     for t in range(x.shape[1]):
@@ -128,14 +129,17 @@ def rglru_block(p: Params, x: Tensor, cfg: ModelConfig, abft: ABFTConfig,
     ig, c3 = _block_diag_dense(p["gate_x"], xr, abft)
     rg, c4 = _block_diag_dense(p["gate_a"], xr, abft)
     i_gate = torch.sigmoid(ig)
-    log_a = -RGLRU_C * F.softplus(p["lam"]).to(torch.float32) * \
-        torch.sigmoid(rg.to(torch.float32))
+    f32 = acc_dtype(rg.dtype)
+    log_a = -RGLRU_C * F.softplus(p["lam"]).to(f32) * \
+        torch.sigmoid(rg.to(f32))
     a = torch.exp(log_a)
 
     ys, h = _rglru_scan(xr, i_gate, a.to(xr.dtype), state["h"])
     out = ys.to(x.dtype) * gelu(gate)
     y, c5 = dense(p["proj_out"], out, abft)
-    new_state = {"h": h, "conv": conv_hist.to(state["conv"].dtype)}
+    # the history in float32, as the zero state holds it (float64 in a
+    # witness run)
+    new_state = {"h": h, "conv": conv_hist.to(acc_dtype(conv_hist.dtype))}
     return y, new_state, c1 + c2 + c3 + c4 + c5
 
 

@@ -41,6 +41,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.abft import ABFTConfig, Check, summarize
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import acc_dtype
 from repro_torch.kernels.matmul_abft.ops import matmul_abft
 from repro_torch.models.attention import (
     attention_block,
@@ -432,7 +433,7 @@ def _lm_head(params: Params, cfg: ModelConfig, x: Tensor,
             checks.append(chk)
     else:
         logits, checks = dense(params["head"], x, abft)
-    logits = logits.to(torch.float32)
+    logits = logits.to(acc_dtype(logits.dtype))
     if cfg.padded_vocab != cfg.vocab_size:
         pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) \
             >= cfg.vocab_size

@@ -17,4 +17,5 @@ from .compression import (  # noqa: F401
     ef_compress_leaf,
 )
 from .schedule import cosine_warmup  # noqa: F401
-from .tree import tree_leaves, tree_map, tree_unflatten  # noqa: F401
+from .tree import (tree_flatten_with_path, tree_leaves,  # noqa: F401
+                   tree_map, tree_unflatten)

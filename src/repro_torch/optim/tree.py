@@ -2,7 +2,7 @@
 ``jax.tree`` flattens them) and lists or tuples."""
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, List
+from typing import Any, Callable, Iterator, List, Tuple
 
 
 def tree_leaves(tree: Any) -> List[Any]:
@@ -12,6 +12,23 @@ def tree_leaves(tree: Any) -> List[Any]:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_flatten_with_path(tree: Any, path: Tuple = ()
+                           ) -> List[Tuple[Tuple, Any]]:
+    """``(path, leaf)`` for every leaf of ``tree`` in :func:`tree_leaves`'s
+    order, ``path`` the tuple of dict keys and list or tuple indices that
+    leads to it, as ``jax.tree_util.tree_flatten_with_path`` gives them.
+    ``None`` is an empty subtree (no leaf), as in ``jax.tree``."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_flatten_with_path(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_flatten_with_path(v, path + (i,))]
+    return [(path, tree)]
 
 
 def tree_unflatten(like: Any, leaves: Iterator[Any]) -> Any:

@@ -3,14 +3,18 @@
 against the JAX package's, on the same submit / pump / drain sequence with
 explicit clocks: the same per-request statuses and verdicts, logits within
 ``atol 1e-4``, the same batch, rejection, singleton, fusion and repair-tier
-counts, and step shapes bounded by the rung table.  The JAX side runs its
-kernels in interpret mode, the port its plain versions
-(``device="cpu"``)."""
+counts, step shapes bounded by the rung table, and at each degrade the
+reference's checkpoint.  The JAX side runs its kernels in interpret mode,
+the port its plain versions (``device="cpu"``)."""
+import json
+import os
+
 import jax
 import numpy as np
 import pytest
 import torch
 
+from repro.checkpoint import load_checkpoint as j_load_checkpoint
 from repro.core.abft import ABFTConfig as JConfig
 from repro.core.gcn import init_gcn as j_init_gcn
 from repro.engine import StreamingEngine as JEngine
@@ -18,6 +22,8 @@ from repro.engine import plan_rungs as j_plan_rungs
 from repro.runtime import ABFTGuard as JGuard
 from repro.runtime import GuardConfig as JGuardConfig
 from repro_torch import convert
+from repro_torch.checkpoint import load_checkpoint
+from repro_torch.checkpoint.ckpt import _flatten
 from repro_torch.core.abft import ABFTConfig as TConfig
 from repro_torch.engine import (RungTable, StreamingEngine, plan_rungs,
                                 synth_graph_stream)
@@ -25,11 +31,15 @@ from repro_torch.engine.streaming import Rung
 from repro_torch.launch import serve_stream
 from repro_torch.runtime import ABFTGuard as TGuard
 from repro_torch.runtime import GuardConfig as TGuardConfig
+from repro_torch.optim import tree_leaves
 from repro_torch.runtime import StragglerWatchdog, UnverifiableBatch
 
 DIMS = (8, 16, 4)
 BLOCK = 8
 ATOL = 1e-4
+# each package folds w_r = W·e with its own sum: a few f32 roundings of
+# row sums over 8 or 16 terms of |w| < 1
+FOLD_RTOL = 1e-6
 COUNTS = ("submitted", "served", "rejected", "rejected_oversize", "flagged",
           "batches", "singleton_dispatches", "compiles", "rung_table_size",
           "guard_flags", "guard_retries", "fused_hits", "fused_fallbacks",
@@ -49,14 +59,21 @@ def _params(seed=0):
                                          device="cpu")
 
 
-def _engines(stream, *, n_slots=4, guard_cfg=None, **kw):
+def _engines(stream, *, n_slots=4, guard_cfg=None, ckpt=None, **kw):
+    """(the reference's engine, the port's) on one stream's rungs;
+    ``ckpt``: a directory under which each writes its checkpoints
+    (``ref/``, ``port/``)."""
     jp, tp = _params()
     jr = j_plan_rungs(stream[:4], n_slots=n_slots, block=BLOCK)
     tr = plan_rungs(stream[:4], n_slots=n_slots, block=BLOCK)
     jg = JGuard(JGuardConfig(**guard_cfg)) if guard_cfg else JGuard()
     tg = TGuard(TGuardConfig(**guard_cfg)) if guard_cfg else TGuard()
-    return (JEngine(jp, JConfig(), jr, guard=jg, **kw),
-            StreamingEngine(tp, TConfig(), tr, guard=tg, device="cpu", **kw))
+    jkw, tkw = dict(kw), dict(kw)
+    if ckpt is not None:
+        jkw["checkpoint_dir"] = str(ckpt / "ref")
+        tkw["checkpoint_dir"] = str(ckpt / "port")
+    return (JEngine(jp, JConfig(), jr, guard=jg, **jkw),
+            StreamingEngine(tp, TConfig(), tr, guard=tg, device="cpu", **tkw))
 
 
 def _drive(engine, stream, dt=0.01):
@@ -131,23 +148,52 @@ def test_stream_matches_reference(path, granularity):
 
 @pytest.mark.parametrize("path", [{}, {"fused_network": True}],
                          ids=["two-pass", "network"])
-def test_sticky_fault_degrades_the_ladder_like_the_reference(path):
+def test_sticky_fault_degrades_the_ladder_like_the_reference(path,
+                                                             tmp_path):
     """A stuck accumulator in the level-0 backend: retries re-execute
     through the same poisoned backend, the guard escalates with no restore
     path, and the engine fails the batch over down its ladder — every
-    request is still served, with the same verdicts as the reference."""
+    request is still served, with the same verdicts as the reference.  At
+    every degrade both engines checkpoint their folded params: the same
+    step dirs with the same ``extra``; the weights bit for bit, each
+    package's own fold of ``w_r`` within ``FOLD_RTOL``."""
     stream = _stream(12)
     jeng, teng = _engines(stream, inject=(0, 0, 0, 100.0),
                           guard_cfg=dict(max_retries=1, max_restores=1,
                                          persistent_window=4,
                                          persistent_threshold=2),
-                          **path)
+                          ckpt=tmp_path, **path)
     tres = _drive(teng, stream)
     jres = _drive(jeng, stream)
     stats = _same(jres, tres, jeng, teng)
     assert stats["served"] == stats["submitted"] == 12
     assert stats["degrades"] >= 1 and stats["failovers"] >= 1
     assert not any(r.flag for r in tres)
+    steps = [sorted(d for d in os.listdir(tmp_path / who)
+                    if d.startswith("step_")) for who in ("ref", "port")]
+    assert steps[0] == steps[1] and 1 <= len(steps[1]) <= stats["degrades"]
+    for step in steps[1]:
+        ref, port = (json.load(open(tmp_path / who / step / "manifest.json"))
+                     for who in ("ref", "port"))
+        assert port == ref
+        assert port["extra"]["backend"] in stats["backend_ladder"]
+        assert port["extra"]["degrade_level"] < stats["degrade_level"]
+    jsaved, jstep = j_load_checkpoint(str(tmp_path / "ref"), jeng.params)
+    tsaved, tstep = load_checkpoint(str(tmp_path / "port"), teng.params)
+    assert tstep == jstep == int(steps[1][-1][len("step_"):])
+    jleaves = jax.tree_util.tree_flatten_with_path(jsaved)[0]
+    tleaves = _flatten(tsaved)
+    assert [k for k, _ in tleaves] == [
+        "/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in kp)
+        for kp, _ in jleaves]
+    for (key, t), (_, j) in zip(tleaves, jleaves):
+        if key.endswith("w_r"):
+            np.testing.assert_allclose(t.numpy(), np.asarray(j),
+                                       rtol=FOLD_RTOL, atol=FOLD_RTOL)
+        else:
+            assert t.numpy().tobytes() == np.asarray(j).tobytes(), key
+    for (_, t), want in zip(tleaves, tree_leaves(teng.params)):
+        assert torch.equal(t, want)
 
 
 @pytest.mark.parametrize("granularity,tier", [
@@ -256,9 +302,6 @@ def test_options_that_need_later_slices_raise():
     stream = _stream(2)
     _jp, tp = _params()
     rungs = plan_rungs(stream, n_slots=2, block=BLOCK)
-    with pytest.raises(NotImplementedError, match="A12"):
-        StreamingEngine(tp, TConfig(), rungs, checkpoint_dir="ckpt",
-                        device="cpu")
     for bad in (dict(oversize_policy="explode"), dict(granularity="layer"),
                 dict(queue_capacity=0), dict(hang_timeout=0.0)):
         with pytest.raises(ValueError):
