@@ -82,11 +82,21 @@ checkpoints.  The card-vs-CPU cut of whisper-medium (and of any model
 whose cut sits over half its gate) also reports each side's distance from
 a float64 run of the same cut on the CPU (``card_vs_f64``, ``cpu_vs_f64``).
 
+``coverage`` (after ``gat``) proves ABFT coverage on the card
+(``analysis/coverage.py``): the packed GCN step at Cora's widths at every
+granularity and tier, the engine forward and a train step on full Cora,
+GAT on full Cora, gemma-2b at 18 layers, whisper-medium whole and every
+other LM at its cut are traced under check tagging with their kernels
+launching — 0 unchecked sites on every guarded step, the kernel site nodes
+equal to the launches kernel by kernel, tagged outputs bit for bit the
+untagged run's, gemma-2b's cut the same manifest on the card and the CPU,
+and ``python -m repro_torch.analysis.lint`` as a process.
+
 One JSON object per phase is printed (``env``, ``build``, ``kernel_checks``,
 ``lm_kernels``, ``lm_grads``, ``serve``, ``fault``, ``stream``,
 ``full_graph``, ``campaign_gcn``, ``sparse``, ``sharded``, ``gat`` (one a
-graph), ``lm_serve``, ``campaign_lm``, ``lm_archs`` (one a model),
-``lm_train``, ``train_driver``, ``serve_cli``), then the
+graph), ``coverage``, ``lm_serve``, ``campaign_lm``, ``lm_archs`` (one a
+model), ``lm_train``, ``train_driver``, ``serve_cli``), then the
 ``kernels``
 summary line, the card's name and power limit as ``nvidia-smi`` gives them,
 and a last line ``{"ok": true, "device": {...}}``.
@@ -255,6 +265,17 @@ NELL_LOGIT_RTOL = 1e-6           # NELL's logits vs the f64 forward: + rtol
 # -> 3) at block 128, 155 stripes padded to 156 and staged once, 1, 2 and
 # 4 shards on one card, the two-pass (B1) and fused-layer (B2) paths
 SHARDED = dict(graph="pubmed", block=128, shards=(1, 2, 4), seed=0, reps=5)
+# the ABFT coverage proof (analysis/coverage.py, the abftlint CLI's steps)
+# traced on the card with the kernels launching: the packed GCN step on the
+# first served batch at Cora's widths (block 128) at every granularity and
+# fusion tier, and unguarded; the engine forward (dense and bcoo) and a GCN
+# train step on full Cora; gemma-2b at all 18 layers (LM's batch and
+# prompt); whisper-medium whole (its ARCHS spec); every other LM family at
+# its card-vs-CPU cut (2 layers, recurrentgemma 3; B as in ARCHS, prompt
+# cut_prompt); GAT on full Cora; gemma-2b's cut traced on the card and on
+# the CPU; the CLI as processes.  `backward` is the GCN train step's
+# unchecked products at 2 layers, the reference's count (ROADMAP A13.2)
+COVERAGE = dict(backward=5)
 
 
 def emit(phase: str, **fields) -> None:
@@ -4979,6 +5000,285 @@ def _tree_to(tree, dev, dtype=None):
     return tree.to(dev, dtype or tree.dtype)
 
 
+def coverage_trace(torch, rows, launches, name, fn, args, *, carry=(),
+                   guarded=True, want=None, grans=None):
+    """Trace ``fn(*args)`` under check tagging on the card
+    (``analysis.coverage.trace``) and hold the proof's gates: no plain
+    call; the kernel site nodes equal the launches of the trace kernel by
+    kernel (and ``want``, a derived count, where given); a guarded step
+    has 0 unchecked sites (an unguarded one, ``guarded=False``, no checked
+    site and no sink; ``None`` leaves it to the caller) and sinks of
+    granularities ``grans``; the traced run's outputs equal an untagged
+    run's bit for bit.  Appends the trace's row (seconds, nodes, sites,
+    sinks, peak GB) to ``rows``, its launches to ``launches``; returns the
+    manifest."""
+    from repro_torch.analysis.coverage import (analyze_graph, format_report,
+                                               kernel_site_counts, trace)
+    from repro_torch.kernels import runtime
+
+    clean = [t for t in _leaves(fn(*args)) if isinstance(t, torch.Tensor)]
+    outs = []
+
+    def captured(*a):
+        out = fn(*a)
+        outs.append(out)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_counts()
+    t0 = time.perf_counter()
+    gm = trace(captured, *args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {k: v for k, v in runtime.launch_counts().items() if v}
+    plain = {k: v for k, v in runtime.plain_counts().items() if v}
+    m = analyze_graph(gm, step=name, carry=carry)
+    nodes = len(gm.graph.nodes)
+    del gm
+    sites = kernel_site_counts(m)
+    tagged = [t for t in _leaves(outs) if isinstance(t, torch.Tensor)]
+    rows.append(dict(
+        step=name, seconds=seconds, nodes=nodes,
+        sites=m.n_checked + m.n_unchecked, kernel_sites=sites,
+        launches=counts, n_checked=m.n_checked, n_unchecked=m.n_unchecked,
+        n_sinks=m.n_sinks, sink_granularities=list(m.sink_granularities),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+    del outs
+    problems = []
+    if plain:
+        problems.append(f"plain calls {plain}")
+    if sites != counts or (want is not None and sites != want):
+        problems.append(f"kernel sites {sites}, launches {counts}, "
+                        f"derived {want}")
+    if guarded and (m.n_unchecked or not m.n_checked):
+        problems.append(format_report(m))
+    if guarded is False and (m.n_checked or not m.n_unchecked or m.n_sinks):
+        problems.append(f"unguarded: {m.n_checked} checked, "
+                        f"{m.n_unchecked} unchecked, {m.n_sinks} sinks")
+    if grans is not None and m.sink_granularities != grans:
+        problems.append(f"sinks {m.sink_granularities}, want {grans}")
+    if len(clean) != len(tagged) or not all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(clean, tagged)):
+        problems.append("tagged outputs differ from the untagged run's")
+    if problems:
+        emit("coverage", rows=rows)
+        raise AssertionError(f"coverage {name}: " + "; ".join(problems))
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    return m
+
+
+def _site_keys(m):
+    return [(s.kind, s.name, s.out_shape, s.granularities, s.provenance,
+             s.checked) for s in m.checked_ops + m.unchecked_ops]
+
+
+def phase_coverage(torch):
+    """The ABFT coverage proof on the card (``COVERAGE``): each step traced
+    under check tagging with its kernels launching, every matmul-shaped
+    node and kernel site walked back from the check sinks
+    (:func:`coverage_trace`'s gates); gemma-2b's cut traced on the card
+    and on the CPU, the same sites in the same order; the CLI as
+    processes, exit 0 guarded and 1 with ``--mode none``.  Returns the
+    kernel launches of the traces."""
+    import dataclasses
+
+    from repro_torch.analysis.coverage import analyze_step
+    from repro_torch.analysis.lint import lm_step
+    from repro_torch.core.abft import ABFTConfig, summarize
+    from repro_torch.core.datasets import make_dataset
+    from repro_torch.core.gcn import gcn_loss
+    from repro_torch.engine import Graph, fold_w_r, gcn_forward
+    from repro_torch.engine.gat import (fold_gat_w_r, init_gat,
+                                        make_gat_serve_step)
+    from repro_torch.engine.lm import fold_lm_w_r
+    from repro_torch.engine.streaming import (make_packed_serve_step,
+                                              packed_step_args)
+    from repro_torch.models.transformer import init_model
+
+    t_phase = time.perf_counter()
+    cfg = ABFTConfig(mode="fused", threshold=1e-3, relative=True)
+    rows, launches = [], {}
+
+    # (a) GCN at Cora's widths: the first served batch, every tier
+    _stream, batches = make_stream_batches(SERVE["block"])
+    pb = batches[0]
+    del batches
+    params = make_params(torch)
+    n_layers = len(params["layers"])
+    folded = fold_w_r(params, cfg)
+    args = packed_step_args(pb, "cuda")
+    for gran, opts, kernel, per, sinks in (
+            ("graph", {}, "spmm_abft", n_layers, "graph"),
+            ("stripe", {}, "spmm_abft", n_layers, "stripe"),
+            ("slot", {}, "spmm_abft", n_layers, "stripe"),
+            ("graph", {"fused_layer": True}, "gcn_fused", n_layers, "graph"),
+            ("slot", {"fused_network": True}, "gcn_network", 1, "slot")):
+        step = make_packed_serve_step(folded, cfg, pb.n_slots,
+                                      granularity=gran, **opts)
+        tier = "".join(f" --{k.replace('_', '-')}" for k in opts)
+        coverage_trace(torch, rows, launches, f"gcn-serve/{gran}{tier}",
+                       step, args, want={kernel: per}, grans=(sinks,))
+    off = ABFTConfig(mode="none")
+    coverage_trace(torch, rows, launches, "gcn-serve/graph --mode none",
+                   make_packed_serve_step(fold_w_r(params, off), off,
+                                          pb.n_slots), args,
+                   guarded=False, want={"spmm_abft": n_layers})
+    del args, folded
+
+    ds = make_dataset("cora")
+    h0 = torch.from_numpy(ds.features.todense()).cuda()
+    s_dense = torch.from_numpy(ds.s.todense()).cuda()
+    for backend, s in (("dense", s_dense),
+                       ("bcoo", ds.s.to_sparse(device="cuda"))):
+        def fwd(h0, s=s, backend=backend):
+            logits, checks = gcn_forward(params, Graph(s=s, h0=h0), cfg,
+                                         backend=backend, device="cuda")
+            rep = summarize(checks, cfg, device="cuda")
+            return logits, rep.flag, rep.max_rel
+
+        coverage_trace(torch, rows, launches, f"gcn-forward/{backend}", fwd,
+                       (h0,), want={}, grans=("layer",))
+    labels = torch.arange(h0.shape[0], device="cuda") % DIMS[-1]
+
+    def train(h0, *ws):
+        ws = [w.detach().requires_grad_() for w in ws]
+        loss, rep = gcn_loss({"layers": [{"w": w} for w in ws]}, s_dense,
+                             h0, labels, None, cfg, device="cuda")
+        grads = torch.autograd.grad(loss, ws)
+        return loss, rep.flag, [w - 1e-2 * g for w, g in zip(ws, grads)]
+
+    m = coverage_trace(torch, rows, launches, "gcn-train", train,
+                       (h0, *[lay["w"] for lay in params["layers"]]),
+                       guarded=None, want={}, grans=("layer",))
+    # the backward's products, and only they, are unchecked: each one
+    # attributed to train's torch.autograd.grad line
+    back = {x.provenance for x in m.unchecked_ops}
+    if m.n_unchecked != COVERAGE["backward"] or len(back) != 1 or \
+            not next(iter(back)).endswith("(train)") or not all(
+                x.provenance.startswith("src/repro_torch/")
+                for x in m.checked_ops):
+        raise AssertionError(f"coverage gcn-train: {m.n_checked} checked, "
+                             f"{m.n_unchecked} unchecked at {sorted(back)}")
+    backward = dict(unchecked=m.n_unchecked, provenance=sorted(back),
+                    shapes=[list(x.out_shape) for x in m.unchecked_ops])
+    del s_dense, h0, params, ds
+
+    # (e) GAT on full Cora (phase_gat's adjacency and weights)
+    ds = make_dataset("cora", normalize=False)
+    n, dims = ds.stats.nodes, GAT[0]["dims"]
+    adj = torch.zeros((n, n), dtype=torch.float32, device="cuda")
+    adj[torch.from_numpy(ds.s.row).cuda(),
+        torch.from_numpy(ds.s.col).cuda()] = 1.0
+    h = torch.from_numpy(ds.features.todense()).cuda()
+    gat = fold_gat_w_r(init_gat(torch.Generator().manual_seed(GAT_SEED),
+                                dims, device="cuda"), cfg)
+    serve = make_gat_serve_step(cfg)
+    coverage_trace(torch, rows, launches, "gat-serve",
+                   lambda p, x, a: serve(p, x, a, -1, 0.0), (gat, h, adj),
+                   want={"matmul_abft": 2 * (len(dims) - 1)},
+                   grans=("layer",))
+    del ds, adj, h, gat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b)-(d) the LMs: gemma-2b whole, whisper-medium whole, the others at
+    # their cut; prefill and one decode step each
+    abft = ABFTConfig(mode="fused", threshold=1e-3, relative=True)
+    models = [(lm_config(), dict(batch=LM["batch"], prompt=LM["prompt"],
+                                 cache=LM["prompt"] + LM["new"]))]
+    for spec in ARCHS:
+        whole = spec["arch"] == "whisper-medium"
+        c = arch_config(spec["arch"], None if whole else
+                        spec.get("cut_layers", LM["cut_layers"]))
+        prompt = spec["prompt"] if whole else LM["cut_prompt"]
+        models.append((c, dict(batch=spec["batch"], prompt=prompt,
+                               cache=prompt + spec["new"],
+                               src=spec.get("src"))))
+    for c, size in models:
+        lm_params = fold_lm_w_r(init_model(c, LM["seed"], device="cuda"),
+                                c, abft)
+        for step in ("lm-prefill", "lm-decode"):
+            fn, ops, carry = lm_step(c, abft, step, "cuda",
+                                     params=lm_params, **size)
+            want = {k: v for k, v in lm_step_launches(
+                c, step[3:]).items() if v}
+            coverage_trace(torch, rows, launches,
+                           f"{step}/{c.name}/{c.n_layers}", fn, ops,
+                           carry=carry, want=want, grans=("layer",))
+            del fn, ops
+        del lm_params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # gemma-2b's cut, traced on the card and on the CPU: one manifest
+    cut_cfg = dataclasses.replace(lm_config(), n_layers=LM["cut_layers"])
+    host = init_model(cut_cfg, LM["seed"], device="cpu")
+    size = dict(batch=LM["batch"], prompt=LM["cut_prompt"],
+                cache=LM["cut_prompt"] + LM["cut_decode"])
+    cut = {}
+    for step in ("lm-prefill", "lm-decode"):
+        sides = {}
+        for dev in ("cuda", "cpu"):
+            p = fold_lm_w_r(_tree_to(host, dev), cut_cfg, abft)
+            fn, ops, carry = lm_step(cut_cfg, abft, step, dev, params=p,
+                                     **size)
+            t0 = time.perf_counter()
+            sides[dev] = analyze_step(fn, *ops, step=step, carry=carry)
+            sides[dev + "_seconds"] = time.perf_counter() - t0
+            del p, fn, ops
+        a, b = sides["cuda"], sides["cpu"]
+        same = _site_keys(a) == _site_keys(b) and \
+            (a.n_sinks, a.sink_granularities) == \
+            (b.n_sinks, b.sink_granularities)
+        cut[step] = dict(sites=len(_site_keys(a)), sinks=a.n_sinks,
+                         same=same, card_seconds=sides["cuda_seconds"],
+                         cpu_seconds=sides["cpu_seconds"])
+        if not same:
+            emit("coverage", rows=rows, cut=cut)
+            raise AssertionError(f"coverage: gemma-2b cut {step}: the "
+                                 f"card's manifest differs from the CPU's")
+    del host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CLI as processes, on the card (the smoke twin of gemma-2b)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+    # both processes at once: each spends most of its time starting
+    cli, procs = [], []
+    t0 = time.perf_counter()
+    for extra, want_rc in (([], 0), (["--mode", "none"], 1)):
+        argv = [sys.executable, "-m", "repro_torch.analysis.lint",
+                "--step", "lm-decode", "--arch", "gemma-2b", *extra]
+        procs.append((argv, want_rc, subprocess.Popen(
+            argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    try:
+        for argv, want_rc, proc in procs:
+            out, _ = proc.communicate(timeout=600)
+            lines = out.strip().splitlines()
+            cli.append(dict(argv=argv[3:], returncode=proc.returncode,
+                            seconds=time.perf_counter() - t0,
+                            output=lines[-1:]))
+            if proc.returncode != want_rc:
+                emit("coverage", rows=rows, cut=cut, cli=cli,
+                     log=lines[-20:])
+                raise AssertionError(f"abftlint {' '.join(argv[3:])}: exit "
+                                     f"{proc.returncode}, want {want_rc}")
+    finally:
+        for _argv, _rc, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    emit("coverage", rows=rows, cut=cut, cli=cli, backward=backward,
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def run_only(torch, smi, names, archs=None) -> int:
     """The phases ``names`` alone, after the build (``lm_archs`` over the
     models ``archs`` when given); prints each phase's line and no final
@@ -4995,7 +5295,8 @@ def run_only(torch, smi, names, archs=None) -> int:
                   serve_cli=lambda: phase_serve_cli(torch),
                   sparse=lambda: phase_sparse(torch),
                   sharded=lambda: phase_sharded(torch),
-                  gat=lambda: phase_gat(torch))
+                  gat=lambda: phase_gat(torch),
+                  coverage=lambda: phase_coverage(torch))
     unknown = [n for n in names if n not in phases]
     if unknown:
         raise SystemExit(f"chip_smoke: --only takes {sorted(phases)}, not "
@@ -5018,7 +5319,8 @@ def main() -> int:
 
     # --stop-after build|kernels cuts the run short (a first look at a new
     # kernel); --only runs the build and the phases named (the LM phases,
-    # train_driver, serve_cli), --archs cuts lm_archs to the models named:
+    # train_driver, serve_cli, coverage), --archs cuts lm_archs to the
+    # models named:
     # a first look at a changed phase.  Such runs print no final "ok" line
     import argparse
     ap = argparse.ArgumentParser()
@@ -5047,7 +5349,7 @@ def main() -> int:
     phase_full_graph(torch, params)
     phase_campaign_gcn(torch)
     del batches, params
-    for phase in (phase_sparse, phase_sharded, phase_gat):
+    for phase in (phase_sparse, phase_sharded, phase_gat, phase_coverage):
         for name, count in phase(torch).items():
             launches[name] = launches.get(name, 0) + count
     for phase in (phase_lm_serve, phase_lm_archs, phase_lm_train,

@@ -4,7 +4,12 @@
   memory, tiles, splits) that the kernel launchers assert against;
 * :mod:`repro_torch.analysis.syncs` — AST lint for implicit host syncs,
   recompiles in loops, and mutable-default hazards in the engine, launch
-  and fault layers (``scan_tree`` is the gate: zero findings).
+  and fault layers (``scan_tree`` is the gate: zero findings);
+* :mod:`repro_torch.analysis.coverage` — the ABFT coverage proof: a step
+  traced with ``torch.fx`` under check tagging, every matmul-shaped ATen
+  node and kernel site walked back from the check sinks;
+* :mod:`repro_torch.analysis.lint` — the ``abftlint`` CLI over the three
+  passes (coverage, the shared-memory pricing of ``vmem``, syncs).
 
 The kernel wrappers import ``vmem``, so this ``__init__`` stays
 import-light: submodules load lazily.
@@ -13,7 +18,7 @@ from __future__ import annotations
 
 import importlib
 
-_SUBMODULES = ("vmem", "syncs")
+_SUBMODULES = ("vmem", "syncs", "coverage", "lint")
 
 
 def __getattr__(name):

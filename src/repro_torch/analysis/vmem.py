@@ -19,7 +19,8 @@ statistics) and the kernel wrappers (the launches), so they cannot drift.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+import dataclasses
+from typing import List, NamedTuple, Optional, Sequence
 
 # Dynamic shared memory one block can use on sm_90: 227 KB of the SM's
 # 256 KB (the rest stays with L1 and the CUDA runtime).  ``--vmem-budget`` /
@@ -577,3 +578,190 @@ def flash_blocks_per_sm(dh: int, *, itemsize: int = 4) -> int:
     """Blocks of ``flash_checksum`` that one SM's shared memory holds (each
     also takes the 1 KB the card reserves a block)."""
     return SM_SMEM_BYTES // (flash_smem_bytes(dh, itemsize=itemsize) + 1024)
+
+
+# ---------------------------------------------------------------------------
+# RungTable lint: evaluate the streaming server's whole shape menu against
+# the budget before warmup() runs a single rung.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RungVerdict:
+    """Static shared-memory verdict for one rung of a streaming shape
+    menu (the reference's fields; bytes are one block's shared memory)."""
+
+    stripe_cap: int
+    width_cap: int
+    n_slots: int
+    rows: int                 # stripe_cap * block — padded row count
+    network_bytes: Optional[int]   # whole-network kernel (if requested)
+    layer_bytes: int          # widest per-layer fused kernel
+    budget: int
+    network_fits: Optional[bool]
+    layer_fits: bool
+
+    @property
+    def fits(self) -> bool:
+        """The rung is lint-clean when its *requested* fusion tier fits:
+        the whole-network tier when enabled, else the per-layer tier."""
+        if self.network_fits is not None:
+            return self.network_fits
+        return self.layer_fits
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def lint_rung_table(table, dims: Sequence[int], *, block: int,
+                    block_g: int = 128, budget: int = FUSED_SMEM_BUDGET,
+                    fused_network: bool = False) -> List[RungVerdict]:
+    """Evaluate every rung of a ``RungTable`` against the budget.
+
+    ``table`` is duck-typed (anything with ``.rungs`` whose entries carry
+    ``stripe_cap``/``width_cap``/``n_slots``) so this module never imports
+    the engine.  ``dims`` is the layer-width stack ``[f0, f1, ..., fL]``;
+    ``block`` the packed block size (bm == bk).  Uses the predicates the
+    engine consults (:func:`fused_layer_fits`, :func:`fused_network_fits`),
+    so a "fits" here is the decision the served step will take."""
+    dims = [int(d) for d in dims]
+    out: List[RungVerdict] = []
+    for r in table.rungs:
+        rows = int(r.stripe_cap) * int(block)
+        layer_bytes = max(
+            fused_vmem_bytes(dims[ell], dims[ell + 1], block, block,
+                             block_g=block_g)
+            for ell in range(len(dims) - 1))
+        net_bytes = net_fits = None
+        if fused_network:
+            net_bytes = network_vmem_bytes(dims, block, rows,
+                                           block_g=block_g)
+            net_fits = fused_network_fits(dims, block, rows,
+                                          block_g=block_g, budget=budget)
+        out.append(RungVerdict(
+            stripe_cap=int(r.stripe_cap), width_cap=int(r.width_cap),
+            n_slots=int(r.n_slots), rows=rows,
+            network_bytes=net_bytes, layer_bytes=layer_bytes,
+            budget=int(budget), network_fits=net_fits,
+            layer_fits=all(
+                fused_layer_fits(dims[ell], dims[ell + 1], block, block,
+                                 block_g=block_g, budget=budget)
+                for ell in range(len(dims) - 1))))
+    return out
+
+
+def _rung_bytes(v: RungVerdict) -> int:
+    """The bytes of a rung's requested fusion tier."""
+    return v.network_bytes if v.network_fits is not None else v.layer_bytes
+
+
+def assert_rung_table_fits(table, dims: Sequence[int], *, block: int,
+                           block_g: int = 128,
+                           budget: int = FUSED_SMEM_BUDGET,
+                           fused_network: bool = False) -> List[RungVerdict]:
+    """:func:`lint_rung_table`, raising ``ValueError`` naming each
+    over-budget rung — the rejection a streaming server wants before
+    ``warmup()`` runs anything."""
+    verdicts = lint_rung_table(table, dims, block=block, block_g=block_g,
+                               budget=budget, fused_network=fused_network)
+    bad = [v for v in verdicts if not v.fits]
+    if bad:
+        tiers = [f"rung(stripes={v.stripe_cap}, width={v.width_cap}, "
+                 f"slots={v.n_slots}): {_rung_bytes(v)} bytes > budget "
+                 f"{v.budget}" for v in bad]
+        raise ValueError(
+            "RungTable exceeds the shared-memory budget at its requested "
+            "fusion tier; these rungs would fall back at every step:\n  "
+            + "\n  ".join(tiers))
+    return verdicts
+
+
+# ---------------------------------------------------------------------------
+# Per-launch pricing of a traced graph: every kernel site node's shared
+# memory, from its operand shapes, by the functions the wrappers assert.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class KernelSmemEstimate:
+    """Shared memory of one block of one traced kernel launch (the
+    counterpart of the reference's ``PallasVmemEstimate``)."""
+
+    name: str
+    provenance: str
+    shape: tuple              # (bm, bk, G), (M, N, K) or (dh,), by kernel
+    total_bytes: int          # 0 where the kernel does not take the shape
+    budget: int
+
+    @property
+    def fits(self) -> bool:
+        return 0 < self.total_bytes <= self.budget
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def _val(arg):
+    if isinstance(arg, (list, tuple)):
+        return [_val(a) for a in arg]
+    return arg.meta["val"] if hasattr(arg, "meta") else arg
+
+
+def kernel_site_smem(name: str, args: Sequence) -> tuple:
+    """((shape key), shared-memory bytes) of one launch of kernel site
+    ``name`` with the (traced) operands ``args``, in the op's argument
+    order (``kernels/sites.py``)."""
+    a = [_val(x) for x in args]
+    if name == "spmm_abft":
+        _nbm, _w, bm, bk = a[1].shape
+        g = int(a[2].shape[1])
+        plan = spmm_plan(g, bm, bk)
+        return (bm, bk, g), 0 if plan is None else plan.smem
+    if name == "gcn_fused":
+        _nbm, _w, bm, bk = a[1].shape
+        g = int(a[3].shape[1])
+        plan = fused_plan(g, bm, bk)
+        return (bm, bk, g), 0 if plan is None else plan.smem
+    if name == "gcn_fused_combine":
+        g, bm, bk = int(a[1].shape[1]), int(a[3]), int(a[4])
+        plan = fused_plan(g, bm, bk)
+        return (bm, bk, g), 0 if plan is None else plan.smem
+    if name == "gcn_network":
+        _nbm, _w, bm, _bk = a[1].shape
+        dims = [int(a[2].shape[1])] + [int(w.shape[1]) for w in a[3]]
+        return tuple(dims), network_vmem_bytes(dims, bm, a[2].shape[0])
+    if name in ("matmul_abft", "matmul_abft_grouped"):
+        x, y, trans_b = a[0], a[1], bool(a[3])
+        m, k = x.shape[-2:]
+        n = y.shape[-2] if trans_b else y.shape[-1]
+        item = x.element_size()
+        smem = matmul_thin_smem_bytes(m, item, trans_b) \
+            if m <= MATMUL_SMALL_M else matmul_wide_smem_bytes(item, trans_b)
+        return (int(m), int(n), int(k)), smem
+    if name == "flash_checksum":
+        dh = int(a[0].shape[3])
+        return (dh,), flash_smem_bytes(dh, itemsize=a[0].element_size())
+    raise ValueError(f"no shared-memory model for kernel site {name!r}")
+
+
+def graph_smem_report(gm, *, budget: int = FUSED_SMEM_BUDGET
+                      ) -> List[KernelSmemEstimate]:
+    """Price every kernel site node of a graph traced by
+    ``analysis.coverage.trace`` — the counterpart of the reference's
+    ``jaxpr_vmem_report``: one estimate per launch, from the node's operand
+    shapes, by :func:`spmm_plan`, :func:`fused_plan`,
+    :func:`network_vmem_bytes`, :func:`matmul_thin_smem_bytes` /
+    :func:`matmul_wide_smem_bytes` and :func:`flash_smem_bytes` — the
+    functions the wrappers assert against the library."""
+    from .coverage import PROV_KEY, site_kind
+
+    out = []
+    for node in gm.graph.nodes:
+        if node.op != "call_function" or \
+                site_kind(node.target) != "kernel":
+            continue
+        name = node.target._overloadpacket.__name__
+        shape, smem = kernel_site_smem(name, node.args)
+        out.append(KernelSmemEstimate(
+            name=name, provenance=node.meta.get(PROV_KEY, "<unknown>"),
+            shape=tuple(int(d) for d in shape), total_bytes=int(smem),
+            budget=int(budget)))
+    return out

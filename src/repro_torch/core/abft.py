@@ -19,8 +19,11 @@ backs every implementation — :func:`resolve_w_r`, :func:`fold_w_r_tree`,
 :func:`check_chain` and the report reducers — lives here, op-generically:
 none of it mentions GCNs.
 
-Counterpart of the JAX package's ``repro/core/abft.py``.  ``Check.diff`` has
-no check-sink marker (that marker exists for jaxpr static analysis only).
+Counterpart of the JAX package's ``repro/core/abft.py``.  ``Check.diff``
+routes its pair through the check-sink marker (``core/marker.py``) while
+tagging is on, which is what lets ``abftlint``'s coverage pass see "this
+value reached an eq. 4-6 comparison" in a traced graph; outside a lint
+trace it is the identity.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from .checksum import (
     row_checksum,
     total_checksum,
 )
+from .marker import tag_check
 
 Tensor = torch.Tensor
 
@@ -101,7 +105,12 @@ class Check:
                              f"in {GRANULARITIES}")
 
     def diff(self) -> Tensor:
-        return (self.predicted - self.actual).abs()
+        # every report path (flag/elementwise/summarize/per_*_report)
+        # funnels through this subtraction, so routing the pair through
+        # the check-sink marker here is what lets abftlint's coverage pass
+        # see the comparison; tag_check is the identity outside lint traces
+        p, a = tag_check(self.predicted, self.actual, self.granularity)
+        return (p - a).abs()
 
     def _scale(self) -> Tensor:
         # the relative scale must stay FINITE: an overflowed output

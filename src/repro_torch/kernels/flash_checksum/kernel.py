@@ -37,6 +37,7 @@ from repro_torch.analysis.vmem import (FLASH_BLOCK_K, FLASH_BLOCK_Q,
                                         FUSED_SMEM_BUDGET, flash_first_block,
                                         flash_head_tile, flash_part_start,
                                         flash_smem_bytes)
+from repro_torch.core.marker import tagging_enabled
 from repro_torch.kernels import acc_dtype
 
 Tensor = torch.Tensor
@@ -198,7 +199,13 @@ def flash_checksum_kernel(q: Tensor, k: Tensor, v: Tensor,
 
     Operands on a CUDA device launch the CUDA kernel (one launch, counted in
     ``flash_checksum_kernel.launches``) or raise; only operands that lie on
-    the CPU take :func:`flash_checksum_plain`."""
+    the CPU take :func:`flash_checksum_plain`.  Under check tagging the call
+    is one ``repro_torch::flash_checksum`` op (``kernels/sites.py``)."""
+    if tagging_enabled():
+        from repro_torch.kernels import sites
+
+        return sites.flash_checksum(q, k, v, vr, causal=causal, window=window,
+                                    with_stats=with_stats)
     if q.device.type == "cpu":
         return flash_checksum_plain(q, k, v, vr, causal=causal,
                                     window=window, with_stats=with_stats)

@@ -53,6 +53,7 @@ from repro_torch.analysis.vmem import (
     network_workspace_bytes,
     slice_part_floats,
 )
+from repro_torch.core.marker import tagging_enabled
 
 Tensor = torch.Tensor
 Inject = Optional[Tuple[int, int, float]]
@@ -165,7 +166,14 @@ def gcn_fused_kernel(block_cols: Tensor, values: Tensor, h: Tensor,
     Operands on a CUDA device launch the CUDA kernels — the combination,
     then the sweep, in stream order from one C call, counted as one launch
     in ``gcn_fused_kernel.launches`` — or raise; only operands that lie on
-    the CPU take :func:`gcn_fused_plain`."""
+    the CPU take :func:`gcn_fused_plain`.  Under check tagging the call is
+    one ``repro_torch::gcn_fused`` op (``kernels/sites.py``)."""
+    if tagging_enabled():
+        from repro_torch.kernels import sites
+
+        return sites.gcn_fused(block_cols, values, h, w, wr, inject=inject,
+                               with_check=with_check,
+                               with_slots=with_slots)
     if values.device.type == "cpu":
         return gcn_fused_plain(block_cols, values, h, w, wr, inject=inject,
                                with_check=with_check, with_slots=with_slots)
@@ -233,7 +241,13 @@ def gcn_fused_combine(h: Tensor, w: Tensor, wr: Tensor, *,
     only inside :func:`gcn_fused_kernel`.  Operands on a CUDA device
     launch the kernel (one launch, counted in
     ``gcn_fused_combine.launches``) or raise; operands on the CPU take the
-    plain products."""
+    plain products.  Under check tagging the call is one
+    ``repro_torch::gcn_fused_combine`` op (``kernels/sites.py``)."""
+    if tagging_enabled():
+        from repro_torch.kernels import sites
+
+        return sites.gcn_fused_combine(h, w, wr, block=block,
+                                       with_check=with_check)
     if h.device.type == "cpu":
         return h.float() @ w.float(), h.float() @ wr.float()
     from repro_torch.kernels import runtime
@@ -362,7 +376,14 @@ def gcn_network_kernel(block_cols: Tensor, values: Tensor, h0: Tensor,
 
     Operands on a CUDA device launch the CUDA kernel (one launch, counted
     in ``gcn_network_kernel.launches``) or raise; only operands that lie on
-    the CPU take :func:`gcn_network_plain`."""
+    the CPU take :func:`gcn_network_plain`.  Under check tagging the call is
+    one ``repro_torch::gcn_network`` op (``kernels/sites.py``)."""
+    if tagging_enabled():
+        from repro_torch.kernels import sites
+
+        return sites.gcn_network(block_cols, values, h0, ws, wrs,
+                                 inject=inject, with_check=with_check,
+                                 stash_acts=stash_acts)
     if values.device.type == "cpu":
         return gcn_network_plain(block_cols, values, h0, ws, wrs,
                                  inject=inject, with_check=with_check,

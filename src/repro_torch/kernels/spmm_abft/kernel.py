@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.analysis.vmem import G_QUANTUM, SpmmPlan, spmm_plan
+from repro_torch.core.marker import tagging_enabled
 
 Tensor = torch.Tensor
 Inject = Optional[Tuple[int, int, float]]
@@ -99,7 +100,12 @@ def spmm_abft_kernel(block_cols: Tensor, values: Tensor, x: Tensor,
 
     Operands on a CUDA device launch the CUDA kernel (one launch, counted in
     ``spmm_abft_kernel.launches``) or raise; only operands that lie on the
-    CPU take :func:`spmm_abft_plain`."""
+    CPU take :func:`spmm_abft_plain`.  Under check tagging the call is one
+    ``repro_torch::spmm_abft`` op (``kernels/sites.py``)."""
+    if tagging_enabled():
+        from repro_torch.kernels import sites
+
+        return sites.spmm_abft(block_cols, values, x, xr, inject=inject)
     if values.device.type == "cpu":
         return spmm_abft_plain(block_cols, values, x, xr, inject=inject)
     from repro_torch.kernels import runtime
