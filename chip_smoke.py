@@ -92,11 +92,21 @@ equal to the launches kernel by kernel, tagged outputs bit for bit the
 untagged run's, gemma-2b's cut the same manifest on the card and the CPU,
 and ``python -m repro_torch.analysis.lint`` as a process.
 
+``mesh`` (last) runs the LM mesh on DTensor (``launch/mesh.py``): the
+dry run's CLI as two processes, started before ``serve`` so that they
+trace beside the card's phases (gemma-2b at every shape on (16, 16) and
+(2, 16, 16), decode_32k for the nine others; ``meta`` shards over a fake
+process group), gemma-2b at full width served on a real one-rank (1, 1)
+mesh bit for bit the unsharded run, the cost model (``launch/costs.py``)
+held against that run, and the 2-layer cut on a (2, 4) mesh of local
+ranks (every rank's shard on the one card) for a train step and a
+prefill within the LM gate.
+
 One JSON object per phase is printed (``env``, ``build``, ``kernel_checks``,
 ``lm_kernels``, ``lm_grads``, ``serve``, ``fault``, ``stream``,
 ``full_graph``, ``campaign_gcn``, ``sparse``, ``sharded``, ``gat`` (one a
 graph), ``coverage``, ``lm_serve``, ``campaign_lm``, ``lm_archs`` (one a
-model), ``lm_train``, ``train_driver``, ``serve_cli``), then the
+model), ``lm_train``, ``train_driver``, ``serve_cli``, ``mesh``), then the
 ``kernels``
 summary line, the card's name and power limit as ``nvidia-smi`` gives them,
 and a last line ``{"ok": true, "device": {...}}``.
@@ -110,6 +120,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -203,6 +214,12 @@ ARCHS = (
 # 2-step warmup (step 1's learning rate is 0, step 2's half); the card
 # against the CPU on a 2-layer cut at T 128; then one step of
 # whisper-medium at its ARCHS spec (1500 source frames, T 224)
+# the LM mesh (``mesh``): the dry run as two CLI processes beside the card's
+# phases (gemma-2b at every shape on both production meshes; decode_32k on
+# (16, 16) for the other nine models), gemma-2b served at lm_serve's cell
+# on a one-rank (1, 1) mesh for ``decode`` greedy steps, and the 2-layer
+# cut on a (2, 4) mesh of local ranks at lm_train's cut shape
+MESH = dict(decode=8, local=(2, 4), dry_wait=900)
 TRAIN = dict(batch=2, seq=512, steps=3, seed=0, delta=25.0, warmup=2,
              total=100, cut_layers=2, cut_seq=128)
 # the training driver (launch.train) and its checkpoints: gemma-2b at its
@@ -5279,6 +5296,384 @@ def phase_coverage(torch):
     return launches
 
 
+CHILDREN = []
+
+
+def _stop_children() -> None:
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def start_dryrun(torch) -> dict:
+    """The dry run's CLI (``python -m repro_torch.launch.dryrun``) as two
+    processes, started now so that they trace beside the card's phases:
+    gemma-2b at every shape on both production meshes, and decode_32k on
+    the (16, 16) mesh for every other model.  Their shards are ``meta``
+    tensors over a fake process group: CPU work, nothing on the card."""
+    import atexit
+
+    from repro_torch.configs import list_archs
+
+    out = os.path.join(ROOT, "build", "dryrun")
+    shutil.rmtree(out, ignore_errors=True)         # only this run's cells
+    os.makedirs(out)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+    others = [a for a in list_archs() if a != LM["arch"]]
+    runs = []
+    for tag, args in (("gemma", ["--arch", LM["arch"], "--shape", "all",
+                                 "--mesh", "both"]),
+                      ("others", ["--arch", ",".join(others), "--shape",
+                                  "decode_32k", "--mesh", "pod1"])):
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                "--out", out, "--force"]
+        log = open(os.path.join(out, f"{tag}.log"), "w")
+        proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=log,
+                                stderr=subprocess.STDOUT, text=True)
+        CHILDREN.append(proc)
+        runs.append(dict(tag=tag, argv=argv[3:], proc=proc, log=log.name,
+                         t0=time.perf_counter()))
+    atexit.register(_stop_children)
+    return dict(out=out, runs=runs, others=others)
+
+
+def _dryrun_cells(dry) -> dict:
+    """Wait for the dry-run processes; each one's exit code and seconds and
+    every cell's record as its file holds it."""
+    procs, cells = [], []
+    for run in dry["runs"]:
+        try:
+            rc = run["proc"].wait(timeout=MESH["dry_wait"])
+        except subprocess.TimeoutExpired:
+            _stop_children()
+            raise AssertionError(f"mesh: the dry run {run['tag']} did not "
+                                 f"end within {MESH['dry_wait']} s")
+        with open(run["log"]) as f:
+            lines = [ln for ln in f.read().splitlines()
+                     if ln.startswith(("OK ", "SKIP", "ERROR", "done:"))]
+        procs.append(dict(argv=run["argv"], returncode=rc,
+                          seconds=time.perf_counter() - run["t0"],
+                          lines=lines))
+    for name in sorted(os.listdir(dry["out"])):
+        if name.endswith(".json"):
+            with open(os.path.join(dry["out"], name)) as f:
+                rec = json.load(f)
+            cell = {k: rec[k] for k in ("arch", "shape", "mesh", "status")}
+            if rec["status"] == "ok":
+                cell.update(
+                    trace_s=rec["trace_s"],
+                    flops_per_device=rec["flops_per_device"],
+                    bytes_per_device=rec["bytes_per_device"],
+                    peak_gib=rec["memory"]["peak_bytes"] / 2 ** 30,
+                    argument_gib=rec["memory"]["argument_bytes"] / 2 ** 30,
+                    collective_mib=rec["collectives"][
+                        "per_device_bytes_unweighted"] / 2 ** 20,
+                    collectives=rec["collectives"]["by_kind"],
+                    n_devices=rec["n_devices"])
+            else:
+                cell.update(reason=rec.get("reason") or rec.get("error"))
+            cells.append(cell)
+    return dict(processes=procs, cells=cells)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _whole(torch, x):
+    """A DTensor gathered (a LocalTensor's ranks must agree: rank 0's)."""
+    from torch.distributed._local_tensor import LocalTensor
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
+    if isinstance(x, LocalTensor):
+        vals = list(x._local_tensors.values())
+        for v in vals[1:]:
+            if not torch.equal(v, vals[0]):
+                raise AssertionError("mesh: ranks disagree on a replica")
+        x = vals[0]
+    return x
+
+
+def _nbytes(torch, tree):
+    from repro_torch.optim import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def _cost_vs_card(torch, name, fn, args, real_args):
+    """The cost model (``launch.costs``) of ``fn(*args)`` on the card
+    against the same run: its FLOPs against ``FlopCounterMode``'s, its
+    argument bytes against the real inputs', its peak beside
+    ``max_memory_allocated`` over the inputs."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.costs import step_cost_analysis
+
+    with FlopCounterMode(display=False) as counter:
+        out = fn(*args)
+    del out
+    torch.cuda.synchronize()
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cost = step_cost_analysis(fn, *args)
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated() - base
+    real_args = _nbytes(torch, real_args)
+    mem = cost["memory"]
+    entry = dict(step=name, flops=cost["flops"],
+                 flop_counter=counter.get_total_flops(),
+                 argument_bytes=mem["argument_bytes"],
+                 real_argument_bytes=real_args,
+                 peak_bytes=mem["peak_bytes"],
+                 card_peak_bytes=real_args + step_peak,
+                 peak_ratio=mem["peak_bytes"] / (real_args + step_peak),
+                 bytes_accessed=cost["bytes accessed"],
+                 trace_s=cost["trace_s"])
+    if entry["flops"] != entry["flop_counter"] or \
+            entry["argument_bytes"] != real_args:
+        raise AssertionError(f"mesh: the cost model of {name} disagrees "
+                             f"with the card's run: {entry}")
+    return entry
+
+
+def phase_mesh(torch, smi, dry):
+    """The LM mesh (``launch/mesh.py``) on DTensor: (b) gemma-2b at full
+    width, all 18 layers, f32, served at lm_serve's cell (B 2, prompt 512)
+    through ``make_prefill_step``/``make_decode_step`` on a real one-rank
+    (1, 1) mesh with params and state as DTensors placed by
+    ``ShardingRules`` — prefill and ``MESH['decode']`` greedy steps bit for
+    bit the unsharded run's, 0 flags, B4/B5 launches equal to it, 0 plain
+    calls; (d) the cost model held against the card at those shapes; (c)
+    the 2-layer full-width cut on a (2, 4) mesh of local ranks (each rank a
+    CUDA shard in this process) for one train step and one prefill, within
+    the LM gate of the unsharded card run, 0 flags, 8 launches of each
+    unsharded one; (a) the dry run's processes (started before the GCN
+    phases): both exit 0, each cell's trace seconds, FLOPs a device, peak
+    GiB and collective MiB.  Returns the launches of (b) and (c)'s sharded
+    runs."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.core.abft import ABFTConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.dryrun import fake_process_group
+    from repro_torch.launch.mesh import (ShardingRules, distribute_tree,
+                                         make_test_mesh)
+    from repro_torch.launch.steps import (init_train_state,
+                                          make_decode_step,
+                                          make_prefill_step, make_train_step)
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim import AdamWConfig
+
+    t_phase = time.perf_counter()
+    abft = ABFTConfig(mode="fused", threshold=1e-3, relative=True)
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def plain_calls():
+        return sum(runtime.plain_counts().values())
+
+    # (b) one rank, full width: sharded serving bit for bit the unsharded
+    cfg = lm_config()
+    cache_len = LM["prompt"] + MESH["decode"]
+    prefill = make_prefill_step(cfg, abft, cache_len=cache_len)
+    decode = make_decode_step(cfg, abft)
+    params = init_model(cfg, LM["seed"], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(LM["seed"])
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (LM["batch"], LM["prompt"]),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)}
+
+    def serve(p, b, place_state=None):
+        logits, states, m = prefill(p, b)
+        if place_state is not None:
+            states = place_state(states)
+        out, flags = [logits], [m["abft_flag"]]
+        for i in range(MESH["decode"]):
+            logits, states, m = decode(p, states,
+                                       _argmax_tokens(torch, logits),
+                                       LM["prompt"] + i)
+            out.append(logits)
+            flags.append(m["abft_flag"])
+        torch.cuda.synchronize()
+        return out, sum(int(_whole(torch, f)) for f in flags)
+
+    runtime.reset_counts()
+    t0 = time.perf_counter()
+    want_logits, want_flags = serve(params, batch)
+    plain_run = dict(seconds=time.perf_counter() - t0, flags=want_flags,
+                     launches={k: v for k, v in runtime.launch_counts()
+                               .items() if v}, plain_calls=plain_calls())
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"), device="cuda")
+        rules = ShardingRules(mesh)
+        dparams = distribute_tree(params, rules.params_shardings(params))
+        dbatch = distribute_tree(batch, rules.batch_shardings(batch))
+
+        def place_state(states):
+            return distribute_tree(states, rules.state_shardings(
+                states, LM["batch"], cfg.n_kv_heads))
+        runtime.reset_counts()
+        t0 = time.perf_counter()
+        got, got_flags = serve(dparams, dbatch, place_state)
+        sharded = dict(seconds=time.perf_counter() - t0, flags=got_flags,
+                       launches={k: v for k, v in runtime.launch_counts()
+                                 .items() if v}, plain_calls=plain_calls())
+        add(sharded["launches"])
+        bitwise = [bool(torch.equal(_whole(torch, g), w))
+                   for g, w in zip(got, want_logits)]
+        one_rank = dict(cell=dict(batch=LM["batch"], prompt=LM["prompt"],
+                                  decode=MESH["decode"], layers=cfg.n_layers),
+                        unsharded=plain_run, sharded=sharded,
+                        bitwise=bitwise)
+        if not all(bitwise) or got_flags or want_flags or \
+                sharded["launches"] != plain_run["launches"] or \
+                sharded["plain_calls"] or plain_run["plain_calls"]:
+            emit("mesh", one_rank=one_rank)
+            raise AssertionError("mesh: the one-rank sharded serve is not "
+                                 "the unsharded run")
+        del got, want_logits
+
+        # (d) the cost model against the card, at (b)'s shapes
+        _, dstates, _ = prefill(dparams, dbatch)
+        dstates = place_state(dstates)
+        tok = distribute_tree(batch["tokens"][:, -1:],
+                              rules.batch_shardings(batch["tokens"]))
+        costs = [_cost_vs_card(torch, "prefill", prefill, (dparams, dbatch),
+                               (params, batch)),
+                 _cost_vs_card(torch, "decode",
+                               lambda p, s, t: decode(p, s, t, LM["prompt"]),
+                               (dparams, dstates, tok),
+                               (params, dstates, tok))]
+        del dparams, dbatch, dstates, tok
+    finally:
+        dist.destroy_process_group()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the 2-layer cut on a (2, 4) mesh of local ranks
+    from torch.distributed._local_tensor import (
+        LocalTensorMode, maybe_disable_local_tensor_mode)
+    cut = dataclasses.replace(cfg, n_layers=TRAIN["cut_layers"])
+    world = math.prod(MESH["local"])
+    sched = dict(total_steps=TRAIN["total"], warmup=TRAIN["warmup"])
+    step = make_train_step(cut, abft, AdamWConfig(), **sched)
+    cut_prefill = make_prefill_step(cut, abft, cache_len=TRAIN["cut_seq"])
+    state = init_train_state(cut, TRAIN["seed"], device="cuda")
+    tb = next(SyntheticLM(cut.vocab_size, TRAIN["cut_seq"], TRAIN["batch"],
+                          seed=TRAIN["seed"]).batches())
+    tb = {k: torch.from_numpy(v).to("cuda") for k, v in tb.items()}
+    pb = {"tokens": tb["tokens"]}
+    runtime.reset_counts()
+    _, m = step(state, tb)
+    unsharded = dict(loss=float(m["loss"]), flag=bool(m["abft_flag"]),
+                     train_launches={k: v for k, v in runtime.launch_counts()
+                                     .items() if v})
+    runtime.reset_counts()
+    logits, _, m = cut_prefill(state["params"], pb)
+    unsharded.update(prefill_flag=bool(m["abft_flag"]),
+                     prefill_launches={k: v for k, v in
+                                       runtime.launch_counts().items() if v})
+    per_step = lm_step_launches(cut)
+    derived_train = {k: world * (3 * n if k.startswith("matmul") else n)
+                     for k, n in per_step.items() if n}
+    derived_prefill = {k: world * n for k, n in per_step.items() if n}
+    with fake_process_group(world), LocalTensorMode(frozenset(range(world))):
+        lmesh = make_test_mesh(MESH["local"], ("data", "model"),
+                               device="cuda")
+        rules = ShardingRules(lmesh)
+        ps = rules.params_shardings(state["params"])
+        sstate = {"params": distribute_tree(state["params"], ps),
+                  "opt": {"m": distribute_tree(state["opt"]["m"], ps),
+                          "v": distribute_tree(state["opt"]["v"], ps),
+                          "step": distribute_tree(state["opt"]["step"],
+                                                  rules.replicated())}}
+        stb = distribute_tree(tb, rules.batch_shardings(tb))
+        runtime.reset_counts()
+        t0 = time.perf_counter()
+        _, sm = step(sstate, stb)
+        torch.cuda.synchronize()
+        local = dict(train_seconds=time.perf_counter() - t0,
+                     loss=float(_whole(torch, sm["loss"])),
+                     flag=bool(_whole(torch, sm["abft_flag"])),
+                     train_launches={k: v for k, v in
+                                     runtime.launch_counts().items() if v},
+                     train_plain_calls=plain_calls())
+        del sm
+        runtime.reset_counts()
+        t0 = time.perf_counter()
+        slogits, _, sm = cut_prefill(sstate["params"], {
+            "tokens": stb["tokens"]})
+        torch.cuda.synchronize()
+        local.update(prefill_seconds=time.perf_counter() - t0,
+                     prefill_flag=bool(_whole(torch, sm["abft_flag"])),
+                     prefill_launches={k: v for k, v in
+                                       runtime.launch_counts().items() if v},
+                     prefill_plain_calls=plain_calls())
+        got = _whole(torch, slogits)
+        with maybe_disable_local_tensor_mode():
+            gap = (got - logits).abs()
+            logit_err = float(gap.max())
+            logits_ok = bool((gap <= 1e-4 + 1e-6 * logits.abs()).all())
+        add(local["train_launches"])
+        add(local["prefill_launches"])
+        del sstate, stb, slogits, sm, got
+    loss_gap = abs(local["loss"] - unsharded["loss"])
+    local_rank = dict(mesh=MESH["local"], layers=cut.n_layers,
+                      batch=TRAIN["batch"], seq=TRAIN["cut_seq"],
+                      unsharded=unsharded, sharded=local,
+                      loss_gap=loss_gap,
+                      loss_gate=1e-4 + 1e-6 * abs(unsharded["loss"]),
+                      logit_max_abs_err=logit_err, logits_in_gate=logits_ok,
+                      derived_train=derived_train,
+                      derived_prefill=derived_prefill)
+    del state, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    if loss_gap > local_rank["loss_gate"] or local["flag"] or \
+            local["prefill_flag"] or unsharded["flag"] or \
+            local["train_launches"] != derived_train or \
+            local["prefill_launches"] != derived_prefill or \
+            local["train_plain_calls"] or local["prefill_plain_calls"] or \
+            not logits_ok:
+        emit("mesh", one_rank=one_rank, costs=costs, local_rank=local_rank)
+        raise AssertionError("mesh: the (2, 4) local-rank cut is off the "
+                             "unsharded card run")
+
+    # (a) the dry run's processes
+    dryrun = _dryrun_cells(dry)
+    oks = [c for c in dryrun["cells"] if c["status"] == "ok"]
+    skips = [c for c in dryrun["cells"] if c["status"] == "skipped"]
+    gemma_ok = [c for c in oks if c["arch"] == LM["arch"]]
+    emit("mesh", nvidia_smi=smi, one_rank=one_rank, costs=costs,
+         local_rank=local_rank, dryrun=dryrun,
+         seconds=time.perf_counter() - t_phase)
+    if any(p["returncode"] for p in dryrun["processes"]) or \
+            len(gemma_ok) != 6 or len(skips) != 2 or \
+            len(oks) != 6 + len(dry["others"]):
+        raise AssertionError(f"mesh: the dry run gave {len(oks)} ok and "
+                             f"{len(skips)} skipped cells, exit codes "
+                             f"{[p['returncode'] for p in dryrun['processes']]}")
+    return launches
+
+
 def run_only(torch, smi, names, archs=None) -> int:
     """The phases ``names`` alone, after the build (``lm_archs`` over the
     models ``archs`` when given); prints each phase's line and no final
@@ -5296,7 +5691,8 @@ def run_only(torch, smi, names, archs=None) -> int:
                   sparse=lambda: phase_sparse(torch),
                   sharded=lambda: phase_sharded(torch),
                   gat=lambda: phase_gat(torch),
-                  coverage=lambda: phase_coverage(torch))
+                  coverage=lambda: phase_coverage(torch),
+                  mesh=lambda: phase_mesh(torch, smi, start_dryrun(torch)))
     unknown = [n for n in names if n not in phases]
     if unknown:
         raise SystemExit(f"chip_smoke: --only takes {sorted(phases)}, not "
@@ -5343,6 +5739,7 @@ def main() -> int:
     phase_lm_grads(torch)
     if stop_after == "kernels":
         return 0
+    dry = start_dryrun(torch)         # CPU processes beside the card's phases
     launches = phase_serve(torch, batches, params)
     phase_fault(torch, batches, params)
     phase_stream(torch, params, smi)
@@ -5357,6 +5754,8 @@ def main() -> int:
         for name, count in phase(torch, smi).items():
             launches[name] = launches.get(name, 0) + count
     phase_serve_cli(torch)
+    for name, count in phase_mesh(torch, smi, dry).items():
+        launches[name] = launches.get(name, 0) + count
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -3,12 +3,17 @@
 Counterpart of the JAX package's ``repro/checkpoint/elastic.py``.  The
 manifest stores logical (global) shapes, so a checkpoint restores whole
 whatever wrote it; the reference then ``jax.device_put``s each leaf with a
-``NamedSharding`` of a new mesh.  The port has no LM mesh yet (ROADMAP
-A12.3), so a placement here is a device — a ``torch.device`` or a device
-string — or ``None``, which keeps the leaf where
-:func:`~repro_torch.checkpoint.ckpt.load_checkpoint` put it (the device of
-the matching ``tree_like`` leaf).  The mesh-aware form, a sharding spec a
-leaf, waits for A12.3.
+``NamedSharding`` of a new mesh.  Here a placement is one of
+
+  * a ``(mesh, placements)`` pair — a
+    :class:`~repro_torch.launch.mesh.NamedSharding` from
+    :class:`~repro_torch.launch.mesh.ShardingRules` unpacks as one — and
+    the leaf becomes a DTensor distributed on that mesh, each rank holding
+    the slice its spec gives;
+  * a device (a ``torch.device`` or a device string): the leaf moves there;
+  * ``None``: the leaf stays where
+    :func:`~repro_torch.checkpoint.ckpt.load_checkpoint` put it (the device
+    of the matching ``tree_like`` leaf).
 """
 from __future__ import annotations
 
@@ -36,15 +41,24 @@ def _placements(like, places) -> Iterator[Any]:
 
 
 def reshard_restore(dirpath: str, tree_like, placements) -> Tuple[Any, int]:
-    """Restore the latest checkpoint and move each leaf to the device that
-    ``placements`` (a tree matching ``tree_like``) gives it; ``None``
-    leaves it where ``load_checkpoint`` put it.  ``(tree, step)``, or
-    ``(None, -1)`` when there is no checkpoint."""
+    """Restore the latest checkpoint and place each leaf as ``placements``
+    (a tree matching ``tree_like``) says: on a mesh, on a device, or, for
+    ``None``, where ``load_checkpoint`` put it (module docstring).
+    ``(tree, step)``, or ``(None, -1)`` when there is no checkpoint."""
     restored, step = load_checkpoint(dirpath, tree_like)
     if restored is None:
         return None, -1
-    placed = [leaf if place is None else leaf.to(torch.device(place))
-              for (_, leaf), place in zip(
-                  _flatten(restored), _placements(tree_like, placements),
-                  strict=True)]
+    placed = [_place(leaf, place) for (_, leaf), place in zip(
+        _flatten(restored), _placements(tree_like, placements), strict=True)]
     return _unflatten(tree_like, iter(placed)), step
+
+
+def _place(leaf: torch.Tensor, place) -> torch.Tensor:
+    if place is None:
+        return leaf
+    if isinstance(place, (str, torch.device)):
+        return leaf.to(torch.device(place))
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh, pls = place
+    return distribute_tensor(leaf.to(mesh.device_type), mesh, pls)

@@ -1,5 +1,5 @@
-"""The synthetic token stream and the host-sharded, prefetching loader of
-the LM train step (the JAX package's ``repro/data``).  ``make_batch_specs``
-belongs to the dry run and is not here."""
+"""The synthetic token stream, the dry run's input specs and the
+host-sharded, prefetching loader of the LM train step (the JAX package's
+``repro/data``)."""
 from .loader import Prefetcher, ShardedLoader  # noqa: F401
-from .synthetic import SyntheticLM  # noqa: F401
+from .synthetic import SyntheticLM, make_batch_specs  # noqa: F401

@@ -2,7 +2,9 @@
 
 A copy of the JAX package's ``repro/data/synthetic.py`` generator (numpy
 only): for one ``seed`` and host id its batches are the reference's bit for
-bit.  The stream is a seeded Markov-ish mixture so the LM loss actually
+bit.  :func:`make_batch_specs` gives the dry run's input specs: tensors on
+the ``meta`` device (shapes and dtypes only, nothing allocated).  The
+stream is a seeded Markov-ish mixture so the LM loss actually
 decreases (pure-uniform tokens would have irreducible loss = log V): token t
 is a deterministic function of token t-1 with probability ``structure``,
 else fresh.
@@ -13,6 +15,10 @@ import dataclasses
 from typing import Dict, Iterator
 
 import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.device import DeviceLike, resolve_device
 
 
 @dataclasses.dataclass
@@ -46,3 +52,30 @@ class SyntheticLM:
                 "tokens": toks[:, :-1].astype(np.int32),
                 "labels": toks[:, 1:].astype(np.int32),
             }
+
+
+def make_batch_specs(cfg: ModelConfig, shape: ShapeConfig,
+                     prefix_len: int = 64, *, device: DeviceLike = "meta"
+                     ) -> Dict[str, torch.Tensor]:
+    """Every model input of a shape cell as an empty tensor on ``device``
+    (``meta``: shapes only), the reference's keys, shapes and dtypes: int32
+    ``tokens`` (and ``labels`` to train), float32 ``src_embeds`` for an
+    encoder-decoder or ``prefix_embeds`` for a model with a front end; a
+    decode step takes one new token (its state comes from the model)."""
+    dev = resolve_device(device)
+    b, t = shape.global_batch, shape.seq_len
+
+    def spec(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device=dev)
+
+    if shape.kind == "decode":
+        return {"tokens": spec(b, 1)}
+    specs = {"tokens": spec(b, t)}
+    if shape.kind == "train":
+        specs["labels"] = spec(b, t)
+    if cfg.family == "encdec":
+        specs["src_embeds"] = spec(b, t, cfg.d_model, dtype=torch.float32)
+    elif cfg.frontend:
+        specs["prefix_embeds"] = spec(b, prefix_len, cfg.d_model,
+                                      dtype=torch.float32)
+    return specs

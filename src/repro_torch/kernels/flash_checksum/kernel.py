@@ -38,7 +38,7 @@ from repro_torch.analysis.vmem import (FLASH_BLOCK_K, FLASH_BLOCK_Q,
                                         flash_head_tile, flash_part_start,
                                         flash_smem_bytes)
 from repro_torch.core.marker import tagging_enabled
-from repro_torch.kernels import acc_dtype
+from repro_torch.kernels import acc_dtype, any_dtensor
 
 Tensor = torch.Tensor
 DTYPES = (torch.float32, torch.bfloat16)
@@ -199,9 +199,10 @@ def flash_checksum_kernel(q: Tensor, k: Tensor, v: Tensor,
 
     Operands on a CUDA device launch the CUDA kernel (one launch, counted in
     ``flash_checksum_kernel.launches``) or raise; only operands that lie on
-    the CPU take :func:`flash_checksum_plain`.  Under check tagging the call
-    is one ``repro_torch::flash_checksum`` op (``kernels/sites.py``)."""
-    if tagging_enabled():
+    the CPU take :func:`flash_checksum_plain`.  Under check tagging, or on
+    DTensor operands, the call is one ``repro_torch::flash_checksum`` op
+    (``kernels/sites.py``), which launches on each local shard."""
+    if tagging_enabled() or any_dtensor(q, k, v, vr):
         from repro_torch.kernels import sites
 
         return sites.flash_checksum(q, k, v, vr, causal=causal, window=window,

@@ -39,7 +39,7 @@ from repro_torch.analysis.vmem import (MATMUL_BLOCK_K, MATMUL_SMALL_M,
                                       matmul_splits, matmul_thin_smem_bytes,
                                       matmul_tile, matmul_wide_smem_bytes)
 from repro_torch.core.marker import tagging_enabled
-from repro_torch.kernels import acc_dtype
+from repro_torch.kernels import acc_dtype, any_dtensor
 
 Tensor = torch.Tensor
 DTYPES = (torch.float32, torch.bfloat16)
@@ -192,9 +192,10 @@ def matmul_abft_kernel(a: Tensor, b: Tensor, br: Optional[Tensor] = None,
     Operands on a CUDA device launch the CUDA kernel (one launcher call —
     two kernels when M <= 16 — counted once in
     ``matmul_abft_kernel.launches``) or raise; only operands that lie on the
-    CPU take :func:`matmul_abft_plain`.  Under check tagging the call is one
-    ``repro_torch::matmul_abft`` op (``kernels/sites.py``)."""
-    if tagging_enabled():
+    CPU take :func:`matmul_abft_plain`.  Under check tagging, or on DTensor
+    operands, the call is one ``repro_torch::matmul_abft`` op
+    (``kernels/sites.py``), which launches on each local shard."""
+    if tagging_enabled() or any_dtensor(a, b, br):
         from repro_torch.kernels import sites
 
         return sites.matmul_abft(a, b, br, trans_b=trans_b)
@@ -264,9 +265,10 @@ def matmul_abft_grouped_kernel(a: Tensor, b: Tensor,
     operands that lie on the CPU take :func:`matmul_abft_grouped_plain`.
     The group is a grid axis: the tile, the split count and the shared
     memory are the single product's, held against ``analysis.vmem`` as
-    :func:`matmul_abft_kernel` holds them.  Under check tagging the call is
-    one ``repro_torch::matmul_abft_grouped`` op (``kernels/sites.py``)."""
-    if tagging_enabled():
+    :func:`matmul_abft_kernel` holds them.  Under check tagging, or on
+    DTensor operands, the call is one ``repro_torch::matmul_abft_grouped``
+    op (``kernels/sites.py``)."""
+    if tagging_enabled() or any_dtensor(a, b, br):
         from repro_torch.kernels import sites
 
         return sites.matmul_abft_grouped(a, b, br, trans_b=trans_b)

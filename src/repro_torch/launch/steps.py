@@ -11,6 +11,7 @@ on the host.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
@@ -18,6 +19,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.abft import ABFTConfig
 from repro_torch.device import DeviceLike
+from repro_torch.kernels import any_dtensor
 from repro_torch.models.transformer import (init_model, lm_loss,
                                             model_decode, model_forward,
                                             model_prefill)
@@ -29,13 +31,35 @@ from repro_torch.optim import (AdamWConfig, adamw_init, adamw_leaf,
 Tensor = torch.Tensor
 
 
+def _on_mesh(step: Callable) -> Callable:
+    """``step`` as it is; when its inputs are DTensors (a sharded step,
+    ``launch/mesh.py``), run under DTensor's implicit replication — a
+    tensor the model makes on the way (positions, masks, zero
+    accumulators) is then a replicated DTensor, as the reference's SPMD
+    partitioner treats a constant — and :class:`~repro_torch.launch.mesh.
+    ReshardViews`, which gathers before a view DTensor cannot propagate,
+    as XLA reshards around a reshape."""
+    @functools.wraps(step)
+    def run(*args):
+        if not any_dtensor(*tree_leaves(args)):
+            return step(*args)
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        from repro_torch.launch.mesh import ReshardViews
+        with implicit_replication(), ReshardViews():
+            return step(*args)
+    return run
+
+
 def loss_and_grads(params: Any, cfg: ModelConfig, batch: Dict[str, Tensor],
                    abft: ABFTConfig, *, aux_weight: float = 1e-2
                    ) -> Tuple[Tensor, Any, List[Tensor]]:
     """(loss, the forward's ABFT report, the gradient of every leaf of
     ``params`` in :func:`~repro_torch.optim.tree_leaves` order) — the
     reference's ``jax.value_and_grad`` of ``lm_loss(logits, labels) +
-    aux_weight · aux``.  The params are not written: autograd runs on
+    aux_weight · aux``; on DTensor params each gradient comes in its
+    param's layout.  The params are not written: autograd runs on
     detached leaves that share their storage; a leaf the loss does not
     reach gets a zero gradient."""
     old = tree_leaves(params)
@@ -46,8 +70,18 @@ def loss_and_grads(params: Any, cfg: ModelConfig, batch: Dict[str, Tensor],
     loss = lm_loss(logits, batch["labels"]) + aux_weight * aux
     del logits
     grads = torch.autograd.grad(loss, live, allow_unused=True)
-    return loss.detach(), report, [torch.zeros_like(p) if g is None else g
+    return loss.detach(), report, [torch.zeros_like(p) if g is None else
+                                   _placed_like(g, p)
                                    for g, p in zip(grads, old)]
+
+
+def _placed_like(g: Tensor, p: Tensor) -> Tensor:
+    """A DTensor gradient in its param's layout — the data-parallel
+    reduction: a partial sum over the batch shards becomes the param's own
+    shards (a reduce-scatter or an all-reduce); anything else as it is."""
+    if any_dtensor(g) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(cfg: ModelConfig, abft: ABFTConfig, opt: AdamWConfig,
@@ -125,7 +159,7 @@ def make_train_step(cfg: ModelConfig, abft: ABFTConfig, opt: AdamWConfig,
         }
         return new_state, metrics
 
-    return train_step
+    return _on_mesh(train_step)
 
 
 def init_train_state(cfg: ModelConfig, generator=0, *,
@@ -152,7 +186,7 @@ def make_prefill_step(cfg: ModelConfig, abft: ABFTConfig, cache_len: int
                                                cache_len)
         return logits, states, {"abft_flag": report.flag,
                                 "abft_max_rel": report.max_rel}
-    return prefill
+    return _on_mesh(prefill)
 
 
 def make_decode_step(cfg: ModelConfig, abft: ABFTConfig) -> Callable:
@@ -163,4 +197,4 @@ def make_decode_step(cfg: ModelConfig, abft: ABFTConfig) -> Callable:
                                               pos, abft)
         return logits, states, {"abft_flag": report.flag,
                                 "abft_max_rel": report.max_rel}
-    return decode
+    return _on_mesh(decode)

@@ -42,7 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.abft import ABFTConfig, Check
 from repro_torch.kernels import acc_dtype
 from repro_torch.kernels.flash_checksum.ops import flash_checksum
-from repro_torch.models.common import apply_rope, dense, init_dense
+from repro_torch.models.common import apply_rope, dense, init_dense, pad_seq
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -117,11 +117,12 @@ def _maybe_inject(o: Tensor) -> Tensor:
     val = _ATTN_INJECT["value"]
     if val is None:
         return o
-    o = o.clone()
-    flat = o.view(-1)
-    flat[0] = flat[0] + torch.as_tensor(val, dtype=flat.dtype,
-                                        device=flat.device)
-    return o
+    # a select, not an indexed write: on a sharded o (DTensor) the write
+    # would land in a redistributed temporary
+    first = torch.zeros(o.shape, dtype=torch.bool, device=o.device)
+    first.view(-1)[0] = True
+    return torch.where(first, o + torch.as_tensor(val, dtype=o.dtype,
+                                                  device=o.device), o)
 
 
 def _project_qkv(p: Params, x: Tensor, kv_x: Tensor, cfg: ModelConfig,
@@ -172,12 +173,10 @@ def streaming_attention(
     n_chunks = -(-s // chunk)
     pad = n_chunks * chunk - s
     if pad:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-        k_positions = torch.nn.functional.pad(k_positions, (0, pad),
-                                              value=_FAR)
+        k, v = pad_seq(k, pad), pad_seq(v, pad)
+        k_positions = pad_seq(k_positions, pad, _FAR)
         if vrg is not None:
-            vrg = torch.nn.functional.pad(vrg, (0, 0, 0, 0, 0, pad))
+            vrg = pad_seq(vrg, pad)
     qp_b = q_positions[:, :, None, None, None]            # [B,T,1,1,1]
 
     if n_chunks == 1:
@@ -249,10 +248,8 @@ def _split_second_pass(q, k, v, m, l, *, q_positions, k_positions, causal,
     n_chunks = -(-s // chunk)
     pad = n_chunks * chunk - s
     if pad:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        ve = torch.nn.functional.pad(ve, (0, 0, 0, pad))
-        k_positions = torch.nn.functional.pad(k_positions, (0, pad),
-                                              value=_FAR)
+        k, ve = pad_seq(k, pad), pad_seq(ve, pad)
+        k_positions = pad_seq(k_positions, pad, _FAR)
     qp_b = q_positions[:, :, None, None, None]
     pred = torch.zeros((b,), dtype=f32, device=q.device)
     for c0 in range(0, n_chunks * chunk, chunk):
@@ -405,10 +402,13 @@ def init_cache(cfg: ModelConfig, batch: int, length: int, dtype,
 
 def _masked_update(buf: Tensor, new: Tensor, slot: int) -> Tensor:
     """Ring-buffer write of ``new`` [B, 1, ...] at ``slot`` into a copy of
-    ``buf`` [B, length, ...]."""
-    out = buf.clone()
-    out[:, slot] = new[:, 0].to(buf.dtype)
-    return out
+    ``buf`` [B, length, ...]: a select against the slot's one-hot mask, as
+    the reference writes it.  (An indexed write into a clone would, on a
+    cache whose length is sharded (MQA), land in DTensor's redistributed
+    temporary and be lost.)"""
+    hit = torch.arange(buf.shape[1], device=buf.device) == slot
+    hit = hit.reshape(1, -1, *(1,) * (buf.ndim - 2))
+    return torch.where(hit, new.to(buf.dtype), buf)
 
 
 def attention_decode(

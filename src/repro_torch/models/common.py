@@ -167,6 +167,31 @@ def init_embed(gen: torch.Generator, vocab: int, d: int) -> Params:
     return {"table": trunc_normal(gen, (vocab, d), 1.0)}
 
 
+def pad_seq(x: Tensor, n: int, value: float = 0) -> Tensor:
+    """``x`` [B, S, ...] with ``n`` entries of ``value`` appended along the
+    sequence axis: ``F.pad``'s result, made as a concatenation, which
+    DTensor places right on a 2-D mesh (its ``constant_pad_nd`` strategy,
+    torch 2.11, gives the output one placement)."""
+    tail = x.new_full((x.shape[0], n, *x.shape[2:]), value)
+    return torch.cat([x, tail], dim=1)
+
+
+def _whole_vocab(table: Tensor) -> Tensor:
+    """The embedding table with its vocabulary gathered when it is a
+    DTensor sharded on it (an all-gather): a lookup in a vocabulary-sharded
+    table is a masked partial sum, whose gradient DTensor (torch 2.11)
+    cannot redistribute back; anything else as it is."""
+    from repro_torch.kernels import any_dtensor
+
+    if not any_dtensor(table) or not any(
+            pl.is_shard(0) for pl in table.placements):
+        return table
+    from torch.distributed.tensor import Replicate
+
+    return table.redistribute(table.device_mesh, [
+        Replicate() if pl.is_shard(0) else pl for pl in table.placements])
+
+
 def embed(p: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
     """The table's rows of ``tokens``, in the compute dtype (scaled by
     sqrt(d) where the config asks).  The lookup is ``F.embedding``, a
@@ -174,7 +199,8 @@ def embed(p: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
     tokens and sums each token's rows in a fixed order (indexing's backward
     may add repeated tokens' rows with atomics): two train steps of one
     batch give the table's gradient bit for bit."""
-    x = F.embedding(tokens.long(), p["table"]).to(cdtype(cfg))
+    x = F.embedding(tokens.long(), _whole_vocab(p["table"]))
+    x = x.to(cdtype(cfg))
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)

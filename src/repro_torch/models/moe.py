@@ -128,8 +128,8 @@ def moe_block(p: Params, x: Tensor, cfg: ModelConfig, abft: ABFTConfig
     tok_idx = torch.arange(n_tok, device=x.device).repeat_interleave(k)
     row = torch.where(keep, flat_expert * cap + slot_pos,
                       torch.full_like(slot_pos, n_exp * cap))
-    flat = torch.zeros((n_exp * cap + 1, d), dtype=xt.dtype, device=x.device)
-    flat[row] = xt[tok_idx]
+    flat = torch.zeros((n_exp * cap + 1, d), dtype=xt.dtype,
+                       device=x.device).index_put((row,), xt[tok_idx])
     buf = flat[:n_exp * cap].view(n_exp, cap, d)
 
     # --- expert MLPs: one grouped launch a product over all E experts

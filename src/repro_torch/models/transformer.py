@@ -60,6 +60,7 @@ from repro_torch.models.common import (
     init_embed,
     init_norm,
     norm_apply,
+    pad_seq,
     sinusoid_positions,
 )
 from repro_torch.models.mlp import init_mlp, mlp_block
@@ -313,13 +314,12 @@ def layer_apply_seq(lp: Params, x: Tensor, btype: str, cfg: ModelConfig,
         if vr is None:
             vr = torch.zeros((*k.shape[:2], cfg.n_heads), dtype=k.dtype,
                              device=k.device)
-        fpad = torch.nn.functional.pad
         new_state = {
-            "k": fpad(k, (0, 0, 0, 0, 0, pad)),
-            "v": fpad(v, (0, 0, 0, 0, 0, pad)),
-            "vr": fpad(vr.to(k.dtype), (0, 0, 0, pad)),
-            "pos": fpad(kpos.to(torch.int32), (0, pad),
-                        value=2 ** 30),            # unwritten -> masked
+            "k": pad_seq(k, pad),
+            "v": pad_seq(v, pad),
+            "vr": pad_seq(vr.to(k.dtype), pad),
+            "pos": pad_seq(kpos.to(torch.int32), pad,
+                           2 ** 30),               # unwritten -> masked
         }
         if enc_out is not None:
             new_state["xk"], new_state["xv"] = xk, xv
@@ -542,8 +542,11 @@ def lm_loss(logits: Tensor, labels: Tensor, mask: Optional[Tensor] = None
     [B, T, V] f32 buffer (1 GB at gemma-2b's B 2 x T 512), and both forms
     pick the same value: the one-hot sum adds exact zeros to it."""
     lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - picked
+    # the gather's [B, T, 1] is subtracted before its last axis is dropped:
+    # on vocabulary-sharded logits DTensor reduces the gather's partial
+    # result at the shape it made it
+    picked = torch.gather(logits, -1, labels.long()[..., None])
+    nll = (lse[..., None] - picked)[..., 0]
     if mask is not None:
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1.0)
