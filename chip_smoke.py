@@ -243,6 +243,21 @@ FLIP_LEAF = {"attn": ("attn", "wq"), "rwkv": ("tm", "wr"),
              "rglru": ("rglru", "proj_x")}
 # B5's sliding window at small ragged shapes: T = S = 257 (B, H, Kh, dh),
 # and danube's head dim at a short window
+# B4's ragged shapes (M, K, N, trans_b).  The wide path's: one row past a
+# 128-row block (129) and one short of two (255), K and N not multiples of
+# 4, B and B^T.  The thin path's: K not a multiple of 32 or of the split,
+# N (B) or K (B^T) not a multiple of 4 — the scalar tail
+MATMUL_RAGGED = ((200, 100, 72, False), (17, 33, 65, True),
+                 (129, 70, 130, False), (129, 70, 130, True),
+                 (255, 99, 131, False), (255, 99, 131, True),
+                 (1, 2050, 129, False), (2, 16384, 64, False),
+                 (16, 2050, 130, False), (1, 33, 65, True),
+                 (2, 100, 72, True))
+# the grouped launch's (M, K, N) at 5 groups, both tile paths: K not a
+# multiple of 4 (each group's b_r then starts off 16-byte alignment), of
+# 32 or of the split, N not a multiple of 4
+GROUPED_RAGGED = ((1, 33, 65), (6, 100, 72), (8, 70, 130), (16, 2050, 130),
+                  (17, 33, 65), (120, 70, 130), (129, 99, 131))
 FLASH_WINDOWS = (1, 31, 32, 33, 100, 300)
 FLASH_WINDOWED = (((1, 257, 257, 4, 2, 64), FLASH_WINDOWS),
                   ((1, 300, 300, 8, 2, 120), (64,)))
@@ -2574,6 +2589,200 @@ def check_grouped_shape(torch, g, m, k, n, dtype, gen, timed):
     return entry
 
 
+def bt_entry(torch, m, k, n, gen) -> dict:
+    """B4's wide Bᵀ path at one backward shape: dA = dC·Bᵀ of a forward
+    [M, K] @ [K, N] product — ``matmul_abft_kernel(dc, b, trans_b=True)``
+    on B as it lies, unchecked, as the autograd Function launches it —
+    against its plain version, and whether it equals the same product on a
+    transposed copy of B (the B path) bit for bit; its device ms beside the
+    B path's, ``torch.matmul(dc, b.mT)`` (TF32 off), the plain version's ms
+    and the bound."""
+    from repro_torch.kernels.matmul_abft.kernel import (matmul_abft_kernel,
+                                                        matmul_abft_plain)
+    dc = torch.randn(m, n, generator=gen, device="cuda")
+    b = torch.randn(k, n, generator=gen, device="cuda") * n ** -0.5
+    bt = b.t().contiguous()
+    got = matmul_abft_kernel(dc, b, None, trans_b=True)[0]
+    err = assert_close(f"matmul_abft B^T M={m} K={n} N={k} c", got,
+                       matmul_abft_plain(dc, b, None, trans_b=True)[0])
+    same = torch.equal(got, matmul_abft_kernel(dc, bt, None)[0])
+    bound, by, _n_bytes, _n_ops = matmul_bound(torch, m, n, k, torch.float32)
+    return dict(m=m, k=n, n=k, max_abs_err=err, bitwise_b_path=same,
+                device_ms=device_ms(lambda: matmul_abft_kernel(
+                    dc, b, None, trans_b=True), reps=5),
+                device_ms_b=device_ms(lambda: matmul_abft_kernel(
+                    dc, bt, None), reps=5),
+                library_device_ms=device_ms(lambda: torch.matmul(dc, b.mT),
+                                            reps=5),
+                library_note="torch.matmul(dc, b.mT), TF32 off",
+                plain_ms=time_ms(lambda: matmul_abft_plain(
+                    dc, b, None, trans_b=True), warm=1, reps=1),
+                bound_ms=bound, bound_by=by)
+
+
+def same_bits(torch, x, y) -> bool:
+    """Equal bits, NaN exactly where NaN (a zero row's extra entry)."""
+    if x is None or y is None:
+        return x is None and y is None
+    nx, ny = torch.isnan(x), torch.isnan(y)
+    as_int = {4: torch.int32, 2: torch.int16}[x.element_size()]
+    return x.dtype == y.dtype and torch.equal(nx, ny) and torch.equal(
+        x.masked_fill(nx, 0).view(as_int), y.masked_fill(ny, 0).view(as_int))
+
+
+def grouped_edge_counts(g, m):
+    """Edge row counts of a G-group, M-row launch: all 0, all M, one full
+    group among empty ones, and a mix of counts on either side of 16 and
+    of 64 (of 0..M where M < 15), 0 and M."""
+    sides = [c for c in (15, 16, 17, 63, 64, 65) if c <= m] or \
+        list(range(m + 1))
+    cycle = sides + [0, m]
+    return {"zero": [0] * g, "full": [m] * g,
+            "one_full": [m if i == g // 2 else 0 for i in range(g)],
+            "mixed": [cycle[i % len(cycle)] for i in range(g)]}
+
+
+def grouped_live_bound(torch, counts, m, k, n, dtype):
+    """Least time of a counted grouped launch: the live rows of A, the B
+    of the experts with a live row and every group's b_r read once (an
+    idle group's for its zero rows' extra entries), all of C, block_sums
+    and extra written once, against the live rows' 2 r N K + 2 r K
+    operations at the type's peak (``matmul_bound`` over the live rows and
+    experts)."""
+    from repro_torch.analysis.vmem import matmul_tile
+    item = torch.empty((), dtype=dtype).element_size()
+    g = len(counts)
+    tm, tn = matmul_tile(m)
+    live = [r for r in counts if r]
+    n_bytes = item * (sum(live) * k + len(live) * k * n + g * m * n) + 4 * (
+        g * k + g * m + g * -(-m // tm) * -(-n // tn))
+    n_ops = sum(2 * r * n * k + 2 * r * k for r in live)
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    t_b, t_o = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / peak * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def check_grouped_counts(torch, g, m, k, n, gen, sources, timed):
+    """The grouped matmul_abft at one expert shape (f32) with per-group row
+    counts: for each named set of counts in ``sources``, the kernel against
+    its plain version and, bit for bit (NaN where NaN), against the launch
+    without counts on A with the dead rows zeroed — A's dead rows keep their
+    random values, which the counts must hide —, and a second run bit for
+    bit the first; optionally its times with and without the counts beside
+    torch.bmm over the capacity rows and both bounds (capacity rows; live
+    rows and experts)."""
+    from repro_torch.kernels.matmul_abft.kernel import (
+        matmul_abft_grouped_kernel as kern, matmul_abft_grouped_plain,
+        zero_dead_rows)
+    a = torch.randn(g, m, k, generator=gen, device="cuda")
+    b = torch.randn(g, k, n, generator=gen, device="cuda") * k ** -0.5
+    br = b.sum(dim=2).contiguous()
+    head = f"matmul_abft_grouped G={g} M={m} K={k} N={n} counted"
+    entry = dict(groups=g, m=m, k=k, n=n, sets={})
+    if timed:
+        bound, by, _n_bytes, _n_ops = matmul_bound(torch, m, k, n,
+                                                   torch.float32)
+        lib_b = torch.cat([b, br[..., None]], dim=2).contiguous()
+        entry.update(
+            device_ms_uncounted=device_ms(lambda: kern(a, b, br), reps=5),
+            library_device_ms=device_ms(lambda: torch.bmm(a, lib_b), reps=5),
+            library_note="torch.bmm(a, [b | b_r]) over the capacity rows, "
+                         "TF32 off",
+            bound_ms=g * bound, bound_by=by)
+        del lib_b
+    for name, counts in sources.items():
+        tag = f"{head} {name}"
+        rows = torch.tensor(counts, dtype=torch.int32, device="cuda")
+        got = kern(a, b, br, rows=rows)
+        bare = kern(zero_dead_rows(a, rows), b, br)
+        if not all(same_bits(torch, x, y) for x, y in zip(got, bare)):
+            raise AssertionError(f"{tag}: not bit for bit the launch "
+                                 f"without counts on the zeroed rows")
+        want = matmul_abft_grouped_plain(a, b, br, rows=rows)
+        # block sums within the tolerance, no float64 witness: the rows past
+        # the counts dilute the typical |c| that check_block_sums plants
+        worst = max(assert_close(f"{tag} c", got[0], want[0]),
+                    assert_close(f"{tag} block_sums", got[1], want[1]),
+                    assert_close(f"{tag} extra", got[2], want[2]))
+        again = kern(a, b, br, rows=rows)
+        if not all(same_bits(torch, x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{tag}: a second run differs")
+        e = dict(live_experts=sum(c > 0 for c in counts),
+                 live_rows=sum(counts), bitwise_uncounted_zeroed=True,
+                 repeat_bitwise=True, max_abs_err=worst)
+        if timed:
+            live, live_by = grouped_live_bound(torch, counts, m, k, n,
+                                               torch.float32)
+            e.update(ms=time_ms(lambda: kern(a, b, br, rows=rows), reps=5),
+                     device_ms=device_ms(lambda: kern(a, b, br, rows=rows),
+                                         reps=5),
+                     bound_live_ms=live, bound_live_by=live_by)
+        entry["sets"][name] = e
+        del got, bare, want, again
+    return entry
+
+
+class grouped_record:
+    """Records the shape and row counts (a device copy: no host sync) of
+    every grouped launch the MoE blocks make while entered."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.mod, self.real, calls = moe, moe.matmul_abft_grouped, []
+
+        def spy(a, b, br=None, rows=None):
+            calls.append(((a.shape[0], a.shape[1], a.shape[2], b.shape[2]),
+                          None if rows is None else rows.clone()))
+            return self.real(a, b, br, rows)
+        moe.matmul_abft_grouped = spy
+        return calls
+
+    def __exit__(self, *exc):
+        self.mod.matmul_abft_grouped = self.real
+        return False
+
+
+def grouped_step_times(torch, calls, gen):
+    """A step's grouped launches (:class:`grouped_record`) replayed from
+    CUDA graphs on random operands of each call's shape: device ms with the
+    call's row counts and without, both bounds, live experts and rows —
+    summed over the calls."""
+    from repro_torch.kernels.matmul_abft.kernel import \
+        matmul_abft_grouped_kernel as kern
+    ops = {}
+    out = dict(launches=len(calls), device_ms=0.0, device_ms_uncounted=0.0,
+               bound_ms=0.0, bound_live_ms=0.0)
+    live_experts, live_rows = [], []
+    for shape, rows in calls:
+        g, m, k, n = shape
+        if shape not in ops:
+            a = torch.randn(g, m, k, generator=gen, device="cuda")
+            b = torch.randn(g, k, n, generator=gen, device="cuda") * k ** -0.5
+            br = b.sum(dim=2).contiguous()
+            ops[shape] = (a, b, br,
+                          device_ms(lambda: kern(a, b, br), reps=3))
+        a, b, br, bare_ms = ops[shape]
+        counts = rows.tolist()
+        out["device_ms"] += device_ms(lambda: kern(a, b, br, rows=rows),
+                                      reps=3)
+        out["device_ms_uncounted"] += bare_ms
+        out["bound_ms"] += g * matmul_bound(torch, m, k, n,
+                                            torch.float32)[0]
+        out["bound_live_ms"] += grouped_live_bound(torch, counts, m, k, n,
+                                                   torch.float32)[0]
+        live_experts.append(sum(c > 0 for c in counts))
+        live_rows.append(sum(counts) / (g * m))
+    del ops
+    if calls:
+        out.update(live_experts=dict(min=min(live_experts),
+                                     max=max(live_experts),
+                                     mean=sum(live_experts)
+                                     / len(live_experts)),
+                   live_row_share=dict(min=min(live_rows), max=max(live_rows),
+                                       mean=sum(live_rows) / len(live_rows)))
+    return out
+
+
 def flash_bound(torch, b, t, s, h, kh, dh, dtype, window=0, causal=True):
     """Least time of one launch: q, k, v, vr, o, o_extra once against the
     valid pairs' work (q·k and p·v over dh, p·vr) at the type's peak; the
@@ -2835,18 +3044,20 @@ def phase_lm_kernels(torch):
     bf16 = [check_matmul_shape(torch, m, k, n, tb, torch.bfloat16, gen,
                                False)
             for (m, k, n, tb) in shapes]
-    # ragged shapes.  The wide path's: one row past a 128-row block (129)
-    # and one short of two (255), K and N not multiples of 4, B and B^T.
-    # The thin path's: K not a multiple of 32 or of the split, N (B) or K
-    # (B^T) not a multiple of 4 — the scalar tail
+    # the Bᵀ path at the train step's dA shapes (each prefill product's
+    # backward), a generator of its own
+    bt_gen = torch.Generator(device="cuda").manual_seed(14)
+    bt = []
+    for (m, k, n, tb), counts in shapes.items():
+        if m > 16 and not tb:
+            bt.append(dict(bt_entry(torch, m, k, n, bt_gen),
+                           launches_per_train_step=counts["prefill"]))
+    bt_step = {key: sum(e[key] * e["launches_per_train_step"] for e in bt)
+               for key in ("device_ms", "device_ms_b", "library_device_ms",
+                           "plain_ms", "bound_ms")}
+    # ragged shapes (MATMUL_RAGGED)
     ragged = [check_matmul_shape(torch, m, k, n, tb, dt, gen, False)
-              for m, k, n, tb in ((200, 100, 72, False), (17, 33, 65, True),
-                                  (129, 70, 130, False), (129, 70, 130, True),
-                                  (255, 99, 131, False), (255, 99, 131, True),
-                                  (1, 2050, 129, False),
-                                  (2, 16384, 64, False),
-                                  (16, 2050, 130, False), (1, 33, 65, True),
-                                  (2, 100, 72, True))
+              for m, k, n, tb in MATMUL_RAGGED
               for dt in (torch.float32, torch.bfloat16)]
     b, t, h, kh, dh = LM["batch"], LM["prompt"], cfg.n_heads, \
         cfg.n_kv_heads, cfg.hd
@@ -2865,7 +3076,10 @@ def phase_lm_kernels(torch):
     # with its local window — MQA at dh 256 —, also in bf16 on FLASH_SEEDS
     # streams), then windowed B5 at small ragged shapes, f32 and bf16
     checked = {(e["m"], e["k"], e["n"], e["trans_b"]): e for e in per_shape}
-    grouped, grouped_bf16 = {}, []
+    grouped, grouped_bf16, counted = {}, [], {}
+    # the expert shapes again with row counts (grouped_edge_counts), from a
+    # generator of their own
+    count_gen = torch.Generator(device="cuda").manual_seed(12)
     arch_steps, flash_archs, hybrid_flash = {}, [], []
     # the MoE models' operands come from a generator of their own, so the
     # dense models' checks and the windowed ones after them see the inputs
@@ -2897,6 +3111,10 @@ def phase_lm_kernels(torch):
                     torch, *key, torch.bfloat16, agen, False))
             grouped[key].setdefault("launches_per_step_by_arch", {})[
                 acfg.name] = counts
+            if acfg.moe is not None and key not in counted:
+                counted[key] = check_grouped_counts(
+                    torch, *key, count_gen, grouped_edge_counts(*key[:2]),
+                    True)
         both = [(checked[key], c) for key, c in ashapes.items()] + \
             [(grouped[key], c) for key, c in gshapes.items()]
         arch_steps[acfg.name] = {
@@ -2938,15 +3156,12 @@ def phase_lm_kernels(torch):
                     torch, *nc, torch.bfloat16, agen, False, causal=False),
                     arch=acfg.name, attention=what))
     arch_matmul = [e for key, e in checked.items() if key not in shapes]
-    # the grouped kernel at ragged shapes, 5 groups, both tile paths: K not
-    # a multiple of 4 (each group's b_r then starts off 16-byte alignment),
-    # of 32 or of the split, N not a multiple of 4; a generator of its own
+    # the grouped kernel at ragged shapes (GROUPED_RAGGED), 5 groups, a
+    # generator of its own
     rgen = torch.Generator(device="cuda").manual_seed(9)
     grouped_ragged = [
         check_grouped_shape(torch, 5, m, k, n, dt, rgen, False)
-        for m, k, n in ((1, 33, 65), (6, 100, 72), (8, 70, 130),
-                        (16, 2050, 130), (17, 33, 65), (120, 70, 130),
-                        (129, 99, 131))
+        for m, k, n in GROUPED_RAGGED
         for dt in (torch.float32, torch.bfloat16)]
     # non-causal B5 at ragged shapes, f32 and bf16, a generator of its own:
     # S not a multiple of the 32-key block (T = S), T > S, T < S, S under
@@ -3074,6 +3289,8 @@ def phase_lm_kernels(torch):
          matmul_grouped=list(grouped.values()),
          matmul_grouped_bf16=grouped_bf16,
          matmul_grouped_ragged=grouped_ragged,
+         matmul_grouped_counted=list(counted.values()),
+         matmul_bt=dict(shapes=bt, per_train_step=bt_step),
          flash_archs=flash_archs, flash_noncausal=flash_noncausal,
          flash_noncausal_bf16=flash_noncausal_bf16,
          flash_noncausal_ragged=flash_noncausal_ragged,
@@ -4024,7 +4241,7 @@ def phase_lm_grads(torch):
     g, gm, gk, gn = next(iter(lm_grouped_shapes(acfg)))
     out["matmul_grouped_expert"] = dict(g=g, m=gm, k=gk, n=gn, **grad_entry(
         torch, "matmul_abft_grouped expert",
-        lambda x, y: GroupedMatmulAbftFunction.apply(x, y, None),
+        lambda x, y: GroupedMatmulAbftFunction.apply(x, y, None, None),
         lambda x, y: matmul_abft_grouped_plain(x, y),
         (rnd(g, gm, gk), rnd(g, gk, gn, std=gk ** -0.5)), rnd(g, gm, gn)))
     wcfg = arch_config("whisper-medium")
@@ -4693,13 +4910,19 @@ def phase_lm_archs(torch, smi):
         if spec["arch"] in SPLIT_ARCHS:
             run["fields"]["split"] = split_gates(torch, cfg, params, spec,
                                                  spec["cache"])
-        trace = None
+        trace, calls = None, []
         if cfg.moe is not None or run["fields"]["scans"] is not None \
                 or cfg.frontend:
             eng = run["eng"]
-            _, st0, _ = eng.prefill(run["tokens"])
             pos0 = spec["prompt"] + (0 if cfg.family == "encdec"
                                      else spec.get("prefix", 0))
+            # an MoE model's grouped launches of one guarded prefill and
+            # decode step: their shapes and routing's row counts
+            with grouped_record() as calls:
+                _, st0, _ = eng.prefill(run["tokens"])
+                n_prefill = len(calls)
+                if cfg.moe is not None:
+                    eng.decode(st0, run["toks"][0], pos0)
             trace = decode_trace(torch, lambda: eng.decode(
                 st0, run["toks"][0], pos0, inject=0.0))
             del eng, st0
@@ -4717,7 +4940,28 @@ def phase_lm_archs(torch, smi):
         del run, params
         gc.collect()
         torch.cuda.empty_cache()
+        if calls:
+            moe_grouped(torch, cfg, calls[:n_prefill], calls[n_prefill:])
     return launches
+
+
+def moe_grouped(torch, cfg, prefill, decode):
+    """An MoE model's grouped launches of one guarded prefill and decode
+    step (:class:`grouped_record`), each replayed on random operands with
+    its routing's row counts and without (:func:`grouped_step_times`); the
+    first MoE layer's up and down launches of each step held as
+    ``lm_kernels`` holds the edge counts (:func:`check_grouped_counts`)."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    steps = {"prefill": grouped_step_times(torch, prefill, gen),
+             "decode": grouped_step_times(torch, decode, gen)}
+    routing = []
+    for step, calls in (("prefill", prefill), ("decode", decode)):
+        for what, (shape, rows) in (("up", calls[0]), ("down", calls[2])):
+            routing.append(check_grouped_counts(
+                torch, *shape, gen, {f"routing {step} {what}":
+                                     rows.tolist()}, False))
+    emit("lm_archs_grouped", arch=cfg.name, per_step=steps,
+         routing_checks=routing)
 
 
 def phase_serve_cli(torch):

@@ -434,7 +434,9 @@ MATMUL_MAX_ITEMS = 4 * MATMUL_SMS
 # flight).
 MATMUL_STAGES = 3
 # M > 16 (prefill): the C tile one block of the wide path owns (256
-# threads, 8 x 8 outputs each).
+# threads, 8 x 8 outputs each) — a grouped launch's too, with or without
+# row counts (its blocks skip the 16-row steps past a group's count; the
+# tile, split count and shared memory are the single product's).
 MATMUL_WIDE_TILE = (128, 128)
 # M > 16: the block_sums tile, each 64-row half of a block's tile.
 MATMUL_WIDE_SUM_TILE = (64, 128)

@@ -92,10 +92,34 @@
 // else changes, so group g's outputs are bit for bit a single launch's.
 // Group g's b_r lies g K floats in, 16-byte aligned only when K % 4 == 0:
 // a ragged K reads b_r a float at a time (`fetch_br`), so any K is taken.
-// The shared memory, tile and split count are the single product's.  What
-// holds it back beyond the single launch: the capacity rows an expert does
-// not fill are multiplied all the same (the tile skips nothing), and at
-// M <= 16 every group's split sums pass through the workspace.
+// The shared memory, tile and split count are the single product's.
+//
+// Row counts.  An optional `rows` [G] (int32, on the card; with B as it
+// lies) says how many leading rows of each group are live — an MoE capacity
+// buffer fills each expert's rows from 0 — and rows at or past rows[g] are
+// taken as zero rows of A, whatever A holds there.  A counted launch runs
+// its own instances of the kernels (`COUNTED`), so a launch without counts
+// runs exactly the code it ran before counts existed.  The kernels read the
+// counts on the card (clamped to [0, M]); nothing reaches the host.  Since a
+// zero row's products are exactly +0 on finite operands, every output stays
+// bit for bit the launch without counts on A with those rows zeroed: rows
+// inside a live 16-row step are zero-filled in the stage (cp.async with
+// src_bytes 0 reads nothing), 16-row steps past the count are not multiplied
+// (their accumulators stay +0), a wide block wholly past the count and every
+// item of a group with no live row read neither A nor B.  Such a block
+// writes its zeros and the extra column of a zero row, Σ_k 0·b_r[k]: +0, or
+// NaN where b_r holds a non-finite value, from one read of b_r.  The thin
+// path walks only the live groups' items, dealt round-robin over the
+// persistent blocks, so idle experts cost one count of the groups a block.
+// A 64-row block tile for counted launches (tools/grouped_variants.py) lost
+// up to 13 % to this step skip without one, and won at most 6 % with it.
+// What still holds it back: a live row costs its whole 16-row step, and a
+// block with fewer steps still copies all of B's chunks and reads them once
+// a k, so its time falls slower than its FFMA; the thin path's split sums of
+// every live group pass through the workspace: at a decode step's capacity
+// of 6–8 rows and 64 splits, 20–25 % of the bytes of the group's B written
+// and read back, by a thin_reduce that has only (tiles x live groups)
+// blocks of work and takes a third of a counted decode launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -183,6 +207,61 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Live rows of group g: rows[g] clamped to [0, M].
+__device__ __forceinline__ int live_rows(const int* rows, int g, int M) {
+  return min(max(__ldg(rows + g), 0), M);
+}
+
+// The extra entry of a zero row of A, Σ_k 0·b_r[k]: +0, or NaN where b_r
+// holds a non-finite value (0·±Inf and 0·NaN are NaN, as FFMA makes them).
+// The block reads the group's K floats of b_r once; every thread of the
+// block calls it.
+__device__ float zero_row_extra(const float* br, int K) {
+  int bad = 0;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) bad |= !isfinite(br[k]);
+  return __syncthreads_or(bad) ? __int_as_float(0x7fffffff) : 0.f;
+}
+
+// The live groups of a counted launch in order (rows[g] > 0), the rank-th
+// by `at(rank)` for ranks that never decrease: a cursor that the whole
+// block moves in step, 32 groups a look (a warp ballot), so a block's walk
+// over all its items reads each count at most once.
+struct LiveGroups {
+  const int* rows;
+  int groups;
+  int g = -1, rank = -1;
+  __device__ __forceinline__ LiveGroups(const int* r, int n)
+      : rows(r), groups(n) {}
+  __device__ __forceinline__ int at(int r) {
+    const int lane = threadIdx.x & 31;
+    while (rank < r) {
+      int next = groups;
+      for (int base = g + 1; base < groups; base += 32) {
+        const int gg = base + lane;
+        const unsigned live =
+            __ballot_sync(0xffffffffu, gg < groups && __ldg(rows + gg) > 0);
+        if (live) {
+          next = base + __ffs(live) - 1;
+          break;
+        }
+      }
+      g = next;
+      ++rank;
+    }
+    return g;
+  }
+};
+
+// Groups with a live row (every thread of the block calls it).
+__device__ int count_live(const int* rows, int groups) {
+  int n = 0;
+  for (int g0 = 0; g0 < groups; g0 += blockDim.x) {
+    const int g = g0 + threadIdx.x;
+    n += __syncthreads_count(g < groups && __ldg(rows + g) > 0);
+  }
+  return n;
+}
+
 // b_r's 4 values [k, k + 4) of a group's row `row` (zeros past K) into
 // shared memory.  Group g's row lies g K floats in, so it starts 16-byte
 // aligned only when K % 4 == 0: then one cp.async, else a float at a time
@@ -220,24 +299,27 @@ constexpr int thin_smem_bytes() {
   return kStages * ThinStage<T, MT, TRANS>::BYTES;
 }
 
-// Persistent blocks over the (group, tile, split) items: item i is group
-// i / (tiles S) (a grouped launch's product; 0 for one product), and its
-// rest r is column tile r % tiles (256 columns, thread t owns column
-// 256 tile + t, all M rows; MT >= M is the compile-time row count) and split
-// r / tiles (K [s kc, min((s + 1) kc, K))).  Group g's operands lie g
-// products in: A + g M K, B + g K N, b_r + g K, its sums at ws + g S M (N + 1).
-// A block takes items blockIdx.x, + gridDim.x, ...,
-// and walks their chunks as one stream through a kStages-deep cp.async
-// ring, so the next item's first chunks are in flight while the current
-// item's last one is multiplied.  An item's sums go to its group's
-// ws[s, m, n] and, for tile 0 with br, A @ b_r's to ws[S M N + s M + m].
-// Which block runs which item changes no sum, so a group's outputs are bit
-// for bit those of a launch of that product alone.
-template <typename T, int MT, bool TRANS>
+// Persistent blocks over the (group, tile, split) items of the groups
+// (COUNTED: of the live groups): item i is the (i / (tiles S))-th of them
+// (a grouped launch's product; 0 for one product), and its rest r is column
+// tile r % tiles (256 columns, thread t owns column 256 tile + t, all M
+// rows; MT >= M is the compile-time row count) and split r / tiles
+// (K [s kc, min((s + 1) kc, K))).  Group g's operands lie g products in:
+// A + g M K, B + g K N, b_r + g K, its sums at ws + g S M (N + 1); COUNTED,
+// its rows at or past rows[g] are zero-filled in the stage.  A block takes items
+// blockIdx.x, + gridDim.x, ..., and walks their chunks as one stream
+// through a kStages-deep cp.async ring, so the next item's first chunks
+// are in flight while the current item's last one is multiplied.  An
+// item's sums go to its group's ws[s, m, n] and, for tile 0 with br,
+// A @ b_r's to ws[S M N + s M + m].  Which block runs which item changes no
+// sum, so a group's outputs are bit for bit those of a launch of that
+// product alone.
+template <typename T, int MT, bool TRANS, bool COUNTED>
 __global__ void __launch_bounds__(kThreads)
 thin_split_kernel(const T* __restrict__ A, const T* __restrict__ B,
                   const float* __restrict__ br, float* __restrict__ ws,
-                  int M, int N, int K, int kc, int splits, int groups) {
+                  const int* __restrict__ rows, int M, int N, int K, int kc,
+                  int splits, int groups) {
   using P = Piece<T>;
   using St = ThinStage<T, MT, TRANS>;
   constexpr int V = P::V;
@@ -249,7 +331,7 @@ thin_split_kernel(const T* __restrict__ A, const T* __restrict__ B,
   const int t = threadIdx.x;
   const int tiles = (N + kThinN - 1) / kThinN;
   const int items = tiles * splits;        // of one group
-  const int total = items * groups;
+  const int total = items * (COUNTED ? count_live(rows, groups) : groups);
   const size_t ws_group = (size_t)splits * M * (N + 1);
   // every row of the operand starts 16-byte aligned (the bases are: the
   // wrapper checks it), so pieces are whole or wholly outside
@@ -268,10 +350,11 @@ thin_split_kernel(const T* __restrict__ A, const T* __restrict__ B,
     return (min(k0 + kc, K) - k0 + kBK - 1) / kBK;
   };
 
-  // copy chunk `ch` of `item` into stage `st` (the scalar tail stores
-  // directly: the stage is not read before a later barrier)
-  auto fetch = [&](int st, int item, int ch) {
-    const int g = item / items, r = item % items;
+  // copy chunk `ch` of item rest `r` of group `g` into stage `st` (the
+  // scalar tail stores directly: the stage is not read before a later
+  // barrier)
+  auto fetch = [&](int st, int g, int r, int ch) {
+    const int mg = COUNTED ? live_rows(rows, g, M) : M;
     const int n0 = (r % tiles) * kThinN;
     const int k0 = (r / tiles) * kc + ch * kBK;
     const T* Bg = B + (size_t)g * K * N;
@@ -298,7 +381,7 @@ thin_split_kernel(const T* __restrict__ A, const T* __restrict__ B,
     T* as = stage_a(st);
     for (int p = t; p < AP; p += kThreads) {
       const int m = p / (kBK / V), col = (p % (kBK / V)) * V;
-      const int valid = m < M ? max(0, min(K - (k0 + col), V)) : 0;
+      const int valid = m < mg ? max(0, min(K - (k0 + col), V)) : 0;
       const T* src = Ag + (size_t)m * K + k0 + col;
       T* dst = as + m * St::LDA + col;
       if (vec_a) {
@@ -312,11 +395,14 @@ thin_split_kernel(const T* __restrict__ A, const T* __restrict__ B,
       fetch_br(stage_br(st) + 4 * t, br, br + (size_t)g * K, k0 + 4 * t, K);
   };
 
-  // the fetch cursor runs kStages - 1 chunks ahead of the compute cursor
+  // the fetch cursor runs kStages - 1 chunks ahead of the compute cursor;
+  // COUNTED, each has its own walk over the live groups
+  LiveGroups fetch_groups(rows, groups), groups_of(rows, groups);
   int item_i = blockIdx.x, ch_i = 0;
   auto fetch_next = [&](int st) {
     if (item_i < total) {
-      fetch(st, item_i, ch_i);
+      fetch(st, COUNTED ? fetch_groups.at(item_i / items) : item_i / items,
+            item_i % items, ch_i);
       if (++ch_i == chunks_of(item_i)) {
         ch_i = 0;
         item_i += gridDim.x;
@@ -377,7 +463,8 @@ thin_split_kernel(const T* __restrict__ A, const T* __restrict__ B,
     }
 
     if (++ch == chunks_of(item)) {   // the item's last chunk: its sums
-      float* wsg = ws + (size_t)(item / items) * ws_group;
+      float* wsg = ws + (size_t)(COUNTED ? groups_of.at(item / items)
+                                         : item / items) * ws_group;
       const int n = tile * kThinN + t;
       if (n < N) {
 #pragma unroll
@@ -404,11 +491,15 @@ thin_split_kernel(const T* __restrict__ A, const T* __restrict__ B,
 // over the 64-column tile j (per thread in row order, a warp shuffle tree,
 // then the tile's two warps in order); block 0 adds the extra column's split
 // sums in order.  Each thread keeps 32 loads in flight across its rows.
-template <typename T, int MT>
+// COUNTED, a group with no live row (rows[g] == 0) has no split sums: its C
+// and block sums are zeros and its extra column the zero row's
+// (`zero_row_extra`).
+template <typename T, int MT, bool COUNTED>
 __global__ void __launch_bounds__(kThreads)
 thin_reduce_kernel(const float* __restrict__ ws, T* __restrict__ C,
                    float* __restrict__ block_sums, float* __restrict__ extra,
-                   int M, int N, int S) {
+                   const float* __restrict__ br, const int* __restrict__ rows,
+                   int M, int N, int K, int S) {
   constexpr int kBatch = MT >= 32 ? 1 : 32 / MT;   // splits per round trip
   __shared__ float red[kWarps];
   const int t = threadIdx.x;
@@ -419,6 +510,17 @@ thin_reduce_kernel(const float* __restrict__ ws, T* __restrict__ C,
   C += g * plane;
   block_sums += g * ((N + kSumN - 1) / kSumN);
   if (extra != nullptr) extra += g * M;
+  if (COUNTED && live_rows(rows, g, M) == 0) {
+    if (n < N)
+      for (int i = 0; i < M; ++i) C[(size_t)i * N + n] = from_f<T>(0.f);
+    const int tile = blockIdx.x * (kThinN / kSumN) + t;
+    if (t < kThinN / kSumN && tile * kSumN < N) block_sums[tile] = 0.f;
+    if (extra != nullptr && blockIdx.x == 0) {
+      const float v = zero_row_extra(br + g * K, K);
+      if (t < M) extra[t] = v;
+    }
+    return;
+  }
   float s = 0.f;
   if (n < N) {
     float v[MT];
@@ -470,11 +572,11 @@ thin_reduce_kernel(const float* __restrict__ ws, T* __restrict__ C,
 // Resident blocks of one thin_split instantiation on the current device
 // (asked once: the grid is a schedule and changes no sum), after raising
 // its dynamic shared memory limit.
-template <typename T, int MT, bool TRANS>
+template <typename T, int MT, bool TRANS, bool COUNTED>
 int thin_capacity() {
   static const int capacity = [] {
     constexpr int bytes = thin_smem_bytes<T, MT, TRANS>();
-    auto* fn = thin_split_kernel<T, MT, TRANS>;
+    auto* fn = thin_split_kernel<T, MT, TRANS, COUNTED>;
     if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes) != cudaSuccess)
       return 0;
@@ -490,37 +592,48 @@ int thin_capacity() {
   return capacity;
 }
 
-template <typename T, int MT, bool TRANS>
+template <typename T, int MT, bool TRANS, bool COUNTED>
 int launch_thin_split(const T* a, const T* b, const float* br, float* ws,
-                      int groups, int m, int n, int k, int kc, int splits,
-                      cudaStream_t stream) {
-  const int capacity = thin_capacity<T, MT, TRANS>();
+                      const int* rows, int groups, int m, int n, int k,
+                      int kc, int splits, cudaStream_t stream) {
+  const int capacity = thin_capacity<T, MT, TRANS, COUNTED>();
   if (capacity <= 0) return (int)cudaErrorInvalidConfiguration;
   const long long items =
       (long long)groups * ((n + kThinN - 1) / kThinN) * splits;
   if (items > INT_MAX) return (int)cudaErrorInvalidValue;
   const int grid = items < capacity ? (int)items : capacity;
-  thin_split_kernel<T, MT, TRANS>
+  thin_split_kernel<T, MT, TRANS, COUNTED>
       <<<grid, kThreads, thin_smem_bytes<T, MT, TRANS>(), stream>>>(
-          a, b, br, ws, m, n, k, kc, splits, groups);
+          a, b, br, ws, rows, m, n, k, kc, splits, groups);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int MT>
 int launch_thin(const T* a, const T* b, const float* br, T* c, float* sums,
-                float* extra, float* ws, int groups, int m, int n, int k,
-                int trans_b, cudaStream_t stream) {
+                float* extra, float* ws, const int* rows, int groups, int m,
+                int n, int k, int trans_b, cudaStream_t stream) {
   const int kc = kBK * split_chunks(m, n, k);
   const int splits = (k + kc - 1) / kc;
+  // counts are taken with B as it lies only (no transposed caller)
   const int err =
-      trans_b ? launch_thin_split<T, MT, true>(a, b, br, ws, groups, m, n, k,
-                                               kc, splits, stream)
-              : launch_thin_split<T, MT, false>(a, b, br, ws, groups, m, n,
-                                                k, kc, splits, stream);
+      rows != nullptr
+          ? (trans_b ? (int)cudaErrorInvalidValue
+                     : launch_thin_split<T, MT, false, true>(
+                           a, b, br, ws, rows, groups, m, n, k, kc, splits,
+                           stream))
+      : trans_b ? launch_thin_split<T, MT, true, false>(
+                      a, b, br, ws, rows, groups, m, n, k, kc, splits, stream)
+                : launch_thin_split<T, MT, false, false>(
+                      a, b, br, ws, rows, groups, m, n, k, kc, splits,
+                      stream);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kThinN - 1) / kThinN, groups);
-  thin_reduce_kernel<T, MT><<<grid, kThreads, 0, stream>>>(
-      ws, c, sums, extra, m, n, splits);
+  if (rows != nullptr)
+    thin_reduce_kernel<T, MT, true><<<grid, kThreads, 0, stream>>>(
+        ws, c, sums, extra, br, rows, m, n, k, splits);
+  else
+    thin_reduce_kernel<T, MT, false><<<grid, kThreads, 0, stream>>>(
+        ws, c, sums, extra, br, rows, m, n, k, splits);
   return (int)cudaGetLastError();
 }
 
@@ -561,6 +674,19 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* f) {
                                             h[2] | (h[3] << 16));
 }
 
+// f(std::integral_constant<int, S>{}) with S = steps (MAX - N < steps <=
+// MAX): one uniform branch a step below MAX; N = 1 is f(MAX) alone.
+template <int N, int MAX, typename F>
+__device__ __forceinline__ void with_steps(int steps, F&& f) {
+  if constexpr (N > 1) {
+    if (steps < MAX) {
+      with_steps<N - 1, MAX - 1>(steps, f);
+      return;
+    }
+  }
+  f(std::integral_constant<int, MAX>{});
+}
+
 // One ring stage in shared memory, raw operand elements: A's [BM][32] slice
 // as it lies in device memory (m-major; rows of 32 + V elements: 16-byte
 // aligned, and 4 consecutive rows fall on distinct banks), B's [32][128]
@@ -597,12 +723,17 @@ constexpr int wide_smem_bytes() {
 // blockIdx.z is the group of a grouped launch (0 for one product): its
 // operands and outputs lie g products in, and nothing else changes, so a
 // group's outputs are bit for bit those of a launch of that product alone.
-template <typename T, int BM, bool TRANS>
+// COUNTED, the group's rows at or past its count are zero-filled in the
+// stage; a thread's 16-row steps i with 16 i at or past the tile's live
+// rows are not multiplied (`steps`, uniform in the block: their
+// accumulators stay +0, as a zero row's products are), and a block with no
+// live row copies nothing: it writes zeros and the zero row's extra column.
+template <typename T, int BM, bool TRANS, bool COUNTED>
 __global__ void __launch_bounds__(kThreads, 1)
 wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
             const float* __restrict__ br, T* __restrict__ C,
             float* __restrict__ block_sums, float* __restrict__ extra,
-            int M, int N, int K) {
+            const int* __restrict__ rows, int M, int N, int K) {
   using St = WideStage<T, BM, TRANS>;
   constexpr int V = St::V;
   constexpr int LDK = St::LDK;
@@ -621,6 +752,8 @@ wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
   const int ty = (warp >> 1) * 4 + (lane >> 3);
   const int ni = blockIdx.x, mi = blockIdx.y;
   const int m0 = mi * BM, n0 = ni * kWideN;
+  // the group's live rows
+  const int mg = COUNTED ? live_rows(rows, blockIdx.z, M) : M;
   {
     const size_t g = blockIdx.z;
     A += g * M * K;
@@ -631,6 +764,21 @@ wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
     if (extra != nullptr) extra += g * M;
   }
   const bool with_extra = br != nullptr && ni == 0;
+  if (COUNTED && m0 >= mg) {           // no live row: zeros, read no A or B
+    for (int idx = t; idx < BM * kWideN; idx += kThreads) {
+      const int m = m0 + idx / kWideN, n = n0 + idx % kWideN;
+      if (m < M && n < N) C[(size_t)m * N + n] = from_f<T>(0.f);
+    }
+    if (t < HALVES && (mi * HALVES + t) * kWideSumM < M)
+      block_sums[(size_t)(mi * HALVES + t) * gridDim.x + ni] = 0.f;
+    if (with_extra) {
+      const float v = zero_row_extra(br, K);
+      if (t < BM && m0 + t < M) extra[m0 + t] = v;
+    }
+    return;
+  }
+  // 16-row steps with a live row (a thread's rows ty + 16 i, i < steps)
+  const int steps = COUNTED ? min(TM, (mg - m0 + 15) / 16) : TM;
   // every row of the operand starts 16-byte aligned (the bases are: the
   // wrapper checks it), so pieces are whole or wholly outside
   const bool vec_a = K % V == 0;
@@ -663,6 +811,15 @@ wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
   constexpr int AR = kThreads / (kBK / V);
   constexpr int BR = kThreads / (kWideN / V);
   const T* ga = A + (size_t)(m0 + t / (kBK / V)) * K + (t % (kBK / V)) * V;
+  // the interior A pieces this thread copies that lie before the count
+  // (bit e; the others are zero-filled)
+  unsigned a_live = ~0u;
+  if constexpr (COUNTED) {
+    a_live = 0;
+#pragma unroll
+    for (int e = 0; e < AP; ++e)
+      a_live |= (m0 + t / (kBK / V) + e * AR < mg ? 1u : 0u) << e;
+  }
   const T* gb = B + (size_t)(t / (kWideN / V)) * N + n0 +
                 (t % (kWideN / V)) * V;
   const int sa = (t / (kBK / V)) * LDK + (t % (kBK / V)) * V;
@@ -673,7 +830,7 @@ wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
 #pragma unroll
       for (int e = 0; e < AP; ++e)
         cp_async16(stage_a(st) + sa + e * AR * LDK,
-                   ga + (size_t)e * AR * K + k0, 16);
+                   ga + (size_t)e * AR * K + k0, (a_live >> e & 1u) * 16);
 #pragma unroll
       for (int e = 0; e < BP; ++e)
         cp_async16(stage_b(st) + sb + e * BR * kWideN,
@@ -687,7 +844,7 @@ wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
     for (int e = 0; e < AP; ++e) {
       const int idx = t + e * kThreads;
       const int r = idx / (kBK / V), col = (idx % (kBK / V)) * V;
-      const int valid = m0 + r < M ? max(0, min(K - (k0 + col), V)) : 0;
+      const int valid = m0 + r < mg ? max(0, min(K - (k0 + col), V)) : 0;
       piece(as + r * LDK + col, A, A + (size_t)(m0 + r) * K + k0 + col, valid,
             vec_a);
     }
@@ -735,40 +892,45 @@ wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
 
     const T* as = stage_a(st);
     const T* bs = stage_b(st);
-    float part[TM][8];
+    // the chunk for the first S steps, S = steps a compile-time count
+    with_steps<COUNTED ? TM : 1, TM>(steps, [&](auto s_) {
+      constexpr int S = decltype(s_)::value;
+      float part[S][8];
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < S; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) part[i][j] = 0.f;
+        for (int j = 0; j < 8; ++j) part[i][j] = 0.f;
 #pragma unroll
-    for (int kq = 0; kq < kBK; kq += 4) {
-      float a[TM][4];
+      for (int kq = 0; kq < kBK; kq += 4) {
+        float a[S][4];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) load4(as + (ty + 16 * i) * LDK + kq, a[i]);
+        for (int i = 0; i < S; ++i) load4(as + (ty + 16 * i) * LDK + kq, a[i]);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        float b[8];
-        if constexpr (TRANS) {
+        for (int kk = 0; kk < 4; ++kk) {
+          float b[8];
+          if constexpr (TRANS) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            b[j] = to_f(bs[(4 * tx + j) * LDK + kq + kk]);
-            b[4 + j] = to_f(bs[(64 + 4 * tx + j) * LDK + kq + kk]);
+            for (int j = 0; j < 4; ++j) {
+              b[j] = to_f(bs[(4 * tx + j) * LDK + kq + kk]);
+              b[4 + j] = to_f(bs[(64 + 4 * tx + j) * LDK + kq + kk]);
+            }
+          } else {
+            load4(bs + (kq + kk) * kWideN + 4 * tx, b);
+            load4(bs + (kq + kk) * kWideN + 64 + 4 * tx, b + 4);
           }
-        } else {
-          load4(bs + (kq + kk) * kWideN + 4 * tx, b);
-          load4(bs + (kq + kk) * kWideN + 64 + 4 * tx, b + 4);
+#pragma unroll
+          for (int i = 0; i < S; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              part[i][j] = fmaf(a[i][kk], b[j], part[i][j]);
         }
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            part[i][j] = fmaf(a[i][kk], b[j], part[i][j]);
       }
-    }
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < S; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
+        for (int j = 0; j < 8; ++j)
+          acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
+    });
 
     if (with_extra && t < BM) {
       const float* brs = stage_br(st);
@@ -831,13 +993,13 @@ wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
 // Launch one wide_kernel instantiation; its dynamic shared memory limit is
 // raised once, at the first launch, and a refusal is returned (then, and
 // at every later launch).
-template <typename T, int BM, bool TRANS>
+template <typename T, int BM, bool TRANS, bool COUNTED>
 int launch_wide(const T* a, const T* b, const float* br, T* c, float* sums,
-                float* extra, int groups, int m, int n, int k,
+                float* extra, const int* rows, int groups, int m, int n, int k,
                 cudaStream_t stream) {
   constexpr int bytes = wide_smem_bytes<T, BM, TRANS>();
   static const cudaError_t attr = [] {
-    auto* fn = wide_kernel<T, BM, TRANS>;
+    auto* fn = wide_kernel<T, BM, TRANS, COUNTED>;
     const cudaError_t err = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
         wide_smem_bytes<T, BM, TRANS>());
@@ -846,8 +1008,8 @@ int launch_wide(const T* a, const T* b, const float* br, T* c, float* sums,
   }();
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((n + kWideN - 1) / kWideN, (m + BM - 1) / BM, groups);
-  wide_kernel<T, BM, TRANS><<<grid, kThreads, bytes, stream>>>(
-      a, b, br, c, sums, extra, m, n, k);
+  wide_kernel<T, BM, TRANS, COUNTED><<<grid, kThreads, bytes, stream>>>(
+      a, b, br, c, sums, extra, rows, m, n, k);
   return (int)cudaGetLastError();
 }
 
@@ -863,45 +1025,54 @@ template <typename F> int with_rows(int m, F&& f) {
 
 template <typename T>
 int launch_typed(const void* a, const void* b, const float* br, void* c,
-                 float* sums, float* extra, float* ws, int groups, int m,
-                 int n, int k, int trans_b, cudaStream_t stream) {
+                 float* sums, float* extra, float* ws, const int* rows,
+                 int groups, int m, int n, int k, int trans_b,
+                 cudaStream_t stream) {
   if (m <= kSmallM) {
     if (ws == nullptr) return (int)cudaErrorInvalidValue;
-    return with_rows(m, [&](auto rows) {
-      return launch_thin<T, decltype(rows)::value>(
+    return with_rows(m, [&](auto mt) {
+      return launch_thin<T, decltype(mt)::value>(
           static_cast<const T*>(a), static_cast<const T*>(b), br,
-          static_cast<T*>(c), sums, extra, ws, groups, m, n, k, trans_b,
+          static_cast<T*>(c), sums, extra, ws, rows, groups, m, n, k, trans_b,
           stream);
     });
   }
   auto ta = static_cast<const T*>(a);
   auto tb = static_cast<const T*>(b);
   auto tc = static_cast<T*>(c);
-  return trans_b ? launch_wide<T, kWideM, true>(ta, tb, br, tc, sums, extra,
-                                                groups, m, n, k, stream)
-                 : launch_wide<T, kWideM, false>(ta, tb, br, tc, sums, extra,
-                                                 groups, m, n, k, stream);
+  if (rows != nullptr)       // counts with B as it lies only
+    return trans_b ? (int)cudaErrorInvalidValue
+                   : launch_wide<T, kWideM, false, true>(
+                         ta, tb, br, tc, sums, extra, rows, groups, m, n, k,
+                         stream);
+  return trans_b ? launch_wide<T, kWideM, true, false>(
+                       ta, tb, br, tc, sums, extra, rows, groups, m, n, k,
+                       stream)
+                 : launch_wide<T, kWideM, false, false>(
+                       ta, tb, br, tc, sums, extra, rows, groups, m, n, k,
+                       stream);
 }
 
 int launch_any(const void* a, const void* b, const float* br, void* c,
-               float* sums, float* extra, float* ws, int groups, int m, int n,
-               int k, int trans_b, int dtype, void* stream) {
+               float* sums, float* extra, float* ws, const int* rows,
+               int groups, int m, int n, int k, int trans_b, int dtype,
+               void* stream) {
   if (groups <= 0 || groups > 65535 || m <= 0 || n <= 0 || k <= 0 ||
       (br == nullptr) != (extra == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_typed<float>(a, b, br, c, sums, extra, ws, groups, m, n, k,
-                               trans_b, s);
+    return launch_typed<float>(a, b, br, c, sums, extra, ws, rows, groups, m,
+                               n, k, trans_b, s);
   if (dtype == 1)
-    return launch_typed<__nv_bfloat16>(a, b, br, c, sums, extra, ws, groups,
-                                       m, n, k, trans_b, s);
+    return launch_typed<__nv_bfloat16>(a, b, br, c, sums, extra, ws, rows,
+                                       groups, m, n, k, trans_b, s);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T> int thin_smem_typed(int m, int trans_b) {
-  return with_rows(m, [&](auto rows) {
-    constexpr int MT = decltype(rows)::value;
+  return with_rows(m, [&](auto mt) {
+    constexpr int MT = decltype(mt)::value;
     return trans_b ? thin_smem_bytes<T, MT, true>()
                    : thin_smem_bytes<T, MT, false>();
   });
@@ -973,8 +1144,8 @@ extern "C" int matmul_abft_launch(const void* a, const void* b,
                                   float* extra, float* ws, int m, int n,
                                   int k, int trans_b, int dtype,
                                   void* stream) {
-  return launch_any(a, b, br, c, sums, extra, ws, 1, m, n, k, trans_b, dtype,
-                    stream);
+  return launch_any(a, b, br, c, sums, extra, ws, nullptr, 1, m, n, k, trans_b,
+                    dtype, stream);
 }
 
 // `groups` independent products A_g [M, K] @ B_g [K, N] (B_g^T [N, K] with
@@ -984,15 +1155,22 @@ extern "C" int matmul_abft_launch(const void* a, const void* b,
 // floats.  The group is one more grid axis (wide path) or the outermost
 // item axis (thin path); the per-tile code and every association are the
 // single launch's, so group g's outputs are bit for bit those of
-// matmul_abft_launch on product g.  1 <= groups <= 65535.  The Python
-// wrappers launch a single product through this entry too (groups = 1,
-// which is matmul_abft_launch exactly).
+// matmul_abft_launch on product g.  `rows`, null or [groups] int32 on the
+// device (with B as it lies, not trans_b): group g's rows at or past
+// rows[g] (clamped to [0, M]) are taken as zero rows of A — its outputs
+// are bit for bit those of the launch without counts on A with those rows
+// zeroed (on finite operands; the extra column of a zero row is NaN exactly
+// where b_r is not finite).
+// 1 <= groups <= 65535.  The Python wrappers launch a single product
+// through this entry too (groups = 1, rows null, which is
+// matmul_abft_launch exactly).
 extern "C" int matmul_abft_grouped_launch(const void* a, const void* b,
                                           const float* br, void* c,
                                           float* sums, float* extra,
-                                          float* ws, int groups, int m, int n,
-                                          int k, int trans_b, int dtype,
+                                          float* ws, const int* rows,
+                                          int groups, int m, int n, int k,
+                                          int trans_b, int dtype,
                                           void* stream) {
-  return launch_any(a, b, br, c, sums, extra, ws, groups, m, n, k, trans_b,
-                    dtype, stream);
+  return launch_any(a, b, br, c, sums, extra, ws, rows, groups, m, n, k,
+                    trans_b, dtype, stream);
 }

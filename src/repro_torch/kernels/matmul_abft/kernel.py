@@ -25,7 +25,11 @@ unchecked product — and leaves ``c`` unchanged.
 :func:`matmul_abft_grouped_kernel` runs ``G`` independent products of one
 shape in one launch (an MoE layer's experts): the group is one more grid
 axis, nothing else changes, so group ``g``'s outputs are bit for bit those
-of :func:`matmul_abft_kernel` on product ``g``.
+of :func:`matmul_abft_kernel` on product ``g``.  Its ``rows=`` (int32
+``[G]``, on the operands' device) are per-group row counts that the kernel
+reads on the card: rows of group ``g`` at or past ``rows[g]`` are taken as
+zero rows of A, and the work they would cost is skipped — an MoE capacity
+buffer's idle rows and idle experts.
 """
 from __future__ import annotations
 
@@ -78,6 +82,15 @@ def tile_sums(acc: Tensor, m: int, n: int) -> Tensor:
     return pad.reshape(mt, tm, nt, tn).sum(dim=(1, 3))
 
 
+def zero_dead_rows(a: Tensor, rows: Tensor) -> Tensor:
+    """A copy of ``a`` [G, M, K] with group g's rows at or past ``rows[g]``
+    set to zero (the rows a counted launch takes as zero rows; a count past
+    M zeroes no row and a negative one every row, as the kernel clamps)."""
+    dead = torch.arange(a.shape[1], device=a.device) >= rows[:, None].to(
+        a.device)
+    return a.masked_fill(dead[..., None], 0)
+
+
 def matmul_abft_plain(a: Tensor, b: Tensor, br: Optional[Tensor] = None, *,
                       trans_b: bool = False
                       ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
@@ -122,7 +135,8 @@ def _agreed_with_library(lib, what: str, m: int, n: int, k: int, a: Tensor,
     """(tile_m, tile_n, splits) of an ``m x k @ k x n`` product as
     ``analysis.vmem`` states them (and, for ``a``'s dtype, the thin path's
     shared memory, or the wide path's block tile and shared memory); raises
-    when the library disagrees."""
+    when the library disagrees.  A grouped launch, with row counts or
+    without, takes the single product's tile, splits and shared memory."""
     tm, tn = matmul_tile(m)
     dt, item = DTYPES.index(a.dtype), a.element_size()
     thin = m <= MATMUL_SMALL_M
@@ -145,11 +159,13 @@ def _agreed_with_library(lib, what: str, m: int, n: int, k: int, a: Tensor,
 
 
 def _launch(what: str, a: Tensor, b: Tensor, br: Optional[Tensor],
-            trans_b: bool, g: int, m: int, n: int, k: int
+            trans_b: bool, g: int, m: int, n: int, k: int,
+            rows: Optional[Tensor] = None
             ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
     """One launcher call over ``g`` products of one shape: a [g, M, K], b
-    [g, K, N] (or [g, N, K]), br g·K floats or None; returns (c [g, M, N],
-    block_sums [g, mt, nt], extra [g, M, 1] | None)."""
+    [g, K, N] (or [g, N, K]), br g·K floats or None, rows [g] int32 or
+    None; returns (c [g, M, N], block_sums [g, mt, nt], extra [g, M, 1] |
+    None)."""
     from repro_torch.kernels import runtime
 
     runtime.require_cuda_operands(what, allow=DTYPES, a=a, b=b)
@@ -176,6 +192,7 @@ def _launch(what: str, a: Tensor, b: Tensor, br: Optional[Tensor],
             None if br is None else br.data_ptr(), c.data_ptr(),
             sums.data_ptr(), None if extra is None else extra.data_ptr(),
             None if ws is None else ws.data_ptr(),
+            None if rows is None else rows.data_ptr(),
             g, m, n, k, int(trans_b), DTYPES.index(a.dtype), stream)
     runtime.check_launch(code, what)
     return c, sums, extra
@@ -212,7 +229,8 @@ matmul_abft_kernel.launches = 0
 
 
 def _check_grouped(a: Tensor, b: Tensor, br: Optional[Tensor],
-                   trans_b: bool, dtypes: Tuple = DTYPES
+                   trans_b: bool, dtypes: Tuple = DTYPES,
+                   rows: Optional[Tensor] = None
                    ) -> Tuple[int, int, int, int]:
     if a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0]:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must be "
@@ -227,17 +245,42 @@ def _check_grouped(a: Tensor, b: Tensor, br: Optional[Tensor],
         if br.dtype != acc_dtype(a.dtype):
             raise ValueError(f"br has dtype {br.dtype}; it is "
                              f"{acc_dtype(a.dtype)}")
+    if rows is not None:
+        if trans_b:
+            raise ValueError("rows are taken with b as it lies, not "
+                             "trans_b")
+        _check_rows(rows, g, m, a.device)
     return g, m, n, k
+
+
+def _check_rows(rows: Tensor, g: int, m: int, device) -> None:
+    """Row counts: int32 [G], contiguous, on the operands' device, each in
+    [0, M].  The values are read here only where they lie on the CPU: on a
+    card that would wait for the card, so the kernel clamps them there."""
+    if rows.shape != (g,) or rows.dtype != torch.int32:
+        raise ValueError(f"rows must be int32 [{g}], not {rows.dtype} "
+                         f"{list(rows.shape)}")
+    if rows.device != device or not rows.is_contiguous():
+        raise ValueError(f"rows must be contiguous on {device}; they lie on "
+                         f"{rows.device}")
+    if rows.device.type == "cpu" and bool(((rows < 0) | (rows > m)).any()):
+        raise ValueError(f"rows must lie in [0, {m}]: {rows.tolist()}")
 
 
 def matmul_abft_grouped_plain(a: Tensor, b: Tensor,
                               br: Optional[Tensor] = None, *,
-                              trans_b: bool = False
+                              trans_b: bool = False,
+                              rows: Optional[Tensor] = None
                               ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
     """Plain PyTorch version of :func:`matmul_abft_grouped_kernel`: the
-    single product's plain version on each group in turn, stacked."""
+    single product's plain version on each group in turn, stacked.  With
+    ``rows``, on a copy of ``a`` whose rows past each group's count are
+    zero (:func:`zero_dead_rows`), so a zero row's extra entry is
+    Σ_k 0·b_r[k] — NaN exactly where the full product's is."""
     matmul_abft_grouped_plain.calls += 1
-    g, _m, _n, k = _check_grouped(a, b, br, trans_b, PLAIN_DTYPES)
+    g, _m, _n, k = _check_grouped(a, b, br, trans_b, PLAIN_DTYPES, rows)
+    if rows is not None:
+        a = zero_dead_rows(a, rows)
     brg = None if br is None else br.reshape(g, k)
     outs = [_plain(a[i], b[i], None if brg is None else brg[i], trans_b)
             for i in range(g)]
@@ -251,7 +294,8 @@ matmul_abft_grouped_plain.calls = 0
 
 def matmul_abft_grouped_kernel(a: Tensor, b: Tensor,
                                br: Optional[Tensor] = None, *,
-                               trans_b: bool = False
+                               trans_b: bool = False,
+                               rows: Optional[Tensor] = None
                                ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
     """``G`` products of one shape in one launch.  a: [G, M, K]; b:
     [G, K, N] (or [G, N, K] with ``trans_b``), both float32 or both
@@ -260,23 +304,36 @@ def matmul_abft_grouped_kernel(a: Tensor, b: Tensor,
     extra [G, M, 1] | None); group g's are bit for bit
     ``matmul_abft_kernel(a[g], b[g], br[g])``'s.
 
+    ``rows``: None, or int32 [G] on the operands' device, with ``b`` as it
+    lies (not ``trans_b``) — group g's rows at or past ``rows[g]`` are
+    taken as zero rows of A, whatever A holds
+    there.  On finite operands every output is then bit for bit the launch
+    without ``rows`` on :func:`zero_dead_rows` of ``a`` (a zero row's extra
+    entry is NaN exactly where ``b_r`` is not finite), while the kernel
+    skips the work: 16-row steps past a count are not multiplied, a group
+    with no live row reads nothing of A or B.  The counts are read on the
+    card, never by the host (on a card they are clamped to [0, M] there;
+    on the CPU values outside it are refused).
+
     Operands on a CUDA device launch the CUDA kernel (one launcher call,
     counted once in ``matmul_abft_grouped_kernel.launches``) or raise; only
     operands that lie on the CPU take :func:`matmul_abft_grouped_plain`.
     The group is a grid axis: the tile, the split count and the shared
-    memory are the single product's, held against ``analysis.vmem`` as
-    :func:`matmul_abft_kernel` holds them.  Under check tagging, or on
-    DTensor operands, the call is one ``repro_torch::matmul_abft_grouped``
-    op (``kernels/sites.py``)."""
-    if tagging_enabled() or any_dtensor(a, b, br):
+    memory are the single product's (with or without ``rows``), held
+    against ``analysis.vmem`` as :func:`matmul_abft_kernel` holds them.
+    Under check tagging, or on DTensor operands, the call is one
+    ``repro_torch::matmul_abft_grouped`` op (``kernels/sites.py``)."""
+    if tagging_enabled() or any_dtensor(a, b, br, rows):
         from repro_torch.kernels import sites
 
-        return sites.matmul_abft_grouped(a, b, br, trans_b=trans_b)
+        return sites.matmul_abft_grouped(a, b, br, trans_b=trans_b,
+                                         rows=rows)
     if a.device.type == "cpu":
-        return matmul_abft_grouped_plain(a, b, br, trans_b=trans_b)
-    g, m, n, k = _check_grouped(a, b, br, trans_b)
+        return matmul_abft_grouped_plain(a, b, br, trans_b=trans_b,
+                                         rows=rows)
+    g, m, n, k = _check_grouped(a, b, br, trans_b, rows=rows)
     out = _launch("matmul_abft_grouped_kernel", a, b, br, trans_b, g, m, n,
-                  k)
+                  k, rows)
     matmul_abft_grouped_kernel.launches += 1
     return out
 

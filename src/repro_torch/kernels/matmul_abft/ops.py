@@ -74,13 +74,15 @@ class MatmulAbftFunction(torch.autograd.Function):
 
 class GroupedMatmulAbftFunction(torch.autograd.Function):
     """``(c, block_sums, extra) = GroupedMatmulAbftFunction.apply(a, b,
-    br)``: :func:`~.kernel.matmul_abft_grouped_kernel` (a [G, M, K], b
-    [G, K, N]) with a backward of one grouped launch a gradient, each group
-    as :class:`MatmulAbftFunction` does it."""
+    br, rows)``: :func:`~.kernel.matmul_abft_grouped_kernel` (a [G, M, K],
+    b [G, K, N], row counts or None) with a backward of one grouped launch
+    a gradient, each group as :class:`MatmulAbftFunction` does it.  The
+    backward launches take no counts: they multiply ``a`` as given (an MoE
+    buffer's rows past the counts are zeros already)."""
 
     @staticmethod
-    def forward(ctx, a, b, br):
-        c, sums, extra = matmul_abft_grouped_kernel(a, b, br)
+    def forward(ctx, a, b, br, rows):
+        c, sums, extra = matmul_abft_grouped_kernel(a, b, br, rows=rows)
         ctx.save_for_backward(a, b)
         _non_differentiable(ctx, sums, extra)
         return c, sums, extra
@@ -95,7 +97,7 @@ class GroupedMatmulAbftFunction(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             db = matmul_abft_grouped_kernel(
                 a.transpose(1, 2).contiguous(), dc)[0]
-        return da, db, None
+        return da, db, None, None
 
 
 def _product(a: Tensor, b: Tensor, br: Optional[Tensor], trans_b: bool):
@@ -104,10 +106,11 @@ def _product(a: Tensor, b: Tensor, br: Optional[Tensor], trans_b: bool):
     return matmul_abft_kernel(a, b, br, trans_b=trans_b)
 
 
-def _grouped_product(a: Tensor, b: Tensor, br: Optional[Tensor]):
+def _grouped_product(a: Tensor, b: Tensor, br: Optional[Tensor],
+                     rows: Optional[Tensor] = None):
     if _records(a, b):
-        return GroupedMatmulAbftFunction.apply(a, b, br)
-    return matmul_abft_grouped_kernel(a, b, br)
+        return GroupedMatmulAbftFunction.apply(a, b, br, rows)
+    return matmul_abft_grouped_kernel(a, b, br, rows=rows)
 
 
 def matmul_abft(a: Tensor, b: Tensor, br: Optional[Tensor] = None, *,
@@ -137,7 +140,8 @@ def matmul_abft(a: Tensor, b: Tensor, br: Optional[Tensor] = None, *,
     return c, Check(predicted=predicted, actual=actual, granularity="layer")
 
 
-def matmul_abft_grouped(a: Tensor, b: Tensor, br: Optional[Tensor] = None
+def matmul_abft_grouped(a: Tensor, b: Tensor, br: Optional[Tensor] = None,
+                        rows: Optional[Tensor] = None
                         ) -> Tuple[Tensor, Optional[Check], Optional[Tensor]]:
     """C_g = A_g @ B_g for every group g of ``a`` [G, M, K] and ``b``
     [G, K, N], one launch.  With ``br`` [G, K], each group's B·e, it adds
@@ -145,11 +149,13 @@ def matmul_abft_grouped(a: Tensor, b: Tensor, br: Optional[Tensor] = None
     Σ extra, actual = Σ_g Σ C_g = Σ of the block sums (the reference's
     batched-einsum check of an MoE layer's expert products), and returns
     (C, Check, extra [G, M]).  Without ``br`` the product runs alone and
-    returns ``(C, None, None)`` — C is the same either way."""
+    returns ``(C, None, None)`` — C is the same either way.  ``rows``
+    (int32 [G] or None): each group's live rows, those past it taken as
+    zero rows (``matmul_abft_grouped_kernel``)."""
     if br is None:
-        return _grouped_product(a, b, None)[0], None, None
+        return _grouped_product(a, b, None, rows)[0], None, None
     br = br.reshape(b.shape[0], -1).to(torch.float32).contiguous()
-    c, block_sums, extra = _grouped_product(a, b, br)
+    c, block_sums, extra = _grouped_product(a, b, br, rows)
     extra = extra[..., 0]
     chk = Check(predicted=extra.sum(), actual=block_sums.sum(),
                 granularity="layer")

@@ -66,7 +66,7 @@ _SIGNATURES = {
     "matmul_abft_wide_tile_n": [_I],
     "matmul_abft_wide_smem_bytes": [_I, _I, _I],
     "matmul_abft_launch": [_P] * 7 + [_I] * 5 + [_P],
-    "matmul_abft_grouped_launch": [_P] * 7 + [_I] * 6 + [_P],
+    "matmul_abft_grouped_launch": [_P] * 8 + [_I] * 6 + [_P],
     "flash_checksum_smem_bytes": [_I],
     "flash_checksum_max_dh": [],
     "flash_checksum_block_q": [],

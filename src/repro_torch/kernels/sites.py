@@ -261,23 +261,25 @@ def matmul_abft(a, b, br=None, *, trans_b=False):
 
 @torch.library.custom_op("repro_torch::matmul_abft_grouped", mutates_args=())
 def _matmul_abft_grouped(a: Tensor, b: Tensor, br: Optional[Tensor],
-                         trans_b: bool, whole_sums: bool
+                         trans_b: bool, whole_sums: bool,
+                         rows: Optional[Tensor]
                          ) -> Tuple[Tensor, Tensor, Tensor]:
     from .matmul_abft.kernel import matmul_abft_grouped_kernel
     with check_tagging(False):
         c, sums, extra = matmul_abft_grouped_kernel(a, b, br,
-                                                    trans_b=trans_b)
-    return _product_outs(c, sums, extra, whole_sums, (a, b, br))
+                                                    trans_b=trans_b,
+                                                    rows=rows)
+    return _product_outs(c, sums, extra, whole_sums, (a, b, br, rows))
 
 
 @_matmul_abft_grouped.register_fake
-def _matmul_abft_grouped_fake(a, b, br, trans_b, whole_sums):
+def _matmul_abft_grouped_fake(a, b, br, trans_b, whole_sums, rows):
     return _matmul_fake(a, b, br, trans_b, whole_sums, lead=(a.shape[0],))
 
 
-def matmul_abft_grouped(a, b, br=None, *, trans_b=False):
+def matmul_abft_grouped(a, b, br=None, *, trans_b=False, rows=None):
     c, sums, extra = torch.ops.repro_torch.matmul_abft_grouped(
-        a, b, br, bool(trans_b), any_dtensor(a, b, br))
+        a, b, br, bool(trans_b), any_dtensor(a, b, br, rows), rows)
     return reduce_partial(c), sums, (None if br is None else extra)
 
 
@@ -335,13 +337,18 @@ def _sharded(*specs) -> set:
 
 
 def product_strategies(a_dims: set, b_dims: set, checked: bool,
-                       trans_b: bool, grouped: bool) -> List[tuple]:
+                       trans_b: bool, grouped: bool, counted: bool = False
+                       ) -> List[tuple]:
     """B4's layouts, ``(outputs, inputs)`` placements in the op's order
-    (c, sums, extra; a, b, br, trans_b, whole_sums): all replicated; the
-    rows of ``a`` (the batch axes); the columns of ``b`` (``model``), with
-    ``b_r`` the partial row sums of the local columns (``extra`` partial)
-    or whole (``extra`` replicated); ``K`` (the FSDP axes: ``c`` partial);
-    and, grouped, the group axis (``model``, experts).  A layout is offered
+    (c, sums, extra; a, b, br, trans_b, whole_sums and, grouped, rows): all
+    replicated; the rows of ``a`` (the batch axes); the columns of ``b``
+    (``model``), with ``b_r`` the partial row sums of the local columns
+    (``extra`` partial) or whole (``extra`` replicated); ``K`` (the FSDP
+    axes: ``c`` partial); and, grouped, the group axis (``model``,
+    experts).  Grouped row counts (``counted``) lie with the group axis —
+    split with it, whole otherwise — and rule out the rows of ``a``: a
+    count is a global row index, which a shard of the rows would misread
+    (``a`` is gathered instead).  A layout is offered
     only where an operand already lies so (``a_dims``, ``b_dims``: the dims
     some mesh dim shards): a replicated operand is never split for free,
     so an output is sharded only as its inputs were (a free column split
@@ -356,10 +363,13 @@ def product_strategies(a_dims: set, b_dims: set, checked: bool,
     b_n, b_k = (o, o + 1) if trans_b else (o + 1, o)
 
     def row(c, sums, extra, a, b, br):
-        return ([c, sums, extra if checked else rep],
-                [a, b, br if checked else None, None, None])
+        ins = [a, b, br if checked else None, None, None]
+        if grouped:
+            ins.append((Shard(0) if a == Shard(0) else rep) if counted
+                       else None)
+        return [c, sums, extra if checked else rep], ins
     rows = [row(rep, rep, rep, rep, rep, rep)]
-    if o in a_dims:
+    if o in a_dims and not counted:
         rows.append(row(Shard(o), part, Shard(o), Shard(o), rep, rep))
     if b_n in b_dims:
         rows.append(row(Shard(o + 1), part, part, rep, Shard(b_n), part))
@@ -431,9 +441,9 @@ def _register_sharding() -> None:
                                   trans_b, False)
 
     @register_sharding(ops.matmul_abft_grouped.default)
-    def _grouped_layouts(a, b, br, trans_b, whole_sums):
+    def _grouped_layouts(a, b, br, trans_b, whole_sums, rows):
         return product_strategies(_sharded(a), _sharded(b), br is not None,
-                                  trans_b, True)
+                                  trans_b, True, rows is not None)
 
     @register_sharding(ops.flash_checksum.default)
     def _flash_layouts(q, k, v, vr, causal, window, with_stats):

@@ -15,7 +15,11 @@ per-expert down-projections.  GCN-ABFT eq. (4) fuses the check::
     eᵀ(C · G · W₂)e = (eᵀC) · G · (W₂ e)
 
 On the card every expert product is one launch of ``matmul_abft``'s grouped
-kernel over all E experts (up, gate and down: three a layer), and the down
+kernel over all E experts (up, gate and down: three a layer), given each
+expert's count of kept assignments — they fill its capacity rows from 0,
+so the kernel skips the rows past the count and the experts with none
+(the counts stay on the device; the rows they skip are zeros here, so
+every output is the one without them, bit for bit) — and the down
 launch's extra column with ``b_r = W₂ e`` **is** the reference's
 ``z_extra = G_e @ w2r_e`` — the fused check costs the kernel's one extra
 column.  The router and the shared experts go through
@@ -98,6 +102,15 @@ def assign(experts: Tensor, mc) -> Tuple[Tensor, Tensor, Tensor, int]:
     return flat_expert, slot_pos, slot_pos < cap, cap
 
 
+def expert_rows(flat_expert: Tensor, keep: Tensor, n_experts: int
+                ) -> Tensor:
+    """Each expert's live capacity rows, int32 [E]: its kept assignments,
+    which hold its slots 0..n_e − 1 (``assign``) — counted on the device,
+    with no host sync."""
+    onehot = F.one_hot(flat_expert, n_experts) * keep[:, None]
+    return onehot.sum(0).to(torch.int32)
+
+
 def moe_block(p: Params, x: Tensor, cfg: ModelConfig, abft: ABFTConfig
               ) -> Tuple[Tensor, List[Check], Tensor]:
     """x: [B, T, d] -> (y, checks, aux_loss).  Checks in the reference's
@@ -132,19 +145,27 @@ def moe_block(p: Params, x: Tensor, cfg: ModelConfig, abft: ABFTConfig
                        device=x.device).index_put((row,), xt[tok_idx])
     buf = flat[:n_exp * cap].view(n_exp, cap, d)
 
-    # --- expert MLPs: one grouped launch a product over all E experts
+    # --- expert MLPs: one grouped launch a product over all E experts,
+    # each multiplying its live rows only (silu(0)·0 = 0: the down
+    # product's rows past the counts are zeros too)
     on = abft.enabled
+    brs = [p[w].to(abft.dtype).sum(-1) if on else None
+           for w in ("w_up", "w_gate", "w_down")]
+    rows = expert_rows(flat_expert, keep, n_exp)
+    if on:
+        # an expert whose weights are not all finite multiplies every row,
+        # as the reference's einsum does, so that 0·Inf and 0·NaN reach the
+        # checks (the down product's too) exactly as there
+        finite = sum(br.sum(-1) for br in brs).isfinite()
+        rows = torch.where(finite, rows, cap)
     w_up = p["w_up"].to(buf.dtype)
     w_gate = p["w_gate"].to(buf.dtype)
-    up, c_up, _ = matmul_abft_grouped(
-        buf, w_up, p["w_up"].to(abft.dtype).sum(-1) if on else None)
-    gt, c_gate, _ = matmul_abft_grouped(
-        buf, w_gate, p["w_gate"].to(abft.dtype).sum(-1) if on else None)
+    up, c_up, _ = matmul_abft_grouped(buf, w_up, brs[0], rows)
+    gt, c_gate, _ = matmul_abft_grouped(buf, w_gate, brs[1], rows)
     g = F.silu(gt) * up                                     # [E, cap, f]
     # the down launch's extra column with b_r = W₂ e is z_extra [E, cap]
     z, c_down, z_extra = matmul_abft_grouped(
-        g, p["w_down"].to(g.dtype),
-        p["w_down"].to(abft.dtype).sum(-1) if on else None)
+        g, p["w_down"].to(g.dtype), brs[2], rows)
     if on:
         checks += [c_up, c_gate]
 

@@ -370,6 +370,41 @@ def test_grouped_site_strategies_equal_one_launch(local_mesh, m, layout):
     torch.testing.assert_close(_whole(ex), ex0, atol=SITE_TOL, rtol=SITE_TOL)
 
 
+@pytest.mark.parametrize("layout", sorted(GROUPED_LAYOUTS))
+def test_grouped_site_with_row_counts_equals_one_launch(local_mesh, layout):
+    """With per-group row counts the grouped site's strategies keep the
+    counts with the group axis (split with it, whole otherwise) and gather
+    a row-sharded ``a``: the outputs, gathered, equal one unsharded counted
+    call, and the rows past each count are zeros."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    grp, m, k, n = 8, 32, 64, 128
+    with _outside():
+        gen = torch.Generator().manual_seed(11)
+        a = torch.randn(grp, m, k, generator=gen)
+        b = torch.randn(grp, k, n, generator=gen) / math.sqrt(k)
+        rows = torch.tensor([0, 32, 5, 16, 17, 1, 31, 0], dtype=torch.int32)
+        c0, sums0, ex0 = matmul_abft_grouped_plain(a, b, b.sum(-1),
+                                                   rows=rows)
+    code = {"G": Shard(0), "R": Shard(1), "K": None, "N": Shard(2),
+            None: Replicate()}
+    pa, pb = GROUPED_LAYOUTS[layout]
+    da = _dist(a, local_mesh, *(Shard(2) if x == "K" else code[x]
+                                for x in pa))
+    db = _dist(b, local_mesh, *(Shard(1) if x == "K" else code[x]
+                                for x in pb))
+    drows = _dist(rows, local_mesh, *(Shard(0) if x == "G" else Replicate()
+                                      for x in pa))
+    c, sums, ex = matmul_abft_grouped_kernel(da, db, db.sum(-1), rows=drows)
+    c = _whole(c)
+    _site_ok(c, c0, exact=False)
+    dead = torch.arange(m)[None, :] >= rows[:, None]
+    assert not c.masked_select(dead[..., None]).any()
+    torch.testing.assert_close(_whole(sums).sum(), sums0.sum(),
+                               atol=SITE_TOL, rtol=SITE_TOL)
+    torch.testing.assert_close(_whole(ex), ex0, atol=SITE_TOL, rtol=SITE_TOL)
+
+
 FLASH_CASES = {
     # (H, Kh, causal, window, q placements, k/v placements)
     "gqa_batch_x_heads": (8, 4, True, 0, ("B", "H"), ("B", "H")),

@@ -447,9 +447,9 @@ def test_chip_smoke_counts_are_what_a_step_launches(name, n_layers,
              seen["step"])
         return single(a, b, br, trans_b=trans_b)
 
-    def rec_grouped(a, b, br=None, *, trans_b=False):
+    def rec_grouped(a, b, br=None, *, trans_b=False, rows=None):
         note("grouped", (*a.shape, b.shape[2]), seen["step"])
-        return grouped(a, b, br, trans_b=trans_b)
+        return grouped(a, b, br, trans_b=trans_b, rows=rows)
     monkeypatch.setattr(ops, "matmul_abft_kernel", rec_single)
     monkeypatch.setattr(ops, "matmul_abft_grouped_kernel", rec_grouped)
     params = init_model(cfg, 0, device="cpu")

@@ -39,26 +39,27 @@ _ACC_INIT = """  float acc[TM][8];
   float ex = 0.f;
 """
 _ACC_ADD = """#pragma unroll
-    for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < S; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
+        for (int j = 0; j < 8; ++j)
+          acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
 """
 _LOOP_END = """  cp_async_wait<0>();                // no copy outlives the block
 
   // C in the operand dtype"""
 _SMEM = "  return kStages * WideStage<T, BM, TRANS>::BYTES;"
 _KQ = """#pragma unroll
-    for (int kq = 0; kq < kBK; kq += 4) {
-      float a[TM][4];"""
+      for (int kq = 0; kq < kBK; kq += 4) {
+        float a[S][4];"""
 _A_FRAG = """#pragma unroll
-    for (int kq = 0; kq < kBK; kq += 4) {
-      float a[TM][4];
+      for (int kq = 0; kq < kBK; kq += 4) {
+        float a[S][4];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) load4(as + (ty + 16 * i) * LDK + kq, a[i]);
+        for (int i = 0; i < S; ++i) load4(as + (ty + 16 * i) * LDK + kq, a[i]);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {"""
-_B_FRAG = """          load4(bs + (kq + kk) * kWideN + 4 * tx, b);
-          load4(bs + (kq + kk) * kWideN + 64 + 4 * tx, b + 4);"""
+        for (int kk = 0; kk < 4; ++kk) {"""
+_B_FRAG = """            load4(bs + (kq + kk) * kWideN + 4 * tx, b);
+            load4(bs + (kq + kk) * kWideN + 64 + 4 * tx, b + 4);"""
 _BLOCK = """  const int ni = blockIdx.x, mi = blockIdx.y;"""
 _LAYOUT = """  const int tx = (warp & 1) * 8 + (lane & 7);
   const int ty = (warp >> 1) * 4 + (lane >> 3);"""
@@ -79,16 +80,16 @@ VARIANTS = {
   float ex = 0.f;
 """),
         (_ACC_ADD, """#pragma unroll
-    for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < S; ++i)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float4 v = acc_s[(2 * i + h) * kThreads + t];
-        v.x = __fadd_rn(v.x, part[i][4 * h]);
-        v.y = __fadd_rn(v.y, part[i][4 * h + 1]);
-        v.z = __fadd_rn(v.z, part[i][4 * h + 2]);
-        v.w = __fadd_rn(v.w, part[i][4 * h + 3]);
-        acc_s[(2 * i + h) * kThreads + t] = v;
-      }
+        for (int h = 0; h < 2; ++h) {
+          float4 v = acc_s[(2 * i + h) * kThreads + t];
+          v.x = __fadd_rn(v.x, part[i][4 * h]);
+          v.y = __fadd_rn(v.y, part[i][4 * h + 1]);
+          v.z = __fadd_rn(v.z, part[i][4 * h + 2]);
+          v.w = __fadd_rn(v.w, part[i][4 * h + 3]);
+          acc_s[(2 * i + h) * kThreads + t] = v;
+        }
 """),
         (_LOOP_END, """  cp_async_wait<0>();
   float acc[TM][8];
@@ -112,25 +113,25 @@ VARIANTS = {
     "swizzle8": [(_BLOCK, """  const int gx = gridDim.x, gy = gridDim.y;
   const int bid = blockIdx.y * gx + blockIdx.x;
   const int first = bid / (8 * gx) * 8;
-  const int rows = min(gy - first, 8);
-  const int mi = first + (bid % (8 * gx)) % rows;
-  const int ni = (bid % (8 * gx)) / rows;""")],
+  const int band = min(gy - first, 8);
+  const int mi = first + (bid % (8 * gx)) % band;
+  const int ni = (bid % (8 * gx)) / band;""")],
     # a warp spans 8 row groups x 4 column groups (not 4 x 8)
     "warp8x4": [(_LAYOUT, """  const int tx = (warp & 3) * 4 + (lane & 3);
   const int ty = (warp >> 2) * 8 + (lane >> 2);""")],
     # A's fragments two k at a time (8-byte loads, half the registers)
     "a_pairs": [(_A_FRAG, """#pragma unroll
-    for (int kq = 0; kq < kBK; kq += 2) {
-      float a[TM][2];
+      for (int kq = 0; kq < kBK; kq += 2) {
+        float a[S][2];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const float2 v = *reinterpret_cast<const float2*>(
-            as + (ty + 16 * i) * LDK + kq);
-        a[i][0] = v.x;
-        a[i][1] = v.y;
-      }
+        for (int i = 0; i < S; ++i) {
+          const float2 v = *reinterpret_cast<const float2*>(
+              as + (ty + 16 * i) * LDK + kq);
+          a[i][0] = v.x;
+          a[i][1] = v.y;
+        }
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {""")],
+        for (int kk = 0; kk < 2; ++kk) {""")],
     # the 4-k steps of a chunk not unrolled (1) or unrolled by 2
     "unroll1": [(_KQ, _KQ.replace("#pragma unroll\n", "#pragma unroll 1\n", 1))],
     "unroll2": [(_KQ, _KQ.replace("#pragma unroll\n", "#pragma unroll 2\n", 1))],
@@ -141,10 +142,10 @@ VARIANTS = {
     # compute ceiling); B's fragments read once per 4 k (fewer shared loads)
     "diag_norefill": [(_REFILL, "")],
     "diag_compute": [(_REFILL, ""), (_BARRIER, "")],
-    "diag_b_once": [(_B_FRAG, """          if (kk == 0) {
-            load4(bs + kq * kWideN + 4 * tx, b);
-            load4(bs + kq * kWideN + 64 + 4 * tx, b + 4);
-          }""")],
+    "diag_b_once": [(_B_FRAG, """            if (kk == 0) {
+              load4(bs + kq * kWideN + 4 * tx, b);
+              load4(bs + kq * kWideN + 64 + 4 * tx, b + 4);
+            }""")],
 }
 
 MAIN = r"""
