@@ -463,6 +463,43 @@ def check_block_sums(torch, name, c, got, want, acc=None) -> dict:
                 max_witness_ratio=float(witness(got).max()))
 
 
+def check_extra(torch, name, a, br, got, want) -> dict:
+    """B4's extra column ``got`` = A @ b_r [M, 1] against the plain
+    version's ``want`` within OUT_ATOL + OUT_RTOL · |want|; an element over
+    it passes only with its float64 witness, as a block sum does
+    (:func:`check_block_sums`): within SUM_ULPS unit roundoffs of Σ_k
+    |a_mk b_r,k| of the float64 product.  The tied head's b_r sums every
+    row of the table (|b_r| ~ 500), so an entry that cancels to near 0
+    rounds past 1e-4 (ROADMAP C5).  The planted fault, every entry moved
+    by the mean |extra|, must be rejected.  Returns the max abs error, the
+    elements over the tolerance and the largest witness ratio."""
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}, or non-finite values")
+    a64, br64 = a.to(torch.float64), br.to(torch.float64).reshape(-1, 1)
+    exact = a64 @ br64
+    scale = SUM_ULPS * U32 * (a64.abs() @ br64.abs())
+
+    def witness(x):
+        return (x.to(torch.float64) - exact).abs() / scale
+
+    def rejected(x):
+        over = (x - want).abs() > OUT_ATOL + OUT_RTOL * want.abs()
+        return over & (witness(x) > 1.0)
+    if rejected(got).any():
+        raise AssertionError(f"{name}: {int(rejected(got).sum())} entries "
+                             f"over atol={OUT_ATOL} rtol={OUT_RTOL}, max abs "
+                             f"err {max_err(got, want):.3e}, and over "
+                             f"{SUM_ULPS} unit roundoffs of Σ|a b_r| from the "
+                             f"float64 product")
+    if not rejected(got + want.abs().mean()).all():
+        raise AssertionError(f"{name}: the rule let an entry off by the mean "
+                             f"|extra| pass")
+    over = (got - want).abs() > OUT_ATOL + OUT_RTOL * want.abs()
+    return dict(max_abs_err=max_err(got, want), over_tol=int(over.sum()),
+                max_witness_ratio=float(witness(got).max()))
+
+
 def bf16_acc(torch, a, b, trans_b=False):
     """A bfloat16 product's f32 accumulator in the plain version's
     association (the plain version on the operands widened to f32: it
@@ -2375,12 +2412,15 @@ def matmul_bound(torch, m, k, n, dtype):
         n_bytes, n_ops
 
 
-def check_matmul_shape(torch, m, k, n, trans_b, dtype, gen, timed):
+def check_matmul_shape(torch, m, k, n, trans_b, dtype, gen, timed,
+                       extra_witness=False):
     """matmul_abft kernel vs plain at one launch shape (with and without the
     extra column), a second run bit for bit the first, the clean corner, a
     corrupted output that must diverge; optionally its times.  Operands
     scaled as the LM's: activations ~1, weights ~1/sqrt(K) (the head's
-    table ~1)."""
+    table ~1).  ``extra_witness``: the extra column is held by
+    :func:`check_extra` (the tied head at M > 16, whose 1024 entries of
+    |terms| ~ 500 include some that cancel to near 0)."""
     from repro_torch.analysis.vmem import (MATMUL_THIN_N, MATMUL_WIDE_TILE,
                                            matmul_split_k, matmul_splits,
                                            matmul_thin_smem_bytes,
@@ -2411,9 +2451,14 @@ def check_matmul_shape(torch, m, k, n, trans_b, dtype, gen, timed):
         sums = check_block_sums(torch, f"{tag} block_sums", got[0], got[1],
                                 want[1], acc)
         worst = max(worst, sums["max_abs_err"])
-        if with_br:
+        if with_br and extra_witness:
+            extra = check_extra(torch, f"{tag} extra", a, br, got[2],
+                                want[2])
+            worst = max(worst, extra["max_abs_err"])
+        elif with_br:
             worst = max(worst, assert_close(f"{tag} extra", got[2], want[2],
                                             atol=OUT_ATOL, rtol=OUT_RTOL))
+        if with_br:
             c_checked = got[0]
             again = matmul_abft_kernel(a, b, br, trans_b=trans_b)
             if not all(torch.equal(x, y) for x, y in zip(got, again)):
@@ -2456,6 +2501,8 @@ def check_matmul_shape(torch, m, k, n, trans_b, dtype, gen, timed):
                  repeat_bitwise=True, max_abs_err=worst,
                  max_abs_err_c=worst_c, block_sums=sums, max_rel_corner=rel,
                  corrupted_divergence=div)
+    if extra_witness:
+        entry["extra"] = extra
     if timed and dtype == torch.float32 and m <= 16:
         # the kernel, the plain version on the card and on the CPU, each
         # against float64 (the thin products the LM head and decode use)
@@ -2618,6 +2665,78 @@ def bt_entry(torch, m, k, n, gen) -> dict:
                 plain_ms=time_ms(lambda: matmul_abft_plain(
                     dc, b, None, trans_b=True), warm=1, reps=1),
                 bound_ms=bound, bound_by=by)
+
+
+def bt_head_entry(torch, m, k, n, gen) -> dict:
+    """B4's wide Bᵀ path at the tied head of a train step's forward: the
+    logits of every position (M = B·T) on the embedding table [N, K] as it
+    lies, checked — :func:`check_matmul_shape` (kernel vs plain with and
+    without ``b_r``, a second run, the block sums, the clean corner, a
+    corrupted output) — then, on operands of its own, C, block sums and
+    extra bit for bit the same launch's on a transposed copy of the table
+    (the B path), and the device ms of both beside ``torch.matmul(x,
+    table.mT)`` (TF32 off), the plain version's ms and the bound.  Its
+    extra column is held by :func:`check_extra`."""
+    from repro_torch.kernels.matmul_abft.kernel import (matmul_abft_kernel,
+                                                        matmul_abft_plain)
+    entry = check_matmul_shape(torch, m, k, n, True, torch.float32, gen,
+                               False, extra_witness=True)
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    table = torch.randn(n, k, generator=gen, device="cuda")
+    br = table.sum(dim=0).contiguous()
+    table_t = table.t().contiguous()
+
+    def kern():
+        return matmul_abft_kernel(x, table, br, trans_b=True)
+    same = all(torch.equal(u, v) for u, v in zip(
+        kern(), matmul_abft_kernel(x, table_t, br)))
+    bound, by, _n_bytes, _n_ops = matmul_bound(torch, m, k, n, torch.float32)
+    entry.update(
+        bitwise_b_path=same, device_ms=device_ms(kern, reps=3),
+        device_ms_b=device_ms(lambda: matmul_abft_kernel(x, table_t, br),
+                              reps=3),
+        library_device_ms=device_ms(lambda: torch.matmul(x, table.mT),
+                                    reps=3),
+        library_note="torch.matmul(x, table.mT), TF32 off (no b_r column)",
+        plain_ms=time_ms(lambda: matmul_abft_plain(x, table, br,
+                                                   trans_b=True),
+                         warm=1, reps=1),
+        bound_ms=bound, bound_by=by)
+    return entry
+
+
+def bt_grouped_entry(torch, g, m, k, n, gen) -> dict:
+    """B4's wide Bᵀ path in a grouped launch: dA = dC·Bᵀ of an expert
+    product [G, M, K] @ [G, K, N] — ``matmul_abft_grouped_kernel(dc, b,
+    trans_b=True)`` on B as it lies, unchecked, as the grouped autograd
+    Function launches it — against its plain version, whether it equals the
+    same launch on a transposed copy of B bit for bit, and its device ms
+    beside that launch's, ``torch.matmul(dc, b.mT)`` (batched, TF32 off),
+    the plain version's ms and the bound, summed over the groups."""
+    from repro_torch.kernels.matmul_abft.kernel import (
+        matmul_abft_grouped_kernel, matmul_abft_grouped_plain)
+    dc = torch.randn(g, m, n, generator=gen, device="cuda")
+    b = torch.randn(g, k, n, generator=gen, device="cuda") * n ** -0.5
+    bt = b.transpose(1, 2).contiguous()
+
+    def kern():
+        return matmul_abft_grouped_kernel(dc, b, None, trans_b=True)
+    got = kern()[0]
+    err = assert_close(f"matmul_abft_grouped B^T G={g} M={m} K={n} N={k} c",
+                       got, matmul_abft_grouped_plain(dc, b, None,
+                                                      trans_b=True)[0])
+    same = torch.equal(got, matmul_abft_grouped_kernel(dc, bt, None)[0])
+    bound, by, _n_bytes, _n_ops = matmul_bound(torch, m, n, k, torch.float32)
+    return dict(groups=g, m=m, k=n, n=k, max_abs_err=err, bitwise_b_path=same,
+                device_ms=device_ms(kern, reps=5),
+                device_ms_b=device_ms(lambda: matmul_abft_grouped_kernel(
+                    dc, bt, None), reps=5),
+                library_device_ms=device_ms(lambda: torch.matmul(dc, b.mT),
+                                            reps=5),
+                library_note="torch.matmul(dc, b.mT) batched, TF32 off",
+                plain_ms=time_ms(lambda: matmul_abft_grouped_plain(
+                    dc, b, None, trans_b=True), warm=1, reps=1),
+                bound_ms=g * bound, bound_by=by)
 
 
 def same_bits(torch, x, y) -> bool:
@@ -3052,9 +3171,25 @@ def phase_lm_kernels(torch):
         if m > 16 and not tb:
             bt.append(dict(bt_entry(torch, m, k, n, bt_gen),
                            launches_per_train_step=counts["prefill"]))
+    bt_keys = ("device_ms", "device_ms_b", "library_device_ms", "plain_ms",
+               "bound_ms")
     bt_step = {key: sum(e[key] * e["launches_per_train_step"] for e in bt)
-               for key in ("device_ms", "device_ms_b", "library_device_ms",
-                           "plain_ms", "bound_ms")}
+               for key in bt_keys}
+    # the tied head of a train step's forward (every position, checked, the
+    # table as it lies) and the grouped Bᵀ launch at deepseek-moe-16b's
+    # prefill up/gate expert shape (lm_grads' expert dA), each from a
+    # generator of its own
+    bt_head = dict(bt_head_entry(
+        torch, LM["batch"] * LM["prompt"], cfg.d_model, cfg.padded_vocab,
+        torch.Generator(device="cuda").manual_seed(15)),
+        launches_per_train_step=1)
+    bt_grouped = bt_grouped_entry(
+        torch, *next(iter(lm_grouped_shapes(arch_config("deepseek-moe-16b")))),
+        torch.Generator(device="cuda").manual_seed(16))
+    if not all(e["bitwise_b_path"] for e in bt + [bt_head, bt_grouped]):
+        raise AssertionError("matmul_bt: a Bᵀ launch differs from the same "
+                             "launch on a transposed copy of B")
+    bt_step_head = {key: bt_step[key] + bt_head[key] for key in bt_keys}
     # ragged shapes (MATMUL_RAGGED)
     ragged = [check_matmul_shape(torch, m, k, n, tb, dt, gen, False)
               for m, k, n, tb in MATMUL_RAGGED
@@ -3290,7 +3425,9 @@ def phase_lm_kernels(torch):
          matmul_grouped_bf16=grouped_bf16,
          matmul_grouped_ragged=grouped_ragged,
          matmul_grouped_counted=list(counted.values()),
-         matmul_bt=dict(shapes=bt, per_train_step=bt_step),
+         matmul_bt=dict(shapes=bt, per_train_step=bt_step,
+                        tied_head=bt_head, grouped=bt_grouped,
+                        per_train_step_with_head=bt_step_head),
          flash_archs=flash_archs, flash_noncausal=flash_noncausal,
          flash_noncausal_bf16=flash_noncausal_bf16,
          flash_noncausal_ragged=flash_noncausal_ragged,
@@ -4173,11 +4310,12 @@ def split_gates(torch, cfg, params, spec, cache_len):
 # the kernels' autograd Functions: backward vs autograd of the plain version
 # ---------------------------------------------------------------------------
 
-def grad_entry(torch, tag, function, plain, inputs, grad_out):
+def grad_entry(torch, tag, function, plain, inputs, grad_out, gate=None):
     """The Function's gradients (``function(*inputs)``'s first output) two
     runs, bit for bit, and each within ``atol = rtol = 1e-4`` of autograd
     of ``plain(*inputs)``'s first output; the kernel launches of one
-    Function forward and backward."""
+    Function forward and backward.  ``gate(grads)``, when given, holds the
+    Function's gradients to more (it raises) and returns fields to add."""
     from repro_torch.kernels import runtime
 
     def grads(fn):
@@ -4194,7 +4332,8 @@ def grad_entry(torch, tag, function, plain, inputs, grad_out):
     errs = [assert_close(f"{tag} grad {i}", g, w)
             for i, (g, w) in enumerate(zip(got, want))]
     return dict(launches=launches, max_abs_err=errs, repeat_bitwise=True,
-                max_abs_grad=[float(w.abs().max()) for w in want])
+                max_abs_grad=[float(w.abs().max()) for w in want],
+                **(gate(got) if gate else {}))
 
 
 def phase_lm_grads(torch):
@@ -4205,11 +4344,13 @@ def phase_lm_grads(torch):
     deepseek-moe-16b's prefill expert up product, B5 at gemma-2b's causal
     attention and whisper-medium's encoder and cross-attention; one
     Function forward launches B4 once and its backward twice (B5 once, its
-    backward none)."""
+    backward none).  The grouped expert again with row counts
+    (``grouped_edge_counts``' mix) and non-zero dead rows, against autograd
+    of the plain version on ``zero_dead_rows``: dA's dead rows +0."""
     from repro_torch.kernels.flash_checksum.kernel import flash_checksum_plain
     from repro_torch.kernels.flash_checksum.ops import FlashChecksumFunction
     from repro_torch.kernels.matmul_abft.kernel import (
-        matmul_abft_grouped_plain, matmul_abft_plain)
+        matmul_abft_grouped_plain, matmul_abft_plain, zero_dead_rows)
     from repro_torch.kernels.matmul_abft.ops import (
         GroupedMatmulAbftFunction, MatmulAbftFunction)
     from repro_torch.models.transformer import lm_loss
@@ -4244,6 +4385,30 @@ def phase_lm_grads(torch):
         lambda x, y: GroupedMatmulAbftFunction.apply(x, y, None, None),
         lambda x, y: matmul_abft_grouped_plain(x, y),
         (rnd(g, gm, gk), rnd(g, gk, gn, std=gk ** -0.5)), rnd(g, gm, gn)))
+    # with counts, its operands from a generator of its own
+    cgen = torch.Generator(device="cuda").manual_seed(13)
+    counts = grouped_edge_counts(g, gm)["mixed"]
+    rows = torch.tensor(counts, dtype=torch.int32, device="cuda")
+    dead = torch.arange(gm, device="cuda")[None, :, None] >= rows[:, None,
+                                                                  None]
+
+    def dead_rows_zero(grads):
+        da = grads[0].masked_select(dead)
+        if da.any() or torch.signbit(da).any():
+            raise AssertionError("matmul_abft_grouped expert, counted: dA's "
+                                 "rows past the counts are not +0")
+        return dict(dead_rows=int(dead.sum()), dead_da_zero=True)
+
+    def crnd(*shape, std=1.0):
+        return torch.randn(*shape, generator=cgen, device="cuda") * std
+    out["matmul_grouped_expert_counted"] = dict(
+        g=g, m=gm, k=gk, n=gn, rows=counts, **grad_entry(
+            torch, "matmul_abft_grouped expert, counted",
+            lambda x, y: GroupedMatmulAbftFunction.apply(x, y, None, rows),
+            lambda x, y: matmul_abft_grouped_plain(zero_dead_rows(x, rows),
+                                                   y),
+            (crnd(g, gm, gk), crnd(g, gk, gn, std=gk ** -0.5)),
+            crnd(g, gm, gn), gate=dead_rows_zero))
     wcfg = arch_config("whisper-medium")
     spec = next(s for s in ARCHS if s["arch"] == "whisper-medium")
     shapes = (("gemma_causal", (LM["batch"], LM["prompt"], LM["prompt"],

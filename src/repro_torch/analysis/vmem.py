@@ -455,13 +455,17 @@ def matmul_wide_smem_bytes(itemsize: int, trans_b: bool) -> int:
     """Dynamic shared memory of one wide-path block (M > 16): per stage A's
     [128, 32 + v] slice (rows of 32 k plus v elements of padding, v to a
     16-byte piece), B's [32, 128] slice ([128, 32 + v] for a transposed B)
-    in the operand dtype, and b_r's 32 f32 values.  104,832 B in f32 (one
-    block an SM runs: its registers allow no second)."""
+    in the operand dtype, and b_r's 32 f32 values; a transposed B adds one
+    k-major [32, 128] buffer, the chunk being multiplied.  104,832 B in f32,
+    127,360 B transposed (one block an SM runs: its registers allow no
+    second)."""
     v = 16 // itemsize
     bm, bn = MATMUL_WIDE_TILE
     a = bm * (MATMUL_BLOCK_K + v)
     b = bn * (MATMUL_BLOCK_K + v) if trans_b else MATMUL_BLOCK_K * bn
-    return MATMUL_STAGES * ((a + b) * itemsize + 4 * MATMUL_BLOCK_K)
+    k_major = MATMUL_BLOCK_K * bn * itemsize if trans_b else 0
+    return MATMUL_STAGES * ((a + b) * itemsize + 4 * MATMUL_BLOCK_K) + \
+        k_major
 
 
 def _split_chunks(m: int, n: int, k: int) -> int:

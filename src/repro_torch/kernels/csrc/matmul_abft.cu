@@ -42,6 +42,14 @@
 // 256 FFMA (the 64 x 128 tile this replaced read 12 scalars for 32 FFMA, so
 // shared-memory instructions, not FFMA, set its pace).  One barrier a chunk;
 // interior blocks copy from pointers set up once, with no bounds arithmetic.
+// B^T (a train step's dA = dC·B^T, the tied LM head) is copied as it lies
+// too, [128 n][32 k] in coalesced 16-byte pieces; after the chunk's barrier
+// the block turns it into B's k-major [32 k][128 n] layout in one more
+// buffer (127,360 B in f32), a second barrier, and the chunk is multiplied
+// by B's inner loop — the same values in the same order, so C, the block
+// sums and the extra column are bit for bit those of the B path on a
+// transposed copy.  (Read as it lies, the [n][k] stage costs 32 scalar
+// loads per 4 k, each a 4-way bank conflict: 1.6–1.9x the B path's time.)
 // The block's two 64-row halves are two entries of block_sums, so the sum
 // tile stays 64 x 128.  What holds it back: registers — acc and the chunk
 // partial take 128 of the 255 a thread, so one block of 8 warps runs an SM
@@ -49,8 +57,9 @@
 // of each chunk and its barrier (tools/wide_tile_variants.py's `diag_*`
 // variants measure both); the products with narrow N (k/v, 256 columns: 16
 // blocks) leave most SMs idle, and split-K would change the association;
-// B^T and bf16 take the same tile unoptimised (B^T with scalar loads; bf16
-// widened at each read).
+// bf16 takes the same tile unoptimised (widened at each read); B^T adds a
+// transpose of each chunk and its barrier (overlapping it with the previous
+// chunk won 1–3 %, tools/bt_variants.py).
 //
 // M <= 16, two kernels launched back to back on one stream:
 //  * `thin_split`: the work is (column tile, split) items — 256 columns of
@@ -691,6 +700,8 @@ __device__ __forceinline__ void with_steps(int steps, F&& f) {
 // as it lies in device memory (m-major; rows of 32 + V elements: 16-byte
 // aligned, and 4 consecutive rows fall on distinct banks), B's [32][128]
 // slice as it lies (B^T: [128][32 + V], as A), and b_r's 32 values (f32).
+// B^T adds one k-major buffer after the ring, KM_BYTES: the chunk being
+// multiplied, [32 k][128 n] as B's stage (`km_group` places its columns).
 template <typename T, int BM, bool TRANS> struct WideStage {
   static constexpr int V = Piece<T>::V;
   static constexpr int LDK = kBK + V;       // a k-contiguous row
@@ -698,11 +709,62 @@ template <typename T, int BM, bool TRANS> struct WideStage {
   static constexpr int B_ELEMS = TRANS ? kWideN * LDK : kBK * kWideN;
   static constexpr int BYTES = (A_ELEMS + B_ELEMS) * (int)sizeof(T) +
                                kBK * (int)sizeof(float);
+  static constexpr int KM_BYTES = TRANS ? kBK * kWideN * (int)sizeof(T) : 0;
 };
 
 template <typename T, int BM, bool TRANS>
 constexpr int wide_smem_bytes() {
-  return kStages * WideStage<T, BM, TRANS>::BYTES;
+  return kStages * WideStage<T, BM, TRANS>::BYTES +
+         WideStage<T, BM, TRANS>::KM_BYTES;
+}
+
+// Where the k-major buffer keeps columns 4 g .. 4 g + 3 of row k: 4-column
+// group g ^ ((k / 4) % 8 · V / 4), a swizzle inside each aligned 8 (f32) or
+// 16 (bf16) groups, so that the 16-byte (f32) or 8-byte (bf16) pieces a
+// quarter- or half-warp stores in the transpose (8 rows 4 apart, one or two
+// column groups) fall on distinct banks, as do the 8 groups of one row
+// that a warp reads in the inner loop.
+template <int V>
+__device__ __forceinline__ int km_group(int k, int g) {
+  return g ^ ((k >> 2) & 7) * (V / 4);
+}
+
+// A 4 x 4 block of raw elements — 4 rows of `src` (stride ld), 4
+// consecutive elements each — stored transposed: element (r, c) to
+// dst[c ldd + r].  Raw bits, no conversion.
+__device__ __forceinline__ void transpose4x4(const float* src, int ld,
+                                             float* dst, int ldd) {
+  float4 r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    r[i] = *reinterpret_cast<const float4*>(src + i * ld);
+  *reinterpret_cast<float4*>(dst) = make_float4(r[0].x, r[1].x, r[2].x,
+                                                r[3].x);
+  *reinterpret_cast<float4*>(dst + ldd) = make_float4(r[0].y, r[1].y, r[2].y,
+                                                      r[3].y);
+  *reinterpret_cast<float4*>(dst + 2 * ldd) = make_float4(r[0].z, r[1].z,
+                                                          r[2].z, r[3].z);
+  *reinterpret_cast<float4*>(dst + 3 * ldd) = make_float4(r[0].w, r[1].w,
+                                                          r[2].w, r[3].w);
+}
+__device__ __forceinline__ void transpose4x4(const __nv_bfloat16* src,
+                                             int ld, __nv_bfloat16* dst,
+                                             int ldd) {
+  uint2 r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    r[i] = *reinterpret_cast<const uint2*>(src + i * ld);
+  // element 2i of a word is its low half: 0x5410 joins two low halves,
+  // 0x7632 two high ones
+  const unsigned lo = 0x5410u, hi = 0x7632u;
+  *reinterpret_cast<uint2*>(dst) = make_uint2(
+      __byte_perm(r[0].x, r[1].x, lo), __byte_perm(r[2].x, r[3].x, lo));
+  *reinterpret_cast<uint2*>(dst + ldd) = make_uint2(
+      __byte_perm(r[0].x, r[1].x, hi), __byte_perm(r[2].x, r[3].x, hi));
+  *reinterpret_cast<uint2*>(dst + 2 * ldd) = make_uint2(
+      __byte_perm(r[0].y, r[1].y, lo), __byte_perm(r[2].y, r[3].y, lo));
+  *reinterpret_cast<uint2*>(dst + 3 * ldd) = make_uint2(
+      __byte_perm(r[0].y, r[1].y, hi), __byte_perm(r[2].y, r[3].y, hi));
 }
 
 // One block per BM x 128 tile of C (blockIdx.y, blockIdx.x), walking all of
@@ -715,8 +777,11 @@ constexpr int wide_smem_bytes() {
 // warp's 4 rows fall on distinct banks — and per k its 8 B values with two,
 // the warp's 8 column groups one contiguous 128-byte line; then BM / 2 FFMA
 // per k per 16-byte load.  Each chunk is summed apart in `part`, k in
-// order, and added to `acc` in chunk order.  B^T (tests only at M > 16)
-// reads its columns with scalar loads.  Rows i < 4 are C rows 0-63 of the
+// order, and added to `acc` in chunk order.  B^T: after the barrier,
+// thread t turns the 4 x 4 block (n 4 (t / 8), k 4 (t % 8)) of the chunk's
+// [128 n][32 k] stage into the k-major buffer (`km_group`); after a second
+// barrier the loop reads that buffer as B's stage, its column groups
+// swizzled.  Rows i < 4 are C rows 0-63 of the
 // tile, rows i >= 4 rows 64-127: each half's f32 sum is one block_sums
 // entry (per thread i then j, a warp shuffle tree, then warp by warp).  The
 // ni == 0 blocks also sum A @ b_r, one row a thread, in the same chunks.
@@ -805,11 +870,13 @@ wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
   // start 16-byte aligned) copies its whole chunks from pointers set up
   // here, with no bounds arithmetic per piece: thread t copies piece
   // t % (32 / V) of A's rows t / (32 / V) + AR e and piece t % (128 / V)
-  // of B's rows t / (128 / V) + BR e
-  const bool interior = !TRANS && vec_a && vec_b && m0 + BM <= M &&
+  // of B's rows t / (128 / V) + BR e (B^T's as A's)
+  const bool interior = vec_a && vec_b && m0 + BM <= M &&
                         n0 + kWideN <= N;
   constexpr int AR = kThreads / (kBK / V);
-  constexpr int BR = kThreads / (kWideN / V);
+  // B^T's [128 n][32 k] slice is copied as A's slice is
+  constexpr int BR = TRANS ? AR : kThreads / (kWideN / V);
+  constexpr int LDB = TRANS ? LDK : kWideN;   // a stage row of B's slice
   const T* ga = A + (size_t)(m0 + t / (kBK / V)) * K + (t % (kBK / V)) * V;
   // the interior A pieces this thread copies that lie before the count
   // (bit e; the others are zero-filled)
@@ -820,10 +887,13 @@ wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
     for (int e = 0; e < AP; ++e)
       a_live |= (m0 + t / (kBK / V) + e * AR < mg ? 1u : 0u) << e;
   }
-  const T* gb = B + (size_t)(t / (kWideN / V)) * N + n0 +
-                (t % (kWideN / V)) * V;
+  const T* gb = TRANS ? B + (size_t)(n0 + t / (kBK / V)) * K +
+                            (t % (kBK / V)) * V
+                      : B + (size_t)(t / (kWideN / V)) * N + n0 +
+                            (t % (kWideN / V)) * V;
   const int sa = (t / (kBK / V)) * LDK + (t % (kBK / V)) * V;
-  const int sb = (t / (kWideN / V)) * kWideN + (t % (kWideN / V)) * V;
+  const int sb = TRANS ? sa
+                       : (t / (kWideN / V)) * kWideN + (t % (kWideN / V)) * V;
   // copy chunk [k0, k0 + 32) into stage st
   auto fetch = [&](int st, int k0) {
     if (interior && k0 + kBK <= K) {
@@ -833,8 +903,10 @@ wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
                    ga + (size_t)e * AR * K + k0, (a_live >> e & 1u) * 16);
 #pragma unroll
       for (int e = 0; e < BP; ++e)
-        cp_async16(stage_b(st) + sb + e * BR * kWideN,
-                   gb + (size_t)(k0 + e * BR) * N, 16);
+        cp_async16(stage_b(st) + sb + e * BR * LDB,
+                   TRANS ? gb + (size_t)e * BR * K + k0
+                         : gb + (size_t)(k0 + e * BR) * N,
+                   16);
       if (with_extra && t < kBK / 4)   // interior: K % V == 0, b_r aligned
         cp_async16(stage_br(st) + 4 * t, br + k0 + 4 * t, 16);
       return;
@@ -868,6 +940,9 @@ wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
       fetch_br(stage_br(st) + 4 * t, br, br, k0 + 4 * t, K);
   };
 
+  // B^T: the k-major buffer after the ring
+  T* const km = reinterpret_cast<T*>(wide_smem + kStages * St::BYTES);
+
   const int chunks = (K + kBK - 1) / kBK;
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -889,9 +964,15 @@ wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
     const int next = c + kStages - 1;
     if (next < chunks) fetch(next % kStages, next * kBK);
     cp_async_commit();
+    if constexpr (TRANS) {   // the barrier above: chunk c - 1 read km
+      const int tk = 4 * (t % 8), tn = 4 * (t / 8);   // this thread's block
+      transpose4x4(stage_b(st) + tn * LDK + tk, LDK,
+                   km + tk * kWideN + 4 * km_group<V>(tk, tn / 4), kWideN);
+      __syncthreads();
+    }
 
     const T* as = stage_a(st);
-    const T* bs = stage_b(st);
+    const T* bs = TRANS ? km : stage_b(st);
     // the chunk for the first S steps, S = steps a compile-time count
     with_steps<COUNTED ? TM : 1, TM>(steps, [&](auto s_) {
       constexpr int S = decltype(s_)::value;
@@ -909,11 +990,9 @@ wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
         for (int kk = 0; kk < 4; ++kk) {
           float b[8];
           if constexpr (TRANS) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              b[j] = to_f(bs[(4 * tx + j) * LDK + kq + kk]);
-              b[4 + j] = to_f(bs[(64 + 4 * tx + j) * LDK + kq + kk]);
-            }
+            const int q = 4 * km_group<V>(kq, tx);
+            load4(bs + (kq + kk) * kWideN + q, b);
+            load4(bs + (kq + kk) * kWideN + 64 + q, b + 4);
           } else {
             load4(bs + (kq + kk) * kWideN + 4 * tx, b);
             load4(bs + (kq + kk) * kWideN + 64 + 4 * tx, b + 4);

@@ -31,7 +31,8 @@ import torch
 
 from repro_torch.core.abft import ABFTConfig, Check, CheckedOp, resolve_w_r
 
-from .kernel import matmul_abft_grouped_kernel, matmul_abft_kernel
+from .kernel import (matmul_abft_grouped_kernel, matmul_abft_kernel,
+                     zero_dead_rows)
 
 Tensor = torch.Tensor
 
@@ -77,26 +78,34 @@ class GroupedMatmulAbftFunction(torch.autograd.Function):
     br, rows)``: :func:`~.kernel.matmul_abft_grouped_kernel` (a [G, M, K],
     b [G, K, N], row counts or None) with a backward of one grouped launch
     a gradient, each group as :class:`MatmulAbftFunction` does it.  The
-    backward launches take no counts: they multiply ``a`` as given (an MoE
-    buffer's rows past the counts are zeros already)."""
+    backward launches take no counts.  With ``rows`` the forward is
+    ``bmm(zero_dead_rows(a, rows), b)``, and so is the gradient: dA's rows
+    at or past a count are +0 (the launch's rows there are zeroed) and dB
+    is taken from ``zero_dead_rows(a, rows)``; without ``rows`` both
+    multiply ``a`` as given."""
 
     @staticmethod
     def forward(ctx, a, b, br, rows):
         c, sums, extra = matmul_abft_grouped_kernel(a, b, br, rows=rows)
         ctx.save_for_backward(a, b)
+        ctx.rows = rows
         _non_differentiable(ctx, sums, extra)
         return c, sums, extra
 
     @staticmethod
     def backward(ctx, dc, _dsums, _dextra):
         a, b = ctx.saved_tensors
+        rows = ctx.rows
         dc = dc.contiguous()
         da = db = None
         if ctx.needs_input_grad[0]:
             da = matmul_abft_grouped_kernel(dc, b, None, trans_b=True)[0]
+            if rows is not None:
+                da = zero_dead_rows(da, rows)
         if ctx.needs_input_grad[1]:
+            live = a if rows is None else zero_dead_rows(a, rows)
             db = matmul_abft_grouped_kernel(
-                a.transpose(1, 2).contiguous(), dc)[0]
+                live.transpose(1, 2).contiguous(), dc)[0]
         return da, db, None, None
 
 

@@ -37,6 +37,8 @@ from repro_torch.core.abft import ABFTConfig, per_op_report  # noqa: E402
 from repro_torch.kernels.matmul_abft.kernel import (  # noqa: E402
     _check_grouped, matmul_abft_grouped_kernel, matmul_abft_grouped_plain,
     zero_dead_rows)
+from repro_torch.kernels.matmul_abft.ops import (  # noqa: E402
+    GroupedMatmulAbftFunction)
 from repro_torch.models import moe  # noqa: E402
 
 ATOL = 1e-4
@@ -126,6 +128,51 @@ def test_the_wrapper_refuses_bad_counts():
     with pytest.raises(ValueError, match="as it lies"):
         matmul_abft_grouped_kernel(a, b.transpose(1, 2).contiguous(), None,
                                    trans_b=True, rows=ok)
+
+
+def _grads(fn, a, b, dc):
+    xs = [a.clone().requires_grad_(True), b.clone().requires_grad_(True)]
+    return fn(*xs), torch.autograd.grad(fn(*xs), xs, dc)
+
+
+@pytest.mark.parametrize("g,m,k,n,counts", [
+    (2, 8, 4, 3, (3, 8)),                   # the case that found the fault
+    (3, 6, 70, 33, (0, 6, 2)),              # thin path (M <= 16)
+    (4, 17, 33, 20, (17, 0, 16, 1)),        # wide path, either side of 16
+    (3, 40, 9, 65, (39, 0, 40)),
+])
+def test_counted_backward_is_autograd_of_the_zeroed_product(g, m, k, n,
+                                                            counts):
+    """With counts and non-zero dead rows in A and dC, the Function's
+    gradients are autograd's of ``zero_dead_rows(a, rows) @ b``: dA's dead
+    rows exactly +0, dB without the dead rows of A."""
+    a, b, _ = _operands(g, m, k, n, torch.float32, g + m + k + n)
+    dc = torch.randn((g, m, n), generator=torch.Generator().manual_seed(m))
+    rows = torch.tensor(counts, dtype=torch.int32)
+    dead = torch.arange(m)[None, :] >= rows[:, None]
+    assert (a.masked_select(dead[..., None]) != 0).all() and dead.any()
+    c, (da, db) = _grads(lambda x, y: GroupedMatmulAbftFunction.apply(
+        x, y, None, rows)[0], a, b, dc)
+    want_c, (want_da, want_db) = _grads(
+        lambda x, y: zero_dead_rows(x, rows) @ y, a, b, dc)
+    for got, want in ((c, want_c), (da, want_da), (db, want_db)):
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=ATOL)
+    dead_da = da.masked_select(dead[..., None])
+    assert not dead_da.any() and not torch.signbit(dead_da).any()
+
+
+def test_uncounted_backward_keeps_its_launches():
+    """Without counts the backward is the two launches it always was, bit
+    for bit: dA = dC·Bᵀ with ``trans_b`` on B as it lies, dB = Aᵀ·dC on a
+    contiguous transposed copy of A."""
+    a, b, _ = _operands(3, 17, 33, 20, torch.float32, 5)
+    dc = torch.randn((3, 17, 20), generator=torch.Generator().manual_seed(6))
+    _, (da, db) = _grads(lambda x, y: GroupedMatmulAbftFunction.apply(
+        x, y, None, None)[0], a, b, dc)
+    assert torch.equal(da, matmul_abft_grouped_kernel(dc, b, None,
+                                                      trans_b=True)[0])
+    assert torch.equal(db, matmul_abft_grouped_kernel(
+        a.transpose(1, 2).contiguous(), dc)[0])
 
 
 @settings(max_examples=20, deadline=None)

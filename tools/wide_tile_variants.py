@@ -47,7 +47,8 @@ _ACC_ADD = """#pragma unroll
 _LOOP_END = """  cp_async_wait<0>();                // no copy outlives the block
 
   // C in the operand dtype"""
-_SMEM = "  return kStages * WideStage<T, BM, TRANS>::BYTES;"
+_SMEM = """  return kStages * WideStage<T, BM, TRANS>::BYTES +
+         WideStage<T, BM, TRANS>::KM_BYTES;"""
 _KQ = """#pragma unroll
       for (int kq = 0; kq < kBK; kq += 4) {
         float a[S][4];"""
@@ -73,7 +74,7 @@ VARIANTS = {
     # the accumulator in shared memory (64 KB more), 64 registers freed
     "acc_smem": [
         (_ACC_INIT, """  float4* acc_s = reinterpret_cast<float4*>(
-      wide_smem + kStages * St::BYTES);
+      wide_smem + kStages * St::BYTES + St::KM_BYTES);
 #pragma unroll
   for (int q = 0; q < 2 * TM; ++q)
     acc_s[q * kThreads + t] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -105,8 +106,7 @@ VARIANTS = {
     }
 
   // C in the operand dtype"""),
-        (_SMEM, "  return kStages * WideStage<T, BM, TRANS>::BYTES + "
-                "BM * kWideN * 4;")],
+        (_SMEM, _SMEM[:-1] + " + BM * kWideN * 4;")],
     # a 64 x 128 block tile (4 x 8 outputs a thread) for every shape
     "bm64": [("constexpr int kWideM = 128;", "constexpr int kWideM = 64;")],
     # blocks walk 8 row tiles before the next column tile (L2 reuse of B)
