@@ -28,7 +28,11 @@ and internvl2-26b (32 of its 48 layers, 256 prefix embeddings before the
 prompt), and guarded GAT serving on ``matmul_abft`` over full Cora and
 full PubMed (``gat``) — through the entry points a user would call; then
 ``python -m repro_torch.launch.serve --smoke`` for whisper-medium and
-internvl2-26b (``serve_cli``).  Any phase that fails
+internvl2-26b (``serve_cli``), and the port's five examples,
+``examples/torch_*.py``, each as a process (``examples``: the fault demo,
+the quickstart with B1 on its ``block_ell`` line, train_gcn at full Cora's
+widths, train_lm with a restore from its checkpoint and serve_lm on B4, the
+grouped B4 and B5).  Any phase that fails
 raises and the run exits non-zero; without a CUDA device it exits non-zero
 before printing anything.
 
@@ -106,7 +110,8 @@ One JSON object per phase is printed (``env``, ``build``, ``kernel_checks``,
 ``lm_kernels``, ``lm_grads``, ``serve``, ``fault``, ``stream``,
 ``full_graph``, ``campaign_gcn``, ``sparse``, ``sharded``, ``gat`` (one a
 graph), ``coverage``, ``lm_serve``, ``campaign_lm``, ``lm_archs`` (one a
-model), ``lm_train``, ``train_driver``, ``serve_cli``, ``mesh``), then the
+model), ``lm_train``, ``train_driver``, ``serve_cli``, ``examples``,
+``mesh``), then the
 ``kernels``
 summary line, the card's name and power limit as ``nvidia-smi`` gives them,
 and a last line ``{"ok": true, "device": {...}}``.
@@ -120,6 +125,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -5156,6 +5162,159 @@ def phase_serve_cli(torch):
     emit("serve_cli", runs=runs)
 
 
+
+# runs one of the port's examples as ``__main__`` in the process it is
+# started as, then prints the process's kernel launch counts and its
+# seconds on a line of their own (the example's own output is unchanged
+# above it)
+EXAMPLE_RUNNER = """
+import time
+t0 = time.perf_counter()
+import json, runpy, sys
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+from repro_torch.kernels import runtime
+print("RESULT " + json.dumps({"launches": runtime.launch_counts(),
+                              "seconds": time.perf_counter() - t0}),
+      flush=True)
+"""
+
+
+def _block_ell_diff_ok(out):
+    """The quickstart's ``block_ell`` line: |logit diff| <= 1e-4."""
+    found = re.findall(r"^  block_ell +\|logit diff\|=(\S+) ", out, re.M)
+    return len(found) == 1 and float(found[0]) <= 1e-4
+
+
+def _loss_fell(out):
+    """train_gcn: the last printed loss below the first."""
+    losses = [float(x) for x in re.findall(r"^step +\d+ loss=(\S+) ", out,
+                                           re.M)]
+    return len(losses) >= 2 and losses[-1] < losses[0]
+
+
+def example_runs(tmp):
+    """The ``examples`` phase's runs: (example, argv, patterns its output
+    must match — multiline regexes —, kernels that must launch, a further
+    check of the output or None)."""
+    gemma_ckpt = os.path.join(tmp, "ckpt_gemma")
+    cuda, lm = ["--device", "cuda"], ["matmul_abft", "flash_checksum"]
+    clean_lm = [r"ABFT flags: 0$"]
+    return [
+        ("fault_injection_demo", [],
+         [r"^  split : detected \d+, silent 0,",
+          r"^  fused : detected \d+, silent 0,"], [], None),
+        ("quickstart", cuda,
+         [r"^split : clean forward  flag=False ",
+          r"^fused : clean forward  flag=False ", r"-> detected: True$",
+          r"^  block_ell +\|logit diff\|=\S+ flag=False "],
+         ["spmm_abft"], _block_ell_diff_ok),
+        ("train_gcn", cuda + ["--scale", "1", "--steps", "50"],
+         [r"flagged steps: 0$"], [], _loss_fell),
+        ("train_lm", cuda + ["--arch", "gemma-2b", "--steps", "30",
+                             "--ckpt", gemma_ckpt],
+         [r"\(improved: True\); ABFT flags: 0$"], lm, None),
+        ("train_lm", cuda + ["--arch", "gemma-2b", "--steps", "5",
+                             "--ckpt", gemma_ckpt],
+         [r"^restored from step 30$"] + clean_lm, lm, None),
+        ("train_lm", cuda + ["--arch", "whisper-medium", "--steps", "1",
+                             "--ckpt", os.path.join(tmp, "ckpt_whisper")],
+         clean_lm, lm, None),
+        ("train_lm", cuda + ["--arch", "internvl2-26b", "--steps", "1",
+                             "--ckpt", os.path.join(tmp, "ckpt_internvl")],
+         clean_lm, lm, None),
+        ("serve_lm", cuda + ["--arch", "gemma-2b"],
+         [r"abft_flag=False$"] + clean_lm, lm, None),
+        ("serve_lm", cuda + ["--arch", "whisper-medium"],
+         [r"abft_flag=False$"] + clean_lm, lm, None),
+        ("serve_lm", cuda + ["--arch", "deepseek-moe-16b"],
+         [r"abft_flag=False$"] + clean_lm, lm + ["matmul_abft_grouped"],
+         None),
+    ]
+
+
+def phase_examples(torch):
+    """The port's five examples (``examples/torch_*.py``), each a process
+    of its own that loads the library this run built: the fault demo (numpy
+    on the host, started first and run beside the others, as it uses no
+    card), the quickstart (B1 on its ``block_ell`` line), train_gcn at full
+    Cora's widths (2708 nodes, 1433 -> 16 -> 7) for 50 steps, train_lm on
+    the gemma-2b smoke twin for 30 steps and again from its checkpoint, one
+    step each of whisper-medium and internvl2-26b, and serve_lm for
+    gemma-2b, whisper-medium and deepseek-moe-16b (B4, the grouped B4, B5)
+    — the card's runs one after another, so each prints its own times.
+    Each must exit 0, match its patterns and launch its kernels
+    (:func:`example_runs`).  Returns the launches summed over the runs."""
+    import tempfile
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+    tmp = tempfile.mkdtemp(prefix="examples_")
+
+    def start(name, argv):
+        cmd = [sys.executable, "-c", EXAMPLE_RUNNER,
+               os.path.join(ROOT, "examples", f"torch_{name}.py"), *argv]
+        return time.perf_counter(), subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+
+    def finish(run, started):
+        name, argv, patterns, kernels, check = run
+        t0, proc = started
+        try:
+            stdout, _ = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        wall = time.perf_counter() - t0
+        lines = stdout.strip().splitlines()
+        result = [json.loads(x[len("RESULT "):]) for x in lines
+                  if x.startswith("RESULT ")]
+        result = result[-1] if result else {"launches": {}, "seconds": wall}
+        launches = result["launches"]
+        lines = [x for x in lines if not x.startswith("RESULT ")]
+        out = "\n".join(lines)
+        bad = ["exit 0"] if proc.returncode else []
+        bad += [p for p in patterns if not re.search(p, out, re.M)]
+        bad += [f"a {k} launch" for k in kernels if not launches.get(k)]
+        if check is not None and not check(out):
+            bad.append(check.__name__)
+        runs.append(dict(
+            example=f"torch_{name}", argv=argv, returncode=proc.returncode,
+            seconds=result["seconds"],
+            launches={k: v for k, v in launches.items() if v},
+            output=lines[-2:],
+            printed_times=[x for x in lines if re.search(r"\d ms\b|ms/step",
+                                                         x)]))
+        if bad:
+            emit("examples", runs=runs, log=lines[-30:])
+            raise AssertionError(f"examples/torch_{name}.py {argv}: not "
+                                 f"shown: {bad}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    runs, total = [], {}
+    plan = example_runs(tmp)
+    host = [(run, start(*run[:2])) for run in plan if "--device" not in run[1]]
+    try:
+        for run in plan:
+            if "--device" in run[1]:
+                finish(run, start(*run[:2]))
+        for run, started in host:
+            finish(run, started)
+    finally:
+        for _run, (_t0, proc) in host:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("examples", runs=runs, launches=total,
+         seconds=time.perf_counter() - t_phase)
+    return total
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6097,6 +6256,7 @@ def run_only(torch, smi, names, archs=None) -> int:
                   lm_train=lambda: phase_lm_train(torch, smi),
                   train_driver=lambda: phase_train_driver(torch, smi),
                   serve_cli=lambda: phase_serve_cli(torch),
+                  examples=lambda: phase_examples(torch),
                   sparse=lambda: phase_sparse(torch),
                   sharded=lambda: phase_sharded(torch),
                   gat=lambda: phase_gat(torch),
@@ -6124,9 +6284,9 @@ def main() -> int:
 
     # --stop-after build|kernels cuts the run short (a first look at a new
     # kernel); --only runs the build and the phases named (the LM phases,
-    # train_driver, serve_cli, coverage), --archs cuts lm_archs to the
-    # models named:
-    # a first look at a changed phase.  Such runs print no final "ok" line
+    # train_driver, serve_cli, examples, coverage), --archs cuts lm_archs
+    # to the models named: a first look at a changed phase.  Such runs
+    # print no final "ok" line
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--stop-after", choices=("build", "kernels"))
@@ -6163,6 +6323,8 @@ def main() -> int:
         for name, count in phase(torch, smi).items():
             launches[name] = launches.get(name, 0) + count
     phase_serve_cli(torch)
+    for name, count in phase_examples(torch).items():
+        launches[name] = launches.get(name, 0) + count
     for name, count in phase_mesh(torch, smi, dry).items():
         launches[name] = launches.get(name, 0) + count
 

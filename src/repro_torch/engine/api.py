@@ -218,9 +218,12 @@ def gcn_apply(params: Params, graph: Graph, cfg: ABFTConfig, *,
               **backend_opts) -> Tuple[Tensor, ABFTReport]:
     """The engine entry point: logits + one ABFTReport.
 
-    ``backend`` is ``"dense" | "block_ell"`` (inferred from the adjacency
-    operand when omitted); ``device`` defaults to the GPU and raises when
-    there is none (pass ``device="cpu"`` for the plain PyTorch versions).
+    ``backend`` is ``"dense" | "bcoo" | "block_ell"`` (inferred from the
+    adjacency operand when omitted); ``partition`` a
+    :class:`~repro_torch.engine.sharded.Partition` for stripe-sharded
+    block-ELL aggregation (the shards' partial checks summed into this same
+    report); ``device`` defaults to the GPU and raises when there is none
+    (pass ``device="cpu"`` for the plain PyTorch versions).
     """
     logits, checks = gcn_forward(params, graph, cfg, backend=backend,
                                  partition=partition, device=device,

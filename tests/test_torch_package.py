@@ -53,12 +53,26 @@ def test_every_module_imports_without_jax_or_the_jax_package():
 
 def test_no_source_line_imports_jax_or_the_jax_package():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
-    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [f.stem for f in examples] == [
+        "torch_fault_injection_demo", "torch_quickstart", "torch_serve_lm",
+        "torch_train_gcn", "torch_train_lm"]
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 25
     hits = [f"{f.relative_to(ROOT)}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1)
             if pat.match(line)]
     assert hits == []
+
+
+def _example(name):
+    """``examples/<name>.py`` imported as a module (its ``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _no_gpu():
@@ -72,7 +86,9 @@ def _no_gpu():
                                    "device_block_ell", "init_model",
                                    "lm_engine", "serve_lm",
                                    "lm_params_from_numpy",
-                                   "init_decode_state"])
+                                   "init_decode_state", "torch_quickstart",
+                                   "torch_train_gcn", "torch_train_lm",
+                                   "torch_serve_lm"])
 def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked_for(entry):
     _no_gpu()
     import numpy as np
@@ -114,6 +130,9 @@ def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked_for(entry):
             convert.params_to_numpy(init_model(lm, 0, device="cpu")), lm),
         "init_decode_state": lambda: init_decode_state(lm, 1, 4),
     }
+    for name in ("torch_quickstart", "torch_train_gcn", "torch_train_lm",
+                 "torch_serve_lm"):
+        calls[name] = lambda name=name: _example(name).main([])
     with pytest.raises(RuntimeError, match="device='cuda' requested"):
         calls[entry]()
 
