@@ -38,6 +38,7 @@ from repro_torch.models.transformer import (
     model_prefill,
 )
 from repro_torch.runtime.abft_guard import ABFTGuard, GuardConfig
+from repro_torch.runtime.spans import span
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -80,8 +81,9 @@ def fold_lm_w_r(params: Params, cfg: ModelConfig, abft: ABFTConfig) -> Params:
 
 
 def _metrics(rep, checks, abft: ABFTConfig, device) -> dict:
-    ids, op_flags, op_rel = per_op_report(checks, abft, prefix="op",
-                                          device=device)
+    with span("model.report"):
+        ids, op_flags, op_rel = per_op_report(checks, abft, prefix="op",
+                                              device=device)
     return {"abft_flag": rep.flag, "abft_max_rel": rep.max_rel,
             "abft_op_ids": ids, "abft_op_flags": op_flags,
             "abft_op_rel": op_rel}
@@ -170,9 +172,10 @@ class LMEngine:
         """Run the prompt under the guard.  Returns (last-token logits,
         decode states, metrics)."""
         pop = self._fire_once(inject)
-        (logits, states), m = self.guard.run_step(
-            lambda params, batch: self._prefill(params, batch, pop()),
-            self.params, {"tokens": tokens})
+        with span("engine.prefill"):
+            (logits, states), m = self.guard.run_step(
+                lambda params, batch: self._prefill(params, batch, pop()),
+                self.params, {"tokens": tokens})
         return logits, states, m
 
     def decode(self, states: List[Params], tokens: Tensor, pos,
@@ -180,10 +183,11 @@ class LMEngine:
                ) -> Tuple[Tensor, List[Params], dict]:
         """One guarded decode step.  tokens: [B,1]; pos: its position."""
         pop = self._fire_once(inject)
-        (logits, new_states), m = self.guard.run_step(
-            lambda params, states_, tokens_, pos_:
-                self._decode(params, states_, tokens_, pos_, pop()),
-            self.params, states, tokens, pos)
+        with span("engine.decode"):
+            (logits, new_states), m = self.guard.run_step(
+                lambda params, states_, tokens_, pos_:
+                    self._decode(params, states_, tokens_, pos_, pop()),
+                self.params, states, tokens, pos)
         return logits, new_states, m
 
     def generate(self, tokens: Tensor, n_steps: int,

@@ -39,6 +39,7 @@ from repro_torch.analysis.vmem import (FLASH_BLOCK_K, FLASH_BLOCK_Q,
                                         flash_smem_bytes)
 from repro_torch.core.marker import tagging_enabled
 from repro_torch.kernels import acc_dtype, any_dtensor
+from repro_torch.runtime.spans import span
 
 Tensor = torch.Tensor
 DTYPES = (torch.float32, torch.bfloat16)
@@ -207,38 +208,39 @@ def flash_checksum_kernel(q: Tensor, k: Tensor, v: Tensor,
 
         return sites.flash_checksum(q, k, v, vr, causal=causal, window=window,
                                     with_stats=with_stats)
-    if q.device.type == "cpu":
-        return flash_checksum_plain(q, k, v, vr, causal=causal,
-                                    window=window, with_stats=with_stats)
-    from repro_torch.kernels import runtime
+    with span("op.flash_checksum"):
+        if q.device.type == "cpu":
+            return flash_checksum_plain(q, k, v, vr, causal=causal,
+                                        window=window, with_stats=with_stats)
+        from repro_torch.kernels import runtime
 
-    what = "flash_checksum_kernel"
-    b, t, h, dh, s, kh = _check_shapes(q, k, v, vr, causal, window)
-    ops = dict(q=q, k=k, v=v) if vr is None else dict(q=q, k=k, v=v, vr=vr)
-    runtime.require_cuda_operands(what, allow=DTYPES, **ops)
-    lib = runtime.load_library()
-    _agreed_with_library(lib, what, dh, t, s, causal, window)
-    dev = q.device
-    o = torch.empty_like(q)
-    o_extra = None if vr is None else torch.empty((b, t, h),
-                                                  dtype=torch.float32,
-                                                  device=dev)
-    stats = torch.empty((b, t, h, 2), dtype=torch.float32,
-                        device=dev) if with_stats else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.flash_checksum_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if vr is None else vr.data_ptr(), o.data_ptr(),
-            None if o_extra is None else o_extra.data_ptr(),
-            b, t, s, h, kh, dh, float(dh ** -0.5), int(causal),
-            DTYPES.index(q.dtype), stream, int(window),
-            None if stats is None else stats.data_ptr())
-    runtime.check_launch(code, what)
-    flash_checksum_kernel.launches += 1
-    if stats is None:
-        return o, o_extra
-    return o, o_extra, stats[..., 0], stats[..., 1]
+        what = "flash_checksum_kernel"
+        b, t, h, dh, s, kh = _check_shapes(q, k, v, vr, causal, window)
+        ops = dict(q=q, k=k, v=v) if vr is None else dict(q=q, k=k, v=v,
+                                                          vr=vr)
+        runtime.require_cuda_operands(what, allow=DTYPES, **ops)
+        lib = runtime.load_library()
+        _agreed_with_library(lib, what, dh, t, s, causal, window)
+        dev = q.device
+        o = torch.empty_like(q)
+        o_extra = None if vr is None else torch.empty(
+            (b, t, h), dtype=torch.float32, device=dev)
+        stats = torch.empty((b, t, h, 2), dtype=torch.float32,
+                            device=dev) if with_stats else None
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            code = lib.flash_checksum_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if vr is None else vr.data_ptr(), o.data_ptr(),
+                None if o_extra is None else o_extra.data_ptr(),
+                b, t, s, h, kh, dh, float(dh ** -0.5), int(causal),
+                DTYPES.index(q.dtype), stream, int(window),
+                None if stats is None else stats.data_ptr())
+        runtime.check_launch(code, what)
+        flash_checksum_kernel.launches += 1
+        if stats is None:
+            return o, o_extra
+        return o, o_extra, stats[..., 0], stats[..., 1]
 
 
 flash_checksum_kernel.launches = 0

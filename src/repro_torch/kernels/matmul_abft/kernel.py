@@ -44,6 +44,7 @@ from repro_torch.analysis.vmem import (MATMUL_BLOCK_K, MATMUL_SMALL_M,
                                       matmul_tile, matmul_wide_smem_bytes)
 from repro_torch.core.marker import tagging_enabled
 from repro_torch.kernels import acc_dtype, any_dtensor
+from repro_torch.runtime.spans import span
 
 Tensor = torch.Tensor
 DTYPES = (torch.float32, torch.bfloat16)
@@ -216,12 +217,13 @@ def matmul_abft_kernel(a: Tensor, b: Tensor, br: Optional[Tensor] = None,
         from repro_torch.kernels import sites
 
         return sites.matmul_abft(a, b, br, trans_b=trans_b)
-    if a.device.type == "cpu":
-        return matmul_abft_plain(a, b, br, trans_b=trans_b)
-    m, n, k = _check_shapes(a, b, br, trans_b)
-    c, sums, extra = _launch("matmul_abft_kernel", a[None], b[None], br,
-                             trans_b, 1, m, n, k)
-    matmul_abft_kernel.launches += 1
+    with span("op.matmul_abft"):
+        if a.device.type == "cpu":
+            return matmul_abft_plain(a, b, br, trans_b=trans_b)
+        m, n, k = _check_shapes(a, b, br, trans_b)
+        c, sums, extra = _launch("matmul_abft_kernel", a[None], b[None], br,
+                                 trans_b, 1, m, n, k)
+        matmul_abft_kernel.launches += 1
     return c[0], sums[0], None if extra is None else extra[0]
 
 
@@ -328,13 +330,14 @@ def matmul_abft_grouped_kernel(a: Tensor, b: Tensor,
 
         return sites.matmul_abft_grouped(a, b, br, trans_b=trans_b,
                                          rows=rows)
-    if a.device.type == "cpu":
-        return matmul_abft_grouped_plain(a, b, br, trans_b=trans_b,
-                                         rows=rows)
-    g, m, n, k = _check_grouped(a, b, br, trans_b, rows=rows)
-    out = _launch("matmul_abft_grouped_kernel", a, b, br, trans_b, g, m, n,
-                  k, rows)
-    matmul_abft_grouped_kernel.launches += 1
+    with span("op.matmul_abft_grouped"):
+        if a.device.type == "cpu":
+            return matmul_abft_grouped_plain(a, b, br, trans_b=trans_b,
+                                             rows=rows)
+        g, m, n, k = _check_grouped(a, b, br, trans_b, rows=rows)
+        out = _launch("matmul_abft_grouped_kernel", a, b, br, trans_b, g, m,
+                      n, k, rows)
+        matmul_abft_grouped_kernel.launches += 1
     return out
 
 

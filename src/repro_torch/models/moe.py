@@ -49,6 +49,7 @@ from repro_torch.core.abft import ABFTConfig, Check
 from repro_torch.kernels.matmul_abft.ops import matmul_abft_grouped
 from repro_torch.models.common import dense, init_dense, trunc_normal
 from repro_torch.models.mlp import init_mlp, mlp_block
+from repro_torch.runtime.spans import count, recording, span
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -124,76 +125,92 @@ def moe_block(p: Params, x: Tensor, cfg: ModelConfig, abft: ABFTConfig
     checks: List[Check] = []
 
     # --- routing
-    probs, gate_vals, experts, rc = route(p, xt, cfg, abft)
-    checks += rc
-    # load-balancing auxiliary loss (Switch-style)
-    me = probs.mean(0)
-    ce = F.one_hot(experts[:, 0], n_exp).to(torch.float32).mean(0)
-    aux = n_exp * torch.sum(me * ce)
+    with span("moe.route"):
+        probs, gate_vals, experts, rc = route(p, xt, cfg, abft)
+        checks += rc
+        # load-balancing auxiliary loss (Switch-style)
+        me = probs.mean(0)
+        ce = F.one_hot(experts[:, 0], n_exp).to(torch.float32).mean(0)
+        aux = n_exp * torch.sum(me * ce)
 
     # --- capacity assignment
-    flat_expert, slot_pos, keep, cap = assign(experts, mc)
-    gate_keep = torch.where(keep, gate_vals.reshape(-1),
-                            torch.zeros_like(gate_vals.reshape(-1)))
+    with span("moe.assign"):
+        flat_expert, slot_pos, keep, cap = assign(experts, mc)
+        gate_keep = torch.where(keep, gate_vals.reshape(-1),
+                                torch.zeros_like(gate_vals.reshape(-1)))
+        rows = expert_rows(flat_expert, keep, n_exp)
+    if recording():
+        # live rows equal the kept assignments (slots fill from 0)
+        count("moe.assignments", n_tok * k)
+        count("moe.kept", keep.sum())
+        count("moe.capacity_rows", n_exp * cap)
 
     # --- dispatch: kept (token, slot)s to their own rows of [E·cap, d],
     # dropped ones to the dummy row E·cap, cut off
-    tok_idx = torch.arange(n_tok, device=x.device).repeat_interleave(k)
-    row = torch.where(keep, flat_expert * cap + slot_pos,
-                      torch.full_like(slot_pos, n_exp * cap))
-    flat = torch.zeros((n_exp * cap + 1, d), dtype=xt.dtype,
-                       device=x.device).index_put((row,), xt[tok_idx])
-    buf = flat[:n_exp * cap].view(n_exp, cap, d)
+    with span("moe.dispatch"):
+        tok_idx = torch.arange(n_tok, device=x.device).repeat_interleave(k)
+        row = torch.where(keep, flat_expert * cap + slot_pos,
+                          torch.full_like(slot_pos, n_exp * cap))
+        flat = torch.zeros((n_exp * cap + 1, d), dtype=xt.dtype,
+                           device=x.device).index_put((row,), xt[tok_idx])
+        buf = flat[:n_exp * cap].view(n_exp, cap, d)
 
     # --- expert MLPs: one grouped launch a product over all E experts,
     # each multiplying its live rows only (silu(0)·0 = 0: the down
     # product's rows past the counts are zeros too)
     on = abft.enabled
-    brs = [p[w].to(abft.dtype).sum(-1) if on else None
-           for w in ("w_up", "w_gate", "w_down")]
-    rows = expert_rows(flat_expert, keep, n_exp)
+    brs = [None] * 3
     if on:
-        # an expert whose weights are not all finite multiplies every row,
-        # as the reference's einsum does, so that 0·Inf and 0·NaN reach the
-        # checks (the down product's too) exactly as there
-        finite = sum(br.sum(-1) for br in brs).isfinite()
-        rows = torch.where(finite, rows, cap)
-    w_up = p["w_up"].to(buf.dtype)
-    w_gate = p["w_gate"].to(buf.dtype)
-    up, c_up, _ = matmul_abft_grouped(buf, w_up, brs[0], rows)
-    gt, c_gate, _ = matmul_abft_grouped(buf, w_gate, brs[1], rows)
-    g = F.silu(gt) * up                                     # [E, cap, f]
-    # the down launch's extra column with b_r = W₂ e is z_extra [E, cap]
-    z, c_down, z_extra = matmul_abft_grouped(
-        g, p["w_down"].to(g.dtype), brs[2], rows)
+        with span("moe.br"):
+            brs = [p[w].to(abft.dtype).sum(-1)
+                   for w in ("w_up", "w_gate", "w_down")]
+            # an expert whose weights are not all finite multiplies every
+            # row, as the reference's einsum does, so that 0·Inf and 0·NaN
+            # reach the checks (the down product's too) exactly as there
+            finite = sum(br.sum(-1) for br in brs).isfinite()
+            rows = torch.where(finite, rows, cap)
+    with span("moe.experts"):
+        w_up = p["w_up"].to(buf.dtype)
+        w_gate = p["w_gate"].to(buf.dtype)
+        up, c_up, _ = matmul_abft_grouped(buf, w_up, brs[0], rows)
+        gt, c_gate, _ = matmul_abft_grouped(buf, w_gate, brs[1], rows)
+        g = F.silu(gt) * up                                 # [E, cap, f]
+        # the down launch's extra column with b_r = W₂ e is z_extra [E, cap]
+        z, c_down, z_extra = matmul_abft_grouped(
+            g, p["w_down"].to(g.dtype), brs[2], rows)
     if on:
         checks += [c_up, c_gate]
 
     # --- combine: Y = C · Z, a gather and a gate-weighted sum over k
-    safe_slot = torch.where(keep, slot_pos, torch.full_like(slot_pos,
-                                                            cap - 1))
-    gather = flat_expert * cap + safe_slot
-    zg = z.reshape(n_exp * cap, d)[gather]                  # [N·k, d]
-    y = (gate_keep[:, None].to(z.dtype) * zg).reshape(n_tok, k, d).sum(1)
+    with span("moe.combine"):
+        safe_slot = torch.where(keep, slot_pos,
+                                torch.full_like(slot_pos, cap - 1))
+        gather = flat_expert * cap + safe_slot
+        zg = z.reshape(n_exp * cap, d)[gather]              # [N·k, d]
+        y = (gate_keep[:, None].to(z.dtype) * zg).reshape(n_tok, k,
+                                                          d).sum(1)
 
-    if on:
-        gk = gate_keep.to(abft.dtype)
-        actual = y.to(abft.dtype).sum()
-        if abft.mode == "fused":
-            # eᵀ(C·G·W₂)e = (eᵀC)·G·(W₂ e): the down launch's extra column
-            pred = torch.dot(gk, z_extra.reshape(-1)[gather].to(abft.dtype))
-            checks.append(Check(predicted=pred, actual=actual))
-        else:
-            # split: G @ W₂ per expert (the down launch's corners), then
-            # the combine on its own
-            checks.append(c_down)
-            pred = torch.dot(gk, zg.to(abft.dtype).sum(-1))
-            checks.append(Check(predicted=pred, actual=actual))
+        if on:
+            gk = gate_keep.to(abft.dtype)
+            actual = y.to(abft.dtype).sum()
+            if abft.mode == "fused":
+                # eᵀ(C·G·W₂)e = (eᵀC)·G·(W₂ e): the down launch's extra
+                # column
+                pred = torch.dot(gk, z_extra.reshape(-1)[gather].to(
+                    abft.dtype))
+                checks.append(Check(predicted=pred, actual=actual))
+            else:
+                # split: G @ W₂ per expert (the down launch's corners),
+                # then the combine on its own
+                checks.append(c_down)
+                pred = torch.dot(gk, zg.to(abft.dtype).sum(-1))
+                checks.append(Check(predicted=pred, actual=actual))
 
     y = y.reshape(b, t, d)
     # --- shared experts run densely alongside
     if "shared" in p:
-        ys, sc = mlp_block(p["shared"], x, cfg, abft)
-        y = y + ys
+        with span("moe.shared"):
+            ys, sc = mlp_block(p["shared"], x, cfg, abft)
+            y = y + ys
         checks += sc
     return y, checks, aux

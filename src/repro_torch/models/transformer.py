@@ -74,6 +74,7 @@ from repro_torch.models.rwkv6 import (
     rwkv_state_init,
     rwkv_time_mix,
 )
+from repro_torch.runtime.spans import span
 
 Tensor = torch.Tensor
 Params = Dict[str, Any]
@@ -290,22 +291,25 @@ def layer_apply_seq(lp: Params, x: Tensor, btype: str, cfg: ModelConfig,
     if len(cfg.block_pattern) > 1:      # hybrid: local attention
         window = cfg.local_window
     h = norm_apply(x, lp["ln1"], cfg)
-    y, cs, (k, v, kpos, vr) = attention_block(
-        lp["attn"], h, cfg, abft, positions=positions, window=window)
+    with span("attn"):
+        y, cs, (k, v, kpos, vr) = attention_block(
+            lp["attn"], h, cfg, abft, positions=positions, window=window)
     x = x + y
     checks += cs
     if enc_out is not None:
         h = norm_apply(x, lp["lnx"], cfg)
-        y, cs, (xk, xv, _, xvr) = attention_block(
-            lp["xattn"], h, cfg, abft, kv_x=enc_out, positions=positions,
-            causal=False, use_rope=False)
+        with span("attn"):
+            y, cs, (xk, xv, _, xvr) = attention_block(
+                lp["xattn"], h, cfg, abft, kv_x=enc_out,
+                positions=positions, causal=False, use_rope=False)
         x = x + y
         checks += cs
     h = norm_apply(x, lp["ln2"], cfg)
     if "moe" in lp:
         y, cs, aux = moe_block(lp["moe"], h, cfg, abft)
     else:
-        y, cs = mlp_block(lp["mlp"], h, cfg, abft)
+        with span("mlp"):
+            y, cs = mlp_block(lp["mlp"], h, cfg, abft)
     x = x + y
     checks += cs
     new_state = None
@@ -367,13 +371,15 @@ def layer_apply_decode(lp: Params, x: Tensor, btype: str, cfg: ModelConfig,
     if len(cfg.block_pattern) > 1:
         window = cfg.local_window
     h = norm_apply(x, lp["ln1"], cfg)
-    y, new_state, checks = attention_decode(lp["attn"], h, state, pos, cfg,
-                                            abft, window=window)
+    with span("attn"):
+        y, new_state, checks = attention_decode(lp["attn"], h, state, pos,
+                                                cfg, abft, window=window)
     x = x + y
     if "xattn" in lp:
         h = norm_apply(x, lp["lnx"], cfg)
-        y, cs = _cross_attention_decode(lp["xattn"], h, state, pos, cfg,
-                                        abft)
+        with span("attn"):
+            y, cs = _cross_attention_decode(lp["xattn"], h, state, pos, cfg,
+                                            abft)
         x = x + y
         checks += cs
         new_state = dict(new_state, xk=state["xk"], xv=state["xv"],
@@ -382,7 +388,8 @@ def layer_apply_decode(lp: Params, x: Tensor, btype: str, cfg: ModelConfig,
     if "moe" in lp:
         y, cs, _ = moe_block(lp["moe"], h, cfg, abft)
     else:
-        y, cs = mlp_block(lp["mlp"], h, cfg, abft)
+        with span("mlp"):
+            y, cs = mlp_block(lp["mlp"], h, cfg, abft)
     x = x + y
     return x, checks + cs, new_state
 
@@ -398,7 +405,9 @@ def _apply_segments(params_segs, cfg: ModelConfig, x: Tensor,
     for si, ((pattern, count), seg_p) in enumerate(
             zip(seg_structure(cfg), params_segs)):
         per_unit, outs = [], []
-        for ui, unit_p in enumerate(_unstack(seg_p, count)):
+        with span("model.params"):
+            units = _unstack(seg_p, count)
+        for ui, unit_p in enumerate(units):
             x, cs, ns = unit_fn(x, unit_p, si, ui, pattern)
             per_unit.append(cs)
             outs.append(ns)
@@ -407,7 +416,11 @@ def _apply_segments(params_segs, cfg: ModelConfig, x: Tensor,
                 all_checks += cs
         else:
             all_checks += _stack_checks(per_unit)
-        states.append(None if outs[0] is None else _stack(outs))
+        if outs[0] is None:
+            states.append(None)
+        else:
+            with span("model.cache"):
+                states.append(_stack(outs))
     return x, all_checks, states
 
 
@@ -455,9 +468,10 @@ def _run_layers(params_segs, cfg: ModelConfig, x: Tensor, abft: ABFTConfig,
         cs_all: List[Check] = []
         ns = {}
         for i, bt in enumerate(pattern):
-            x, cs, a, ns[f"b{i}"] = layer_apply_seq(
-                unit_p[f"b{i}"], x, bt, cfg, abft, None, enc_out, None,
-                build_cache, cache_len)
+            with span("model.layer"):
+                x, cs, a, ns[f"b{i}"] = layer_apply_seq(
+                    unit_p[f"b{i}"], x, bt, cfg, abft, None, enc_out, None,
+                    build_cache, cache_len)
             cs_all += cs
             aux[0] = aux[0] + a
         return x, cs_all, (ns if build_cache else None)
@@ -587,14 +601,17 @@ def model_prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
         with attention_fault_injection(attn_inject):
             return model_prefill(params, cfg, batch, abft, cache_len,
                                  return_checks=return_checks)
-    x, _offset, enc_out, checks = _embed_inputs(params, cfg, batch, abft)
+    with span("model.embed"):
+        x, _offset, enc_out, checks = _embed_inputs(params, cfg, batch, abft)
     x, cs, _aux, states = _run_layers(params["segments"], cfg, x, abft,
                                       enc_out, True, cache_len)
     checks += cs
-    x = norm_apply(x, params["final_norm"], cfg)
-    logits, lc = _lm_head(params, cfg, x[:, -1:], abft)
+    with span("model.head"):
+        x = norm_apply(x, params["final_norm"], cfg)
+        logits, lc = _lm_head(params, cfg, x[:, -1:], abft)
     checks += lc
-    rep = summarize(checks, abft, device=logits.device)
+    with span("model.report"):
+        rep = summarize(checks, abft, device=logits.device)
     if return_checks:
         return logits, states, rep, checks
     return logits, states, rep
@@ -613,28 +630,33 @@ def model_decode(params: Params, cfg: ModelConfig, states: List[Params],
             return model_decode(params, cfg, states, tokens, pos, abft,
                                 return_checks=return_checks)
     pos = int(pos)
-    x = embed(params["embed"], tokens, cfg)
-    if cfg.family == "encdec":
-        positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
-                               device=x.device)
-        x = x + sinusoid_positions(positions, cfg.d_model, x.dtype)
+    with span("model.embed"):
+        x = embed(params["embed"], tokens, cfg)
+        if cfg.family == "encdec":
+            positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                                   device=x.device)
+            x = x + sinusoid_positions(positions, cfg.d_model, x.dtype)
 
     def unit_fn(x, unit_p, si, ui, pattern):
         unit_state = _index(states[si], ui)
         cs_all: List[Check] = []
         ns = {}
         for i, bt in enumerate(pattern):
-            x, cs, ns[f"b{i}"] = layer_apply_decode(
-                unit_p[f"b{i}"], x, bt, cfg, abft, pos, unit_state[f"b{i}"])
+            with span("model.layer"):
+                x, cs, ns[f"b{i}"] = layer_apply_decode(
+                    unit_p[f"b{i}"], x, bt, cfg, abft, pos,
+                    unit_state[f"b{i}"])
             cs_all += cs
         return x, cs_all, ns
 
     x, checks, new_states = _apply_segments(params["segments"], cfg, x, abft,
                                             unit_fn)
-    x = norm_apply(x, params["final_norm"], cfg)
-    logits, lc = _lm_head(params, cfg, x, abft)
+    with span("model.head"):
+        x = norm_apply(x, params["final_norm"], cfg)
+        logits, lc = _lm_head(params, cfg, x, abft)
     checks += lc
-    rep = summarize(checks, abft, device=logits.device)
+    with span("model.report"):
+        rep = summarize(checks, abft, device=logits.device)
     if return_checks:
         return logits, new_states, rep, checks
     return logits, new_states, rep

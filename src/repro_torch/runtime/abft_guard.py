@@ -32,7 +32,7 @@ escalate straight to restore->replay with exponential backoff
 so the serving layer (``engine.streaming.StreamingEngine``) can drain,
 checkpoint, and swap to a degraded backend.  ``repair_tiers()`` surfaces
 the slot/stripe/graph/restore repair distribution plus the
-persistent-site and backoff state for serve stats and BENCH payloads.
+persistent-site and backoff state for serve stats.
 
 Batched multi-graph serving uses :meth:`ABFTGuard.run_step_graphs` instead:
 the step emits a *per-graph* verdict vector (the packed block-ELL segmented
@@ -71,6 +71,8 @@ import time
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
+
+from .spans import span
 
 log = logging.getLogger(__name__)
 
@@ -229,13 +231,24 @@ class ABFTGuard:
         step_flagged = False
         metrics = None
         for attempt in range(self.cfg.max_retries + 1):
-            out, metrics = step_fn(*args)
             if attempt:
+                with span("guard.repair"):
+                    out, metrics = step_fn(*args)
                 # counted AFTER the call returns: ``retries`` means
                 # re-executions performed, never intents — the same
                 # convention as run_step_graphs' partial retries
                 self.retries += 1
-            flagged = bool(metrics["abft_flag"])
+            else:
+                out, metrics = step_fn(*args)
+            with span("guard.verdict"):
+                # the step's one host sync
+                flagged = bool(metrics["abft_flag"])
+                persistent = False
+                if flagged and not step_flagged:
+                    step_flagged = True
+                    self.flags += 1
+                    sites = self._flag_sites(metrics, np.zeros((0,), bool))
+                    persistent = bool(sites and self._note_sites(sites))
             if not flagged:
                 if attempt:
                     log.warning("ABFT: retry %d succeeded", attempt)
@@ -246,22 +259,19 @@ class ABFTGuard:
             # the flagged attempt's outputs are dropped before the retry
             # runs: a train step's new state is as large as its input
             out = None
-            if not step_flagged:
-                step_flagged = True
-                self.flags += 1
-                sites = self._flag_sites(metrics, np.zeros((0,), bool))
-                if sites and self._note_sites(sites):
-                    # a known-persistent site flagged again: retrying the
-                    # same execution path is wasted work
-                    log.error("ABFT: persistent site(s) %s re-flagged — "
-                              "skipping retries, restoring",
-                              sorted(sites & self.persistent_sites))
-                    break
+            if persistent:
+                # a known-persistent site flagged again: retrying the
+                # same execution path is wasted work
+                log.error("ABFT: persistent site(s) %s re-flagged — "
+                          "skipping retries, restoring",
+                          sorted(sites & self.persistent_sites))
+                break
             log.error("ABFT flag on step %d (attempt %d): max_rel=%.3e",
                       self.steps, attempt, float(metrics.get("abft_max_rel", -1)))
         # persistent failure: roll back, replay, and re-verify
         self._recent.append(True)
-        return self._restore_and_replay(step_fn, args)
+        with span("guard.repair"):
+            return self._restore_and_replay(step_fn, args)
 
     def run_step_graphs(self, step_fn: Callable[..., Tuple[Any, Any]],
                         retry_fn: Callable[[Any, np.ndarray],
@@ -564,12 +574,15 @@ class ABFTGuard:
             if adopt_state and restored is not None and args:
                 replay_args = (restored,) + tuple(args[1:])
             out, metrics = step_fn(*replay_args)
-            # batch steps are only required to emit the per-graph vector
-            flag = metrics.get(
-                "abft_flag",
-                _host(metrics["abft_graph_flags"]).any()
-                if "abft_graph_flags" in metrics else True)
-            if not bool(_host(flag).any()):
+            with span("guard.verdict"):
+                # batch steps are only required to emit the per-graph
+                # vector
+                flag = metrics.get(
+                    "abft_flag",
+                    _host(metrics["abft_graph_flags"]).any()
+                    if "abft_graph_flags" in metrics else True)
+                clean = not bool(_host(flag).any())
+            if clean:
                 log.warning("ABFT: replay after restore %d verified clean", r)
                 return out, metrics
         raise UnverifiableBatch(
@@ -584,10 +597,6 @@ class ABFTGuard:
             return 0.0
         return sum(self._recent) / len(self._recent)
 
-    @property
-    def lifetime_flag_rate(self) -> float:
-        return self.flags / max(self.steps, 1)
-
     def should_evict(self) -> bool:
         seen = len(self._recent)
         need = min(self.cfg.min_samples, self.cfg.window)
@@ -595,8 +604,8 @@ class ABFTGuard:
 
     def repair_tiers(self) -> dict:
         """The repair-tier distribution + persistent-fault/backoff state,
-        JSON-ready — surfaced by serve() stats, StreamingEngine.stats(),
-        and the BENCH payloads."""
+        JSON-ready — surfaced by serve() stats and
+        StreamingEngine.stats()."""
         return {
             "slot": self.slot_retries,
             "stripe": self.stripe_retries,
