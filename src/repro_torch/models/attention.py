@@ -96,9 +96,9 @@ class attention_fault_injection:
     ``attn_inject=...``) set this around their body so that every
     attention call inside adds the same delta to element 0 of its
     accumulator O = A·V (every layer: per-layer addressing goes through
-    the weight sites instead).  An accumulator upset is exactly what the
-    eq. 4–6 chain check must catch, because the carried column o_extra is
-    accumulated independently."""
+    the weight sites instead); a zero delta binds no site.  An
+    accumulator upset is exactly what the eq. 4–6 chain check must catch,
+    because the carried column o_extra is accumulated independently."""
 
     def __init__(self, value):
         self.value = value
@@ -115,7 +115,11 @@ class attention_fault_injection:
 
 def _maybe_inject(o: Tensor) -> Tensor:
     val = _ATTN_INJECT["value"]
-    if val is None:
+    # a zero delta binds no site: the mask's host-written element and the
+    # host scalar are host-to-device copies that wait for the card, twice
+    # a layer on every clean step.  A tensor delta keeps the site, since
+    # testing it for zero would read it on the host.
+    if val is None or (isinstance(val, (int, float)) and val == 0):
         return o
     # a select, not an indexed write: on a sharded o (DTensor) the write
     # would land in a redistributed temporary

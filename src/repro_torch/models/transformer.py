@@ -595,8 +595,9 @@ def model_prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Tensor],
     first).
 
     ``attn_inject``, when given, is added to element 0 of every attention
-    accumulator O = A·V (the fault-campaign accumulator site); 0.0 is a
-    fault-free step."""
+    accumulator O = A·V (the fault-campaign accumulator site); a zero
+    delta (0.0 or -0.0) binds no site, so a clean step's O is the
+    kernel's own."""
     if attn_inject is not None:
         with attention_fault_injection(attn_inject):
             return model_prefill(params, cfg, batch, abft, cache_len,
