@@ -62,6 +62,11 @@ class Context:
         return self.cell.config["run"]
 
     @property
+    def layout(self):
+        """The configuration's layout (``bench/layouts/``)."""
+        return bspec.layout_module(self.cell.config)
+
+    @property
     def checked(self) -> bool:
         """Whether the cell's engine runs the ABFT checks."""
         return self.cell.workload["guard"]["mode"] != "none"
@@ -257,7 +262,7 @@ def run_cell(cell: bspec.Cell, seed: int, seconds: float, traced: bool,
     config, wl = cell.config, cell.workload
     run = config["run"]
     traffic = Traffic(wl["traffic"], seed, run["vocab_size"])
-    params = weights.draw(run, seed, device)
+    params = weights.draw(run, seed, device, bspec.layout_module(config))
     # the cell's ABFT setting: {"mode": "fused", "threshold", "relative"}
     # checks every product and attention chain, {"mode": "none"} none
     abft = ABFTConfig(**wl["guard"])

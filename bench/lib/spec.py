@@ -4,7 +4,9 @@ A cell ``<name>`` reads ``bench/workloads/<name>.json`` (its configuration,
 ABFT setting, traffic and comparison); its configuration the ``file`` its
 entry names; each metric ``<metric>`` its entry in ``BENCHMARK.json``, its
 reader ``bench/metrics/<metric>.py`` and, where the reader needs more (the
-kernel names a roofline sums), ``bench/metrics/<metric>.json``."""
+kernel names a roofline sums), ``bench/metrics/<metric>.json``.  A
+configuration's layout is the module its ``layout`` path names
+(``bench/layouts/decoder.py`` without one)."""
 from __future__ import annotations
 
 import importlib.util
@@ -86,8 +88,17 @@ def load(root: Path, cell_name: str) -> Cell:
                    if _applies(m, cell_name)])
 
 
+def _path_module(rel: str):
+    """The module at the path ``rel`` (from the checkout's root)."""
+    return importlib.import_module(".".join(Path(rel).with_suffix("").parts))
+
+
 def reference_module(config: dict):
     """The configuration's plain reference (its ``reference`` file)."""
-    rel = Path(config["reference"])
-    mod = ".".join(rel.with_suffix("").parts)
-    return importlib.import_module(mod)
+    return _path_module(config["reference"])
+
+
+def layout_module(config: dict):
+    """The configuration's layout (its ``layout`` file, as ``reference``;
+    ``bench/layouts/decoder.py`` without one)."""
+    return _path_module(config.get("layout", "bench/layouts/decoder.py"))

@@ -9,6 +9,7 @@ def read(ctx):
     spent = ctx.trace.device_seconds(ctx.metric.extra["kernels"])
     if spent <= 0:
         return None
-    least = sum(arith.flash_least_s(ctx.run, b.size, b.prompt_len, ctx.checked)
+    least = sum(arith.flash_least_s(ctx.run, b.size, b.prompt_len, ctx.checked,
+                                    ctx.layout)
                 for b in ctx.batches)
     return 100.0 * least / spent

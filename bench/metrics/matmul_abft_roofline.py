@@ -11,6 +11,6 @@ def read(ctx):
     if spent <= 0:
         return None
     least = sum(arith.matmul_least_s(ctx.run, b.size, b.prompt_len, b.new,
-                                     ctx.checked)
+                                     ctx.checked, ctx.layout)
                 for b in ctx.batches)
     return 100.0 * least / spent

@@ -4,7 +4,8 @@ references of each family (``dense_gqa.py``, ``moe.py``).
 Written from the published descriptions, not from the program under test:
 this package imports nothing of the port and nothing of JAX.  It reads the
 weight tensors the benchmark drew, in the param-tree layout the benchmark
-hands to the program (``weights.py``), and works everything else out again.
+hands to the program (``bench/layouts/decoder.py``), and works everything
+else out again.
 
 Conventions (those of the configurations' ``assumed`` notes): RMSNorm
 weights are held as ``1 + scale``; rotary embeddings turn interleaved pairs

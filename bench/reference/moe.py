@@ -10,15 +10,17 @@ dropped.  A token's output is the gate-weighted sum of its kept experts'
 SwiGLU MLPs plus the shared experts' MLP.
 
 Near ties.  Where a compared position's k-th and (k+1)-th router logits lie
-closer than ``tie`` (a few hundred float32 roundings of a logit), float32
-rounding alone may put either expert in the top k, in the program as here.
+closer than ``tie``, float32 rounding may put either expert in the top k,
+in the program as here: directly, or through an earlier position's own
+near tie, which reaches the compared position through attention and moves
+its router logits by up to a few thousandths (``tie`` is a cell's setting).
 For each such position the reference then also follows the position alone
 through the remaining layers with the two swapped (up to ``MAX_TIES`` such
 layers, the closest ones, in every combination), over the keys and values
 the main pass kept, and returns every outcome as a candidate: the
-comparison takes the candidate nearest the program's logits.  An earlier
-position's own near tie reaches a compared position only through attention,
-which the limits absorb."""
+comparison takes the candidate nearest the program's logits.  What an
+earlier position's near tie does to a compared position besides, the
+limits absorb."""
 from __future__ import annotations
 
 import itertools

@@ -49,6 +49,29 @@ def test_flash_bound_causal_pairs():
     assert nbytes == 4 * (2 * 4 * 32 * 128 + 2 * 4 * 2 * 128)
 
 
+def test_flash_bound_keys_wider_than_values():
+    # DeepSeek-V2-Lite's latent attention: q·k over 192, p·v over 128
+    b, t, s, h = 1, 6, 6, 16
+    pairs = h * 21
+    _, ops, nbytes = arith.flash_bound(b, t, s, h, h, 192, dv=128)
+    assert ops == pairs * (2 * 192 + 2 * 128 + 2)
+    assert nbytes == 4 * (t * h * 192 + t * h * 128 + s * h * 192
+                          + s * h * 128 + s * h + t * h)
+    _, ops, nbytes = arith.flash_bound(b, t, s, h, h, 192, False, dv=128)
+    assert (ops, nbytes) == (pairs * (2 * 192 + 2 * 128),
+                             4 * (t * h + s * h) * (192 + 128))
+    # at dk = dv the formula of one width dh: 4·dh a pair, 2·dh a row
+    for checked in (True, False):
+        for dh in (64, 128, 256):
+            old_ops = 32 * 10 * (4 * dh + (2 if checked else 0))
+            old_bytes = 4 * (2 * 4 * 32 * dh + 2 * 4 * 2 * dh) + \
+                (4 * (4 * 32 + 4 * 32) if checked else 0)
+            t_old = max(old_ops / 67e12, old_bytes / 3.35e12)
+            assert arith.flash_bound(1, 4, 4, 32, 2, dh, checked, dv=dh) == \
+                arith.flash_bound(1, 4, 4, 32, 2, dh, checked) == \
+                (t_old, old_ops, old_bytes)
+
+
 def test_step_products_chatglm():
     prods = arith.step_products(RUN["chatglm3-6b"], 16, 1024)
     layer = [(16384, 4096, 4096, True), (16384, 4096, 256, True),
